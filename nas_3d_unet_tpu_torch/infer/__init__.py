@@ -1,0 +1,1 @@
+"""infer of the PyTorch port (see the package docstring)."""

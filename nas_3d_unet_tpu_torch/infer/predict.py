@@ -1,0 +1,138 @@
+"""Whole-volume prediction over patient records, in PyTorch.
+
+Counterpart of `nas_3d_unet_tpu/infer/predict.py`: per patient, sliding-
+window region probabilities → threshold → BraTS labels {0,1,2,4} decoded on
+the device → un-crop to the scan geometry → optional `.nii.gz` → per-region
+Dice (WT/TC/ET) when a ground-truth label is present.
+
+A record is a dict: "patient" (name), "image" ((D, H, W, C) fp32, numpy or
+tensor; "image_dev" may hold a copy already on the device), "crop_start",
+"orig_shape", and optionally "label" ("label_dev"), "affine".
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import queue
+import threading
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..metrics.dice import labels_to_regions, region_dice
+from .sliding import SlidingWindowPredictor
+
+
+def uncrop_labels(labels: np.ndarray, crop_start, orig_shape) -> np.ndarray:
+    """Place a cropped label map back into the original volume geometry."""
+    out = np.zeros(tuple(int(s) for s in orig_shape), dtype=labels.dtype)
+    s = [int(v) for v in crop_start]
+    out[s[0]:s[0] + labels.shape[0],
+        s[1]:s[1] + labels.shape[1],
+        s[2]:s[2] + labels.shape[2]] = labels
+    return out
+
+
+def _dispatch_patient(predictor: SlidingWindowPredictor, rec: Dict,
+                      threshold: float):
+    """Queue one patient's device work: labels and (with a label) Dice, both
+    left on the device."""
+    labels_dev = predictor.predict_labels(rec.get("image_dev", rec["image"]),
+                                          threshold=threshold)
+    dice_dev = None
+    if "label" in rec:
+        true = rec.get("label_dev")
+        if true is None:
+            true = torch.as_tensor(rec["label"], device=labels_dev.device)
+        dice_dev = region_dice(labels_to_regions(labels_dev),
+                               labels_to_regions(true))
+    return labels_dev, dice_dev
+
+
+def _finalize_patient(labels_dev: torch.Tensor, dice_dev, rec: Dict,
+                      out_dir: Optional[str]) -> Dict:
+    """Host side of one patient: label readback (waits for the device) →
+    uncrop → NIfTI write → Dice scalars."""
+    labels = labels_dev.cpu().numpy()
+    full = uncrop_labels(labels, rec["crop_start"], rec["orig_shape"])
+    result: Dict = {"patient": rec["patient"]}
+    if out_dir is not None:
+        # imported here so that the port's import graph holds nothing of the
+        # JAX package unless NIfTI is written (nifti.py itself is numpy only)
+        from nas_3d_unet_tpu.io.nifti import write_nifti
+
+        os.makedirs(out_dir, exist_ok=True)
+        out_path = os.path.join(out_dir, rec["patient"] + ".nii.gz")
+        write_nifti(out_path, full, rec.get("affine"))
+        result["output"] = out_path
+    if dice_dev is not None:
+        dice = dice_dev.cpu().numpy()
+        result["dice"] = {"WT": float(dice[0]), "TC": float(dice[1]),
+                          "ET": float(dice[2])}
+    return result
+
+
+def predict_patient(predictor: SlidingWindowPredictor, rec: Dict,
+                    out_dir: Optional[str] = None,
+                    threshold: float = 0.5) -> Dict:
+    """One patient end to end; `seconds` spans predict, decode, readback and
+    uncrop (the NIfTI write and Dice scalars are not timed)."""
+    t0 = time.perf_counter()
+    labels_dev, dice_dev = _dispatch_patient(predictor, rec, threshold)
+    labels_dev.cpu()                                  # wait for the device
+    elapsed = time.perf_counter() - t0
+    result = _finalize_patient(labels_dev, dice_dev, rec, out_dir)
+    result["seconds"] = elapsed
+    return result
+
+
+def predict_records(predictor: SlidingWindowPredictor, records,
+                    out_dir: Optional[str] = None, threshold: float = 0.5,
+                    verbose: bool = True) -> List[Dict]:
+    """Pipelined loop over `(path, record)` pairs.
+
+    The main thread queues each patient's device work; a writer thread does
+    the label readback (the point that waits for the device), uncrop, NIfTI
+    write and Dice scalars, so patient i's host work overlaps patient i+1's
+    device work.  Results come back in patient order.  Each result's
+    `seconds` is that patient's dispatch → finalize wall time, which includes
+    time queued behind the previous patient."""
+    results: List[Dict] = []
+    # at most two dispatched patients wait: enough to keep the device busy
+    # through one finalize, few enough that label volumes don't pile up
+    q: "queue.Queue" = queue.Queue(maxsize=2)
+    end = object()
+    err: List[BaseException] = []
+
+    def writer():
+        while True:
+            item = q.get()
+            if item is end:
+                return
+            if err:
+                continue                                  # unblock producers
+            rec, labels_dev, dice_dev, t_disp = item
+            try:
+                res = _finalize_patient(labels_dev, dice_dev, rec, out_dir)
+                res["seconds"] = time.perf_counter() - t_disp
+                if verbose:
+                    print(json.dumps(res))
+                results.append(res)   # FIFO queue → patient order
+            except BaseException as e:  # re-raised by the main thread
+                err.append(e)
+
+    wt = threading.Thread(target=writer, daemon=True)
+    wt.start()
+    try:
+        for _path, rec in records:
+            labels_dev, dice_dev = _dispatch_patient(predictor, rec, threshold)
+            q.put((rec, labels_dev, dice_dev, time.perf_counter()))
+    finally:
+        q.put(end)
+        wt.join()
+    if err:
+        raise RuntimeError("patient finalize failed") from err[0]
+    return results

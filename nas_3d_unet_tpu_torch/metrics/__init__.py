@@ -1,0 +1,1 @@
+"""metrics of the PyTorch port (see the package docstring)."""

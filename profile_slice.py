@@ -1,0 +1,216 @@
+#!/usr/bin/env python3
+"""Where one patient's serving time goes, on one NVIDIA GPU.
+
+    python3 profile_slice.py
+
+Serves one synthetic 160x192x152x4 patient with the flagship net (the
+settings of `chip_smoke.py`) under `torch.profiler`, after one warm-up
+patient and three timed unprofiled ones.  Every device activity (kernel,
+memcpy, memset) is attributed to the innermost op module whose forward
+launched it (forward hooks open a `record_function` range per module; a
+kernel belongs to the range around its launch call), and classed by its
+kernel name.  Prints one JSON object:
+
+  wall_s_unprofiled   host seconds per patient, three runs
+  window_ms           the profiled patient, host range around it
+  device_sum_ms       sum of device activity durations
+  device_busy_ms      union of device activity intervals in the window
+  idle_share          1 - device_busy_ms / window_ms
+  overlapped_ms_by_class, by_stream_ms   why device_sum_ms > device_busy_ms
+  by_module_ms, by_module_and_class_ms, by_class_ms, top_kernels_ms
+
+Needs CUDA; imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import bisect
+import collections
+import json
+import os
+import re
+import subprocess
+import sys
+import tempfile
+import time
+
+import torch
+from torch.profiler import ProfilerActivity, profile, record_function
+
+CLASSES = [   # (class, kernel-name pattern), first match wins
+    ("K1 conv3x3x3_stats", r"gemm_moments_kernel<\d+, true>"),
+    ("K2 gemm_stats", r"gemm_moments_kernel<\d+, false>"),
+    ("K1/K2 moments reduce", r"moments_reduce_kernel"),
+    ("cuDNN layout transform", r"nhwcToNchw|nchwToNhwc"),
+    ("cuDNN conv", r"conv|xmma_fprop|cudnn"),
+    ("cuBLAS gemm", r"gemm"),
+    ("reduction", r"reduce_kernel"),
+    ("elementwise", r"elementwise|Fill|copy|cat|index"),
+]
+DEVICE_CATS = {"kernel", "gpu_memcpy", "gpu_memset"}
+OUTSIDE = "outside the net (pad, patch stack, sigmoid, stitch, decode)"
+
+
+def kernel_class(name: str, cat: str) -> str:
+    if cat != "kernel":
+        return cat
+    for cls, pat in CLASSES:
+        if re.search(pat, name):
+            return cls
+    return "other"
+
+
+def module_tag(m) -> str | None:
+    from nas_3d_unet_tpu_torch.models.unet import DerivedNet
+    from nas_3d_unet_tpu_torch.ops.primitives import (ConvNormAct, SepConv,
+                                                      UpTranspose)
+    if isinstance(m, ConvNormAct):
+        return (f"ConvNormAct k{m.kernel} s{m.stride}"
+                + (" d2" if m.dilation == 2 else ""))
+    if isinstance(m, SepConv):
+        return f"SepConv s{m.stride}"
+    if isinstance(m, UpTranspose):
+        return "UpTranspose"
+    if isinstance(m, DerivedNet):
+        return "DerivedNet (node sums, head)"
+    return None
+
+
+def annotate_modules(net) -> None:
+    """Open a record_function range named `mod:<tag>` around each tagged
+    module's forward."""
+    open_ranges = []
+
+    def enter(name):
+        def hook(mod, args):
+            rf = record_function("mod:" + name)
+            rf.__enter__()
+            open_ranges.append(rf)
+        return hook
+
+    def leave(mod, args, out):
+        open_ranges.pop().__exit__(None, None, None)
+
+    for m in net.modules():
+        tag = module_tag(m)
+        if tag:
+            m.register_forward_pre_hook(enter(tag))
+            m.register_forward_hook(leave)
+
+
+def union_ms(intervals, lo, hi) -> float:
+    """Length of the union of (start, end) intervals clipped to [lo, hi]."""
+    busy, end = 0.0, lo
+    for s, e in sorted(intervals):
+        s, e = max(s, end), min(e, hi)
+        if e > s:
+            busy += e - s
+            end = e
+    return busy / 1e3
+
+
+def attribute(trace) -> dict:
+    evs = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
+    window = [e for e in evs if e.get("cat") == "user_annotation"
+              and e["name"] == "patient"]
+    if len(window) != 1:
+        raise AssertionError(f"{len(window)} 'patient' ranges in the trace")
+    lo, hi = window[0]["ts"], window[0]["ts"] + window[0]["dur"]
+    ranges = sorted((e["ts"], e["ts"] + e["dur"], e["name"][4:])
+                    for e in evs if e.get("cat") == "user_annotation"
+                    and e["name"].startswith("mod:"))
+    starts = [r[0] for r in ranges]
+    launch_ts = {e["args"]["correlation"]: e["ts"] for e in evs
+                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                 and "correlation" in e.get("args", {})}
+
+    def owner(ts):
+        # ranges nest, so the innermost one holding ts starts last
+        for s, e, tag in reversed(ranges[:bisect.bisect_right(starts, ts)]):
+            if e >= ts:
+                return tag
+        return OUTSIDE
+
+    dev = [e for e in evs if e.get("cat") in DEVICE_CATS
+           and e["ts"] < hi and e["ts"] + e["dur"] > lo]
+    if not any(e["cat"] == "kernel" for e in dev):
+        raise AssertionError("no kernel ran on the device in the window")
+    by_mod, by_both, by_cls = (collections.Counter() for _ in range(3))
+    top, unlinked = collections.Counter(), 0
+    for e in dev:
+        corr = e.get("args", {}).get("correlation")
+        if corr in launch_ts:
+            tag = owner(launch_ts[corr])
+        else:
+            tag, unlinked = "unlinked", unlinked + 1
+        cls = kernel_class(e["name"], e["cat"])
+        ms = e["dur"] / 1e3
+        by_mod[tag] += ms
+        by_both[f"{tag} | {cls}"] += ms
+        by_cls[cls] += ms
+        top[e["name"][:90]] += ms
+    # where the sum exceeds the union: time an activity shares with the
+    # ones that started before it, by its class, and each stream's share
+    overlap, by_stream, end = collections.Counter(), collections.Counter(), lo
+    for e in sorted(dev, key=lambda e: e["ts"]):
+        shared = min(end, e["ts"] + e["dur"]) - e["ts"]
+        if shared > 0:
+            overlap[kernel_class(e["name"], e["cat"])] += shared / 1e3
+        end = max(end, e["ts"] + e["dur"])
+        by_stream[f"stream {e.get('tid')}"] += e["dur"] / 1e3
+    busy = union_ms([(e["ts"], e["ts"] + e["dur"]) for e in dev], lo, hi)
+    return {"window_ms": (hi - lo) / 1e3,
+            "device_sum_ms": sum(e["dur"] for e in dev) / 1e3,
+            "device_busy_ms": busy,
+            "idle_share": 1 - busy / ((hi - lo) / 1e3),
+            "device_events": len(dev), "unlinked_events": unlinked,
+            "overlapped_ms_by_class": dict(overlap.most_common()),
+            "by_stream_ms": dict(by_stream.most_common()),
+            "by_module_ms": dict(by_mod.most_common()),
+            "by_module_and_class_ms": dict(by_both.most_common()),
+            "by_class_ms": dict(by_cls.most_common()),
+            "top_kernels_ms": dict(top.most_common(15))}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("profile_slice: no CUDA device; nothing measured",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from chip_smoke import flagship_predictor, synthetic_records
+    from nas_3d_unet_tpu_torch.utils.precision import strict_fp32
+
+    dev = torch.device("cuda", 0)
+    predictor = flagship_predictor(dev, seed=0)
+    annotate_modules(predictor.model)
+    recs = synthetic_records(dev, seed=0, n=5)
+    walls = []
+    with strict_fp32():
+        for rec in recs[:4]:                     # warm-up, then three timed
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            predictor.predict_labels(rec["image_dev"])
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with record_function("patient"):
+                predictor.predict_labels(recs[4]["image_dev"])
+                torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    out = {"card": smi, "wall_s_unprofiled": walls[1:], **attribute(trace)}
+    print(json.dumps(out, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
