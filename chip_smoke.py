@@ -3,34 +3,56 @@
 
     python3 chip_smoke.py [--seed N]
 
-Phases, each printed as one JSON line:
+Phases, each printed as JSON lines:
   1. device: CUDA must be present (else exit 2); the card's name and power
      limit from nvidia-smi.
-  2. build: compiles nas_3d_unet_tpu_torch/csrc/*.cu from scratch (nvcc,
-     sm_90a) and times it.
-  3. kernels: K1 conv3x3x3_stats and K2 gemm_stats against their plain
-     PyTorch twins at every geometry the flagship net gives them (batch 2),
-     plus a dilation-2 K1 case; max abs/rel differences beside the limits,
-     and kernel and twin times from CUDA events.
+  2. build: compiles nas_3d_unet_tpu_torch/csrc/*.cu from scratch (one
+     nvcc per source, in parallel, sm_90a) and times it.
+  3. kernels: the serving kernels in fp32 against their plain PyTorch twins
+     at every geometry the flagship net gives them (batch 2): K1
+     conv3x3x3_stats (plus a dilation-2 case), K2 gemm_stats and K5a
+     moments.
   4. slice: the flagship derived net (default_genotype(3), base 16, depth
      3, fp32, random weights from --seed through the flax bridge) serves
      synthetic 160x192x152x4 patients through SlidingWindowPredictor +
      predict_records (128^3 windows, overlap 0.5, patch batch 2).  Checks:
-     labels uint8 in {0,1,2,4}, finite Dice, K1/K2 launch counts equal to
-     (launches per forward) x (forwards), one patch's logits against the
-     same net forced onto the twins, and that the shapes the net hands the
-     kernels are exactly phase 3's geometries.
-Then the nvidia-smi line, the kernels summary line (`ms` / `plain_ms`: one
-flagship forward's worth at batch 2, the sum over geometries of launches
-per forward x time per launch), and as the last line
-`{"ok": true, "device": {...}}`.  Any failed check raises: the script never
-exits 0 after a failure.  Imports nothing of JAX or the JAX package.
+     labels uint8 in {0,1,2,4}, finite Dice, launch counts equal to
+     (launches per forward, counted from the modules) x (forwards), one
+     patch's logits against the same net forced onto the twins, and that
+     the shapes the net hands the kernels are exactly phase 3's.
+  5. train_kernels: the training kernels against their twins at every
+     geometry one flagship train step gives them (bf16, microbatch 1): K1
+     bf16, K1-dx (the no-moments conv, checked against the twin conv with
+     the flip-transposed kernel), K2 bf16, K5a moments and K5b
+     weighted_sums in bf16 and fp32.  bf16 K1/K2 moments are also held
+     against float64 sums of the y the kernel stored.
+  6. train: the flagship in bf16 trained as bench.py's bench_train does
+     (batch 2 of 128^3, microbatch 1, AdamW 3e-4 / 1e-4, flips and
+     intensity jitter), synthetic x and y from --seed.  One step's
+     gradients on the kernel path against the twin path (per leaf: the
+     relative L2 distance and the cosine; grad_parity.py holds the
+     readings behind the limits),
+     the shapes the step hands the kernels against phase 5's geometries,
+     then 3 warm-up and 5 timed steps: patches/s, the loss per step (all
+     finite), peak device memory, and launches equal to (per step, counted
+     from the modules) x 5.
+Then the nvidia-smi line, the kernels summary line and, last,
+`{"ok": true, "device": {...}}`.  In the kernels line a serving kernel's
+`ms`, `plain_ms`, `library_ms` and `bound_ms` are one flagship forward's
+worth at batch 2, a training kernel's one train step's worth: the sum over
+geometries of launches per unit x time per launch.  `plain_ms` is the twin,
+`library_ms` one PyTorch call computing the same function (F.conv3d, a
+matmul; null where none does), `bound_ms` the larger of bytes / 3.35 TB/s
+and flops / peak (67 TFLOP/s fp32, 989 bf16; an H100 SXM at 700 W).  Any
+failed check raises: the script never exits 0 after a failure.  Imports
+nothing of JAX or the JAX package.
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import json
 import math
 import os
@@ -42,140 +64,383 @@ from unittest import mock
 import numpy as np
 import torch
 
-SRC = "nas_3d_unet_tpu_torch/csrc/pgemm.cu"
-K1_REPLACES = "nas_3d_unet_tpu/ops/pallas/pgemm.py:174"   # conv_pgemm
-K2_REPLACES = "nas_3d_unet_tpu/ops/pallas/pgemm.py:311"   # gemm_stats
+SRC_PGEMM = "nas_3d_unet_tpu_torch/csrc/pgemm.cu"
+SRC_STATS = "nas_3d_unet_tpu_torch/csrc/stats.cu"
+REPLACES = {
+    "conv3x3x3_stats": "nas_3d_unet_tpu/ops/pallas/pgemm.py:174",  # conv_pgemm
+    "conv3x3x3": "nas_3d_unet_tpu/ops/packed.py:497",      # its dx use
+    "gemm_stats": "nas_3d_unet_tpu/ops/pallas/pgemm.py:311",
+    "moments": "nas_3d_unet_tpu/ops/pallas/stats.py:65",
+    "weighted_sums": "nas_3d_unet_tpu/ops/pallas/stats.py:87",
+}
 
-# (Cin, Cout, volume edge, dilation, launches per flagship forward)
+# Serving, fp32, batch 2, launches per flagship forward.
+# K1: (Cin, Cout, volume edge, dilation, launches)
 K1_GEOMS = [(4, 48, 128, 1, 1),      # stem
             (32, 32, 64, 1, 5),      # down cell 1 (2), up cell level 1 (3)
             (64, 64, 32, 1, 5),      # down cell 2 (2), up cell level 2 (3)
             (128, 128, 16, 1, 2),    # down cell 3
             (16, 16, 128, 1, 3),     # up cell level 0
             (32, 32, 64, 2, 0)]      # dil_conv3: off the flagship path
-# (K, N, volume edge, launches per flagship forward)
+# K2: (K, N, volume edge, launches)
 K2_GEOMS = [(48, 32, 128, 2),        # down cell 1: both inputs (the stem)
             (96, 64, 64, 1),         # down cell 2: s1
             (192, 128, 32, 1),       # down cell 3: s1
             (192, 64, 32, 1), (384, 64, 16, 1),    # up cell level 2
             (96, 32, 64, 1), (192, 32, 32, 1),     # up cell level 1
             (48, 16, 128, 1), (96, 16, 64, 1)]     # up cell level 0
+# K5a: (C, volume edge, launches) -- the GroupNorms of the plain producers
+# (stride-2 convs, SepConv, UpTranspose)
+K5A_GEOMS = [(16, 128, 3), (32, 64, 5), (64, 32, 5), (64, 64, 2),
+             (128, 16, 2), (128, 32, 2), (256, 16, 1)]
 BATCH = 2
-Y_RTOL = Y_ATOL = 1e-4       # y: |k - t| <= atol + rtol·|t|
-S2_RTOL = 1e-4               # Σy²: relative
-S1_COND = 1e-4               # Σy: |k - t| <= 1e-4·Σ|y| (its rounding scale)
+
+# Training, bf16, microbatch 1 (batch 1 per kernel call), launches per
+# train step (2 microbatches): the forward counts twice, dx skips the stem.
+K1_TRAIN = [(ci, co, v, d, 2 * n) for ci, co, v, d, n in K1_GEOMS]
+K1DX_TRAIN = [(co, ci, v, d, 2 * n) for ci, co, v, d, n in K1_GEOMS
+              if ci != 4]            # dy (Cout) -> dx (Cin); no stem dx
+K2_TRAIN = [(k, n, v, 2 * c) for k, n, v, c in K2_GEOMS]
+K5A_TRAIN = [(c, v, 2 * n) for c, v, n in K5A_GEOMS]
+# K5b: every GroupNorm's backward, (C, volume edge, launches per step)
+K5B_TRAIN = [(16, 64, 2), (16, 128, 14), (32, 32, 2), (32, 64, 22),
+             (32, 128, 4), (48, 128, 2), (64, 16, 2), (64, 32, 22),
+             (64, 64, 6), (128, 16, 8), (128, 32, 6), (256, 16, 2)]
+MICRO = 1
+
+# limits
+Y_RTOL = Y_ATOL = 1e-4       # fp32 y: |k - t| <= atol + rtol·|t|
+Y_ULPS = 2                   # bf16 y: 2 ulps of max(|t|, 2^-8)
+Y_ULP_FLOOR = 2.0 ** -8
+MOM_RTOL = {torch.float32: 1e-4, torch.bfloat16: 1e-3}   # Σy², Σy/Σ|y|
+STATS_RTOL = 1e-5            # K5a/K5b against float64, over Σ|terms|
 LOGIT_ATOL = 1e-3
 LABEL_AGREE = 0.999
+# Set from grad_parity.py and phase 5 readings (H100, seeds 0-3): the
+# sound kernels' worst against a planted fault's least, see PERF.md.
+MOM_STORED_RTOL = 1e-6       # bf16 moments vs Σ stored y: 7.2e-8 / 8.2e-6
+GRAD_REL_L2 = 0.35           # per leaf ‖g_k − g_t‖/‖g_t‖, max: 0.22 / 0.43
+GRAD_REL_L2_MEDIAN = 0.08    # its median over the leaves: 0.042 / 0.16
+GRAD_COS = 0.95              # per leaf cosine of g_k and g_t: 0.978 / 0.908
 N_PATIENTS = 3               # timed patients, after one warm-up patient
 SHAPE = (160, 192, 152)      # a cropped BraTS volume, as bench.py serves
 PATCH, OVERLAP, PATCH_BATCH = (128, 128, 128), 0.5, 2
+TRAIN_PATCH, TRAIN_BATCH = 128, 2
+WARMUP_STEPS, TIMED_STEPS = 3, 5
+AUGMENT = dict(flip_prob=0.5, intensity_shift=0.1, intensity_scale=0.1)
+
+# peaks of one H100 SXM at 700 W (NVIDIA's data sheet, dense)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def _check_kernel(kernel, twin, args, y_abs_sum):
-    """Kernel vs twin on the same inputs; returns the phase-3 record.  The
-    kernel runs twice: its outputs, moments included, must be the same bits
-    (no atomics, fixed reduction order)."""
-    yk, s1k, s2k = kernel(*args)
-    again = kernel(*args)
-    yt, s1t, s2t = twin(*args)
-    torch.cuda.synchronize()
-    dy = (yk - yt).abs()
-    rec = {
-        "bitwise_repeatable": all(torch.equal(a, b) for a, b in
-                                  zip((yk, s1k, s2k), again)),
-        "y_max_abs": dy.max().item(),
-        "y_max_rel": (dy / yt.abs().clamp_min(1e-30)).max().item(),
-        "y_ok": bool((dy <= Y_ATOL + Y_RTOL * yt.abs()).all()),
-        "s1_max_abs": (s1k - s1t).abs().max().item(),
-        "s1_max_over_scale": ((s1k - s1t).abs()
-                              / y_abs_sum(yt)).max().item(),
-        "s2_max_rel": ((s2k - s2t).abs() / s2t.abs()).max().item(),
-        "limits": {"y_rtol": Y_RTOL, "y_atol": Y_ATOL,
-                   "s1_over_sum_abs_y": S1_COND, "s2_rtol": S2_RTOL},
-    }
-    rec["ok"] = (rec["y_ok"] and rec["s1_max_over_scale"] <= S1_COND
-                 and rec["s2_max_rel"] <= S2_RTOL
-                 and rec["bitwise_repeatable"])
+def bound_ms(nbytes: float, flops: float, dtype) -> tuple[float, str]:
+    """The least time the card could take: bytes over HBM bandwidth or
+    flops over the dtype's peak, whichever is larger."""
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_f = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+
+
+def _y_check(yk, yt):
+    """Kernel y against twin y: fp32 abs/rel limits, or bf16 ulps."""
+    dy = (yk.float() - yt.float()).abs()
+    ref = yt.float().abs()
+    if yt.dtype == torch.bfloat16:
+        e = torch.frexp(ref.clamp_min(Y_ULP_FLOOR))[1]
+        ulp = torch.ldexp(torch.ones_like(ref), e - 8)
+        return {"y_max_abs": dy.max().item(),
+                "y_max_ulps": (dy / ulp).max().item(),
+                "y_ok": bool((dy <= Y_ULPS * ulp).all())}
+    return {"y_max_abs": dy.max().item(),
+            "y_max_rel": (dy / ref.clamp_min(1e-30)).max().item(),
+            "y_ok": bool((dy <= Y_ATOL + Y_RTOL * ref).all())}
+
+
+def _moments_err(s1, s2, y):
+    """Largest error of (Σy, Σy²) against float64 sums of y: Σy over its
+    rounding scale Σ|y|, Σy² relative."""
+    dims = tuple(range(1, y.dim() - 1))
+    yd = y.double()
+    t1, t2 = yd.sum(dims), (yd * yd).sum(dims)
+    return max(((s1.double() - t1).abs() / yd.abs().sum(dims)).max().item(),
+               ((s2.double() - t2).abs() / t2).max().item())
+
+
+def _moments_check(s1k, s2k, s1t, s2t, yt, dtype, yk=None, y_unrounded=None):
+    """The kernel's moments against the twin's (whose y rounds apart by up
+    to an ulp).  In bf16 also against float64 sums of the kernel's own
+    stored y, which isolates where the kernel rounds: a kernel that summed
+    its fp32 accumulator would sit as far from them as sums of the
+    unrounded y do (`moments_unrounded_y`, printed beside)."""
+    dims = tuple(range(1, yt.dim() - 1))
+    scale = yt.float().abs().sum(dims)
+    rec = {"s1_max_over_scale": ((s1k - s1t).abs() / scale).max().item(),
+           "s2_max_rel": ((s2k - s2t).abs() / s2t.abs()).max().item()}
+    ok = max(rec.values()) <= MOM_RTOL[dtype]
+    if yk is not None:
+        rec["moments_stored_y"] = _moments_err(s1k, s2k, yk)
+        rec["moments_unrounded_y"] = _moments_err(s1k, s2k, y_unrounded)
+        rec["moments_stored_limit"] = MOM_STORED_RTOL
+        ok = ok and rec["moments_stored_y"] <= MOM_STORED_RTOL
+    rec["moments_ok"] = ok
     return rec
 
 
-def phase_kernels(dev, gen):
-    from nas_3d_unet_tpu_torch.ops import pgemm
+def _repeatable(fn, args, first):
+    again = fn(*args)
+    again = again if isinstance(again, tuple) else (again,)
+    first = first if isinstance(first, tuple) else (first,)
+    return all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def _timings(kernel, twin, library, args):
     from nas_3d_unet_tpu_torch.utils.timing import cuda_ms
 
-    def randn(*shape, scale=1.0):
-        return torch.randn(shape, generator=gen, device=dev) * scale
-
-    def conv_scale(y):
-        return y.abs().sum((1, 2, 3))
-
-    def gemm_scale(y):
-        return y.abs().sum(1)
-
-    summary = {}
-    for name, geoms in (("conv3x3x3_stats", K1_GEOMS),
-                        ("gemm_stats", K2_GEOMS)):
-        kernel = getattr(pgemm, name)
-        twin = getattr(pgemm, name + "_twin")
-        tot = {"ms": 0.0, "plain_ms": 0.0, "max_abs_err": 0.0}
-        for g in geoms:
-            if name == "conv3x3x3_stats":
-                cin, cout, v, dil, per_fwd = g
-                args = (randn(BATCH, v, v, v, cin),
-                        randn(3, 3, 3, cin, cout,
-                              scale=(27 * cin) ** -0.5), dil)
-                geom = {"cin": cin, "cout": cout, "volume": v,
-                        "dilation": dil}
-                scale = conv_scale
-            else:
-                k, n, v, per_fwd = g
-                args = (randn(BATCH, v ** 3, k),
-                        randn(k, n, scale=k ** -0.5))
-                geom = {"k": k, "n": n, "rows": BATCH * v ** 3}
-                scale = gemm_scale
-            rec = _check_kernel(kernel, twin, args, scale)
-            rec["ms"] = cuda_ms(kernel, *args, iters=5, warmup=1)
-            rec["plain_ms"] = cuda_ms(twin, *args, iters=5, warmup=1)
-            emit({"phase": "kernel", "kernel": name, **geom, "batch": BATCH,
-                  "per_forward": per_fwd, **rec})
-            if not rec["ok"]:
-                raise AssertionError(f"{name} disagrees with its twin at "
-                                     f"{geom}")
-            tot["ms"] += per_fwd * rec["ms"]
-            tot["plain_ms"] += per_fwd * rec["plain_ms"]
-            tot["max_abs_err"] = max(tot["max_abs_err"], rec["y_max_abs"])
-            del args
-        summary[name] = tot
-    return summary
+    return {"ms": cuda_ms(kernel, *args, iters=5, warmup=1),
+            "plain_ms": cuda_ms(twin, *args, iters=5, warmup=1),
+            "library_ms": (cuda_ms(library, *args, iters=5, warmup=1)
+                           if library else None)}
 
 
-def _kernel_launches_per_forward(net):
-    """(K1, K2) launches one forward makes, counted from the modules: every
-    stride-1 ConvNormAct runs K1 (3³) or K2 (1³) once."""
-    from nas_3d_unet_tpu_torch.ops.primitives import ConvNormAct
-
-    mods = [m for m in net.modules()
-            if isinstance(m, ConvNormAct) and m.stride == 1]
-    return (sum(m.kernel == 3 for m in mods), sum(m.kernel == 1 for m in mods))
+def _conv_library(x, w, dilation=1):
+    """One cuDNN call computing the conv: F.conv3d on the NDHWC tensor
+    viewed channels-last (no explicit pad)."""
+    return torch.nn.functional.conv3d(x.permute(0, 4, 1, 2, 3),
+                                      w.permute(4, 3, 0, 1, 2),
+                                      padding=dilation, dilation=dilation)
 
 
-def flagship_predictor(dev, seed):
-    """The flagship net on `dev`, random weights from `seed` at flax's
-    initialiser scales, bound to the serving window settings."""
+def check_conv(dev, gen, cin, cout, v, dil, batch, dtype, stats):
+    """K1 (stats) or K1-dx (no stats) against its twin at one geometry."""
+    from nas_3d_unet_tpu_torch.ops import pgemm
+
+    x = torch.randn((batch, v, v, v, cin), generator=gen, device=dev)
+    w = torch.randn((3, 3, 3, cin, cout), generator=gen,
+                    device=dev) * (27 * cin) ** -0.5
+    args = (x.to(dtype), w.to(dtype).contiguous(), dil)
+    if stats:
+        kernel, twin = pgemm.conv3x3x3_stats, pgemm.conv3x3x3_stats_twin
+    else:
+        kernel, twin = pgemm.conv3x3x3, pgemm.conv3x3x3_twin
+    with torch.no_grad():
+        out_k = kernel(*args)
+        out_t = twin(*args)
+        rep = _repeatable(kernel, args, out_k)
+    torch.cuda.synchronize()
+    yk, yt = (out_k[0], out_t[0]) if stats else (out_k, out_t)
+    rec = {"cin": cin, "cout": cout, "volume": v, "dilation": dil,
+           "batch": batch, "bitwise_repeatable": rep, **_y_check(yk, yt)}
+    ok = rec["y_ok"] and rep
+    if stats:
+        extra = ()
+        if dtype == torch.bfloat16:
+            with torch.no_grad():
+                extra = (yk, pgemm.conv3x3x3_twin(args[0].float(),
+                                                  args[1].float(), dil))
+        rec.update(_moments_check(*out_k[1:], *out_t[1:], yt, dtype, *extra))
+        ok = ok and rec["moments_ok"]
+        del extra
+    with torch.no_grad():
+        rec.update(_timings(kernel, twin, _conv_library, args))
+    e = args[0].element_size()
+    rows = batch * v ** 3
+    rec["bound_ms"], rec["bound_by"] = bound_ms(
+        (rows * (cin + cout) + 27 * cin * cout) * e
+        + (8 * batch * cout if stats else 0),
+        2.0 * rows * 27 * cin * cout, dtype)
+    rec["ok"] = ok
+    return rec
+
+
+def check_gemm(dev, gen, k, n, v, batch, dtype):
+    """K2 against its twin at one geometry."""
+    from nas_3d_unet_tpu_torch.ops import pgemm
+
+    rows = v ** 3
+    x = torch.randn((batch, rows, k), generator=gen, device=dev).to(dtype)
+    w = (torch.randn((k, n), generator=gen, device=dev) * k ** -0.5).to(dtype)
+    args = (x, w)
+    with torch.no_grad():
+        out_k = pgemm.gemm_stats(*args)
+        out_t = pgemm.gemm_stats_twin(*args)
+        rep = _repeatable(pgemm.gemm_stats, args, out_k)
+        extra = ((out_k[0], x.float() @ w.float())
+                 if dtype == torch.bfloat16 else ())
+    torch.cuda.synchronize()
+    rec = {"k": k, "n": n, "volume": v, "batch": batch, "rows": batch * rows,
+           "bitwise_repeatable": rep, **_y_check(out_k[0], out_t[0]),
+           **_moments_check(*out_k[1:], *out_t[1:], out_t[0], dtype, *extra)}
+    del extra
+    with torch.no_grad():
+        rec.update(_timings(pgemm.gemm_stats, pgemm.gemm_stats_twin,
+                            torch.matmul, args))
+    rec["bound_ms"], rec["bound_by"] = bound_ms(
+        (batch * rows * (k + n) + k * n) * x.element_size() + 8 * batch * n,
+        2.0 * batch * rows * k * n, dtype)
+    rec["ok"] = rec["y_ok"] and rec["moments_ok"] and rep
+    return rec
+
+
+def check_stats(dev, gen, name, c, v, batch, dtype):
+    """K5a (moments) or K5b (weighted_sums) against the twin, and against
+    float64 sums of the same input."""
+    from nas_3d_unet_tpu_torch.ops import stats
+
+    shape = (batch, v, v, v, c)
+    x = (torch.randn(shape, generator=gen, device=dev) + 0.5).to(dtype)
+    if name == "moments":
+        args = (x,)
+        xd = x.double()
+        terms = (xd, xd * xd)
+    else:
+        g = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        args = (g, x)
+        gd = g.double()
+        terms = (gd, gd * x.double())
+    kernel = getattr(stats, name)
+    twin = getattr(stats, name + "_twin")
+    out = kernel(*args)
+    rep = _repeatable(kernel, args, out)
+    dims = (1, 2, 3)
+    errs = [((o.double() - t.sum(dims)).abs() / t.abs().sum(dims))
+            .max().item() for o, t in zip(out, terms)]
+    del terms
+    torch.cuda.synchronize()
+    rec = {"c": c, "volume": v, "batch": batch, "bitwise_repeatable": rep,
+           "max_err_over_sum_abs": errs, "limit": STATS_RTOL,
+           **_timings(kernel, twin, None, args)}
+    n_in = len(args)
+    rec["bound_ms"], rec["bound_by"] = bound_ms(
+        n_in * x.numel() * x.element_size() + 8 * batch * c,
+        3.0 * x.numel(), dtype)
+    rec["max_abs_err"] = max(
+        (o - t).abs().max().item() for o, t in zip(out, twin(*args)))
+    rec["ok"] = rep and max(errs) <= STATS_RTOL
+    return rec
+
+
+class Summary:
+    """Per kernel name: launches-weighted sums of the phase records."""
+
+    def __init__(self):
+        self.rows = collections.defaultdict(
+            lambda: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                     "bound_ms": 0.0, "bound_by": collections.Counter(),
+                     "max_abs_err": 0.0})
+
+    def add(self, name, rec, per_unit):
+        row = self.rows[name]
+        for key in ("ms", "plain_ms", "bound_ms"):
+            row[key] += per_unit * rec[key]
+        if rec["library_ms"] is None:
+            row["library_ms"] = None
+        elif row["library_ms"] is not None:
+            row["library_ms"] += per_unit * rec["library_ms"]
+        row["bound_by"][rec["bound_by"]] += per_unit * rec["bound_ms"]
+        row["max_abs_err"] = max(row["max_abs_err"],
+                                 rec.get("y_max_abs", rec.get("max_abs_err")))
+
+    def entry(self, name):
+        row = dict(self.rows[name])
+        row["bound_by"] = row["bound_by"].most_common(1)[0][0]
+        return row
+
+
+def _run_check(phase, kernel, fn, summary, per_unit, *args):
+    rec = fn(*args)
+    emit({"phase": phase, "kernel": kernel, "per_unit": per_unit, **rec})
+    if not rec["ok"]:
+        raise AssertionError(f"{kernel} disagrees with its twin: {rec}")
+    summary.add(kernel, rec, per_unit)
+
+
+def phase_kernels(dev, gen, summary):
+    """Serving kernels, fp32, batch 2; per_unit = launches per forward."""
+    f32 = torch.float32
+    for cin, cout, v, dil, n in K1_GEOMS:
+        _run_check("kernel", "conv3x3x3_stats_f32", check_conv, summary, n,
+                   dev, gen, cin, cout, v, dil, BATCH, f32, True)
+    for k, nn, v, n in K2_GEOMS:
+        _run_check("kernel", "gemm_stats_f32", check_gemm, summary, n,
+                   dev, gen, k, nn, v, BATCH, f32)
+    for c, v, n in K5A_GEOMS:
+        _run_check("kernel", "moments_f32", check_stats, summary, n,
+                   dev, gen, "moments", c, v, BATCH, f32)
+
+
+def phase_train_kernels(dev, gen, summary):
+    """Training kernels at one train step's geometries (bf16, microbatch
+    1); per_unit = launches per step.  K5b also in fp32 (per_unit 0)."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    for cin, cout, v, dil, n in K1_TRAIN:
+        _run_check("train_kernel", "conv3x3x3_stats_bf16", check_conv,
+                   summary, n, dev, gen, cin, cout, v, dil, MICRO, bf16, True)
+    for cin, cout, v, dil, n in K1DX_TRAIN:
+        _run_check("train_kernel", "conv3x3x3_bf16", check_conv, summary, n,
+                   dev, gen, cin, cout, v, dil, MICRO, bf16, False)
+    for k, nn, v, n in K2_TRAIN:
+        _run_check("train_kernel", "gemm_stats_bf16", check_gemm, summary,
+                   n, dev, gen, k, nn, v, MICRO, bf16)
+    for c, v, n in K5A_TRAIN:
+        _run_check("train_kernel", "moments_bf16", check_stats, summary, n,
+                   dev, gen, "moments", c, v, MICRO, bf16)
+    for c, v, n in K5B_TRAIN:
+        for dtype, per in ((bf16, n), (f32, 0)):
+            _run_check("train_kernel", f"weighted_sums_{SUFFIX[dtype]}",
+                       check_stats, summary, per, dev, gen, "weighted_sums",
+                       c, v, MICRO, dtype)
+
+
+def _modules_per_forward(net):
+    """Kernel launches one forward (and its backward) makes, counted from
+    the modules: every stride-1 ConvNormAct runs K1 (3³) or K2 (1³); each
+    plain producer's GroupNorm runs K5a; every GroupNorm's backward runs
+    K5b; every K1 but the stem's (its input needs no gradient) runs
+    K1-dx."""
+    from nas_3d_unet_tpu_torch.ops.primitives import (ConvNormAct, SepConv,
+                                                      UpTranspose)
+
+    mods = list(net.modules())
+    cna = [m for m in mods if isinstance(m, ConvNormAct)]
+    k1 = sum(m.stride == 1 and m.kernel == 3 for m in cna)
+    norms = [m for m in mods if isinstance(m, (ConvNormAct, SepConv,
+                                               UpTranspose))]
+    plain = [m for m in norms if not isinstance(m, ConvNormAct)
+             or m.stride == 2]
+    return {"conv3x3x3_stats": k1,
+            "gemm_stats": sum(m.stride == 1 and m.kernel == 1 for m in cna),
+            "moments": len(plain), "weighted_sums": len(norms),
+            "conv3x3x3": k1 - 1}
+
+
+def flagship_net(seed, dtype="float32"):
+    """The flagship derived net on the CPU, random weights from `seed` at
+    flax's initialiser scales."""
     from nas_3d_unet_tpu_torch import bridge
-    from nas_3d_unet_tpu_torch.infer.sliding import SlidingWindowPredictor
     from nas_3d_unet_tpu_torch.models.genotype import default_genotype
     from nas_3d_unet_tpu_torch.models.unet import DerivedNet
 
     net = DerivedNet(default_genotype(3), in_channels=4, num_classes=3,
-                     base_channels=16, depth=3, n_nodes=3, gn_groups=8)
+                     base_channels=16, depth=3, n_nodes=3, gn_groups=8,
+                     dtype=dtype)
     bridge.load_flax_params(net, bridge.random_flax_params(net, seed))
-    return SlidingWindowPredictor(net.to(dev), PATCH, overlap=OVERLAP,
-                                  batch_size=PATCH_BATCH, num_classes=3)
+    return net
+
+
+def flagship_predictor(dev, seed):
+    """The fp32 flagship net on `dev`, bound to the serving window
+    settings."""
+    from nas_3d_unet_tpu_torch.infer.sliding import SlidingWindowPredictor
+
+    return SlidingWindowPredictor(flagship_net(seed).to(dev), PATCH,
+                                  overlap=OVERLAP, batch_size=PATCH_BATCH,
+                                  num_classes=3)
 
 
 def synthetic_records(dev, seed, n):
@@ -194,11 +459,73 @@ def synthetic_records(dev, seed, n):
     return recs
 
 
+def noting_kernels(seen):
+    """Context that records, per kernel, the geometry of each launch the
+    net asks for: (kernel, *geometry) keys in `seen`."""
+    from nas_3d_unet_tpu_torch.ops import pgemm, stats
+
+    k1, k2 = pgemm._k1, pgemm._k2
+    mom, wsum = stats.moments, stats.weighted_sums
+
+    def k1_noted(x, w, dilation, with_stats):
+        name = "conv3x3x3_stats" if with_stats else "conv3x3x3"
+        seen[(name, x.shape[4], w.shape[4], x.shape[1], dilation)] += 1
+        return k1(x, w, dilation, with_stats)
+
+    def k2_noted(x3, w):
+        edge = round(x3.shape[1] ** (1 / 3))
+        seen[("gemm_stats", x3.shape[2], w.shape[1], edge)] += 1
+        return k2(x3, w)
+
+    def mom_noted(x):
+        seen[("moments", x.shape[-1], x.shape[1])] += 1
+        return mom(x)
+
+    def wsum_noted(g, x):
+        seen[("weighted_sums", x.shape[-1], x.shape[1])] += 1
+        return wsum(g, x)
+
+    return _patched({(pgemm, "_k1"): k1_noted, (pgemm, "_k2"): k2_noted,
+                     (stats, "moments"): mom_noted,
+                     (stats, "weighted_sums"): wsum_noted})
+
+
+def twin_path():
+    """Context that routes every kernel of the net to its plain twin (K1
+    and K2 with plain autograd, so dx goes through cuDNN's own
+    backward)."""
+    from nas_3d_unet_tpu_torch.ops import pgemm, stats
+
+    return _patched({(pgemm, "conv3x3x3_stats"): pgemm.conv3x3x3_stats_twin,
+                     (pgemm, "gemm_stats"): pgemm.gemm_stats_twin,
+                     (stats, "moments"): stats.moments_twin,
+                     (stats, "weighted_sums"): stats.weighted_sums_twin})
+
+
+@contextlib.contextmanager
+def _patched(table):
+    """{(module, attribute): replacement}, patched for the block."""
+    with contextlib.ExitStack() as stack:
+        for (mod, attr), fn in table.items():
+            stack.enter_context(mock.patch.object(mod, attr, fn))
+        yield
+
+
+def _table(*groups):
+    """{(kernel, *geometry): launches} from the geometry tables."""
+    out = collections.Counter()
+    for name, rows in groups:
+        for row in rows:
+            if row[-1]:
+                out[(name, *row[:-1])] += row[-1]
+    return out
+
+
 def phase_slice(dev, seed):
     from nas_3d_unet_tpu_torch.infer.predict import predict_records
     from nas_3d_unet_tpu_torch.infer.sliding import grid_coords
     from nas_3d_unet_tpu_torch.metrics.dice import regions_to_labels
-    from nas_3d_unet_tpu_torch.ops import pgemm
+    from nas_3d_unet_tpu_torch.ops import _cuda
 
     predictor = flagship_predictor(dev, seed)
     net = predictor.model
@@ -210,33 +537,20 @@ def phase_slice(dev, seed):
     # which must be the geometries phase 3 checked), then through the
     # twins, same weights
     seen = collections.Counter()
-    k1_fn, k2_fn = pgemm.conv3x3x3_stats, pgemm.gemm_stats
-
-    def k1_noted(x, w, dilation=1):
-        seen[(x.shape[4], w.shape[4], x.shape[1], dilation)] += 1
-        return k1_fn(x, w, dilation)
-
-    def k2_noted(x3, w):
-        seen[(x3.shape[2], w.shape[1], round(x3.shape[1] ** (1 / 3)))] += 1
-        return k2_fn(x3, w)
-
-    x = recs[0]["image_dev"][:128, :128, :128].unsqueeze(0).contiguous()
+    pd, ph, pw = PATCH
+    x = recs[0]["image_dev"][:pd, :ph, :pw].unsqueeze(0).contiguous()
     with torch.inference_mode():
-        with mock.patch.object(pgemm, "conv3x3x3_stats", k1_noted), \
-                mock.patch.object(pgemm, "gemm_stats", k2_noted):
+        with noting_kernels(seen):
             logits_k = net(x)
-        with mock.patch.object(pgemm, "conv3x3x3_stats",
-                               pgemm.conv3x3x3_stats_twin), \
-                mock.patch.object(pgemm, "gemm_stats", pgemm.gemm_stats_twin):
+        with twin_path():
             logits_t = net(x)
     torch.cuda.synchronize()
     logit_err = (logits_k - logits_t).abs().max().item()
     agree = (regions_to_labels(torch.sigmoid(logits_k))
              == regions_to_labels(torch.sigmoid(logits_t))).float().mean()
     agree = agree.item()
-    tables = collections.Counter(
-        {g[:4]: g[4] for g in K1_GEOMS if g[4]}) + collections.Counter(
-        {g[:3]: g[3] for g in K2_GEOMS})
+    tables = _table(("conv3x3x3_stats", K1_GEOMS), ("gemm_stats", K2_GEOMS),
+                    ("moments", K5A_GEOMS))
     emit({"phase": "slice_parity", "logits_max_abs": logit_err,
           "limit": LOGIT_ATOL, "label_agreement": agree,
           "agreement_limit": LABEL_AGREE,
@@ -265,33 +579,34 @@ def phase_slice(dev, seed):
     warm_s = time.perf_counter() - t0
     labels_seen.clear()
 
-    pgemm.LAUNCHES.clear()
+    _cuda.LAUNCHES.clear()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = predict_records(predictor, [(r["patient"], r) for r in recs],
                           verbose=False)
     torch.cuda.synchronize()
     s_per_patient = (time.perf_counter() - t0) / len(recs)
-    launches = dict(pgemm.LAUNCHES)
+    launches = dict(_cuda.LAUNCHES)
 
     stride = tuple(max(1, int(round(p * (1 - OVERLAP)))) for p in PATCH)
     forwards = len(recs) * math.ceil(len(grid_coords(SHAPE, PATCH, stride))
                                      / PATCH_BATCH)
-    k1, k2 = _kernel_launches_per_forward(net)
-    expected = {"conv3x3x3_stats": k1 * forwards,
-                "gemm_stats": k2 * forwards}
+    per_fwd = _modules_per_forward(net)
+    expected = {f"{k}_f32": per_fwd[k] * forwards
+                for k in ("conv3x3x3_stats", "gemm_stats", "moments")}
     dice = [r["dice"] for r in out]
     label_sets = [sorted(torch.unique(t).tolist()) for t in labels_seen]
     emit({"phase": "slice", "patients": len(out), "volume": list(SHAPE),
           "s_per_patient": s_per_patient, "warmup_patient_s": warm_s,
           "setup_s": setup_s, "forwards": forwards,
-          "launches_per_forward": {"conv3x3x3_stats": k1, "gemm_stats": k2},
+          "launches_per_forward": per_fwd,
           "launches": launches, "expected_launches": expected,
           "dice": dice, "label_values": label_sets,
           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 2 ** 30})
     if [r["patient"] for r in out] != [r["patient"] for r in recs]:
         raise AssertionError("results out of patient order")
-    if (k1, k2) != (16, 10) or launches != expected:
+    if (per_fwd["conv3x3x3_stats"], per_fwd["gemm_stats"],
+            per_fwd["moments"]) != (16, 10, 20) or launches != expected:
         raise AssertionError(f"launch counts {launches} != {expected}")
     if len(labels_seen) != len(recs):
         raise AssertionError("a patient's labels were not seen")
@@ -302,6 +617,114 @@ def phase_slice(dev, seed):
     if not all(math.isfinite(v) for d in dice for v in d.values()):
         raise AssertionError(f"non-finite Dice {dice}")
     return launches, s_per_patient
+
+
+def synthetic_batch(dev, seed):
+    """bench.py's training batch: x ~ N(0, 1) of TRAIN_BATCH x
+    TRAIN_PATCH^3 x 4 from `seed`, y = the WT mask (x[..., 1] > 0.5) in
+    all three region channels."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((TRAIN_BATCH, *(TRAIN_PATCH,) * 3, 4)).astype(
+        np.float32)
+    x = torch.from_numpy(x).to(dev)
+    wt = (x[..., 1] > 0.5).float()
+    return x, torch.stack([wt, wt, wt], dim=-1)
+
+
+def grad_parity(net, x, y, kernel_ctx=None):
+    """One step's gradients on the kernel path (inside `kernel_ctx`) and on
+    the twin path, leaf by leaf: the relative L2 distance
+    ‖g_k − g_t‖ / ‖g_t‖ (its largest and its median), the cosine, and the
+    relative difference of the norms.  `ok` holds all but the last to
+    their limits."""
+    from nas_3d_unet_tpu_torch.metrics.losses import dice_ce_loss
+    from nas_3d_unet_tpu_torch.train.loop import loss_and_grads
+
+    names = [n for n, _ in net.named_parameters()]
+    out = {}
+    for path, ctx in (("kernel", kernel_ctx or contextlib.nullcontext()),
+                      ("twin", twin_path())):
+        with ctx:
+            loss, grads = loss_and_grads(net, x, y, dice_ce_loss, MICRO)
+        out[path] = (loss.item(), [g.double() for g in grads])
+    net.zero_grad(set_to_none=True)
+    rel, cos, norm_rel = [], [], []
+    for gk, gt in zip(out["kernel"][1], out["twin"][1]):
+        nk, nt = gk.norm().item(), gt.norm().item()
+        rel.append((gk - gt).norm().item() / max(nt, 1e-30))
+        cos.append((gk.flatten() @ gt.flatten()).item()
+                   / max(nk * nt, 1e-30))
+        norm_rel.append(abs(nk - nt) / max(nt, 1e-30))
+    worst, least = int(np.argmax(rel)), int(np.argmin(cos))
+    vals = rel + cos + norm_rel
+    return {"loss_kernel": out["kernel"][0], "loss_twin": out["twin"][0],
+            "leaves": len(rel), "grad_rel_l2_max": rel[worst],
+            "rel_l2_worst_leaf": names[worst],
+            "grad_rel_l2_median": float(np.median(rel)),
+            "grad_cos_min": cos[least], "cos_worst_leaf": names[least],
+            "grad_norm_rel_max": max(norm_rel),
+            "limits": {"rel_l2": GRAD_REL_L2,
+                       "rel_l2_median": GRAD_REL_L2_MEDIAN, "cos": GRAD_COS},
+            "ok": (all(map(math.isfinite, vals)) and rel[worst] <= GRAD_REL_L2
+                   and np.median(rel) <= GRAD_REL_L2_MEDIAN
+                   and cos[least] >= GRAD_COS)}
+
+
+def phase_train(dev, seed):
+    from nas_3d_unet_tpu_torch.ops import _cuda
+    from nas_3d_unet_tpu_torch.train.loop import make_train_step
+    from nas_3d_unet_tpu_torch.train.optim import make_optimizer
+
+    net = flagship_net(seed, "bfloat16").to(dev)
+    x, y = synthetic_batch(dev, seed)
+
+    # one step's gradients, kernel path (noting the shapes) then twin path
+    seen = collections.Counter()
+    rec = grad_parity(net, x, y, noting_kernels(seen))
+    tables = _table(("conv3x3x3_stats", K1_TRAIN), ("conv3x3x3", K1DX_TRAIN),
+                    ("gemm_stats", K2_TRAIN), ("moments", K5A_TRAIN),
+                    ("weighted_sums", K5B_TRAIN))
+    emit({"phase": "train_parity", **rec,
+          "geometries_match_phase5": seen == tables})
+    if not rec["ok"]:
+        raise AssertionError("kernel-path gradients disagree with the twin "
+                             "path")
+    if seen != tables:
+        raise AssertionError(f"the step's kernel shapes {dict(seen)} are "
+                             f"not the geometries checked in phase 5")
+
+    opt = make_optimizer(net.parameters(), 3e-4, 1e-4)
+    step = make_train_step(net, opt, augment=AUGMENT, microbatch=MICRO,
+                           seed=seed)
+    t0 = time.perf_counter()
+    warm = [step(x, y).item() for _ in range(WARMUP_STEPS)]
+    warm_s = time.perf_counter() - t0
+    _cuda.LAUNCHES.clear()
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [step(x, y) for _ in range(TIMED_STEPS)]
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / TIMED_STEPS
+    losses = [v.item() for v in losses]
+    launches = dict(_cuda.LAUNCHES)
+    per = _modules_per_forward(net)
+    slices = TRAIN_BATCH // MICRO
+    expected = {f"{k}_bf16": n * slices * TIMED_STEPS for k, n in per.items()}
+    rec = {"phase": "train", "batch": TRAIN_BATCH, "patch": TRAIN_PATCH,
+           "microbatch": MICRO, "dtype": "bfloat16",
+           "patches_per_s": TRAIN_BATCH / step_s, "step_s": step_s,
+           "warmup_losses": warm, "warmup_s": warm_s, "losses": losses,
+           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+           "launches_per_microbatch": per, "launches": launches,
+           "expected_launches": expected}
+    emit(rec)
+    if not all(map(math.isfinite, warm + losses)):
+        raise AssertionError(f"non-finite loss {warm + losses}")
+    if (per["conv3x3x3_stats"], per["gemm_stats"], per["conv3x3x3"]) \
+            != (16, 10, 15) or launches != expected:
+        raise AssertionError(f"launch counts {launches} != {expected}")
+    return launches, rec
 
 
 def main() -> int:
@@ -332,25 +755,41 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     ptxas = [ln.strip() for ln in so.with_suffix(".log").read_text()
              .splitlines() if "registers" in ln or "spill" in ln]
-    emit({"phase": "build", "seconds": build_s, "sources": [SRC],
+    emit({"phase": "build", "seconds": build_s,
+          "sources": [SRC_PGEMM, SRC_STATS],
           "flags": " ".join(_build.NVCC_FLAGS), "ptxas": ptxas})
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
+    summary = Summary()
     with strict_fp32():          # the twins and the plain convs: no TF32
-        summary = phase_kernels(dev, gen)
-        launches, s_per_patient = phase_slice(dev, args.seed)
+        phase_kernels(dev, gen, summary)
+        serve_launches, s_per_patient = phase_slice(dev, args.seed)
+        phase_train_kernels(dev, gen, summary)
+        train_launches, train = phase_train(dev, args.seed)
 
     emit({"phase": "done", "s_per_patient": s_per_patient,
+          "train_patches_per_s": train["patches_per_s"],
+          "train_peak_mem_gb": train["peak_mem_gb"],
           "card": smi, "build_s": build_s})
     kernels = []
-    for name, replaces in (("conv3x3x3_stats", K1_REPLACES),
-                           ("gemm_stats", K2_REPLACES)):
-        kernels.append({"name": name, "route": "cuda", "source": SRC,
-                        "replaces": replaces, "launches": launches[name],
-                        **summary[name]})
+    for name, launches in ((n, serve_launches[n]) for n in
+                           ("conv3x3x3_stats_f32", "gemm_stats_f32",
+                            "moments_f32")):
+        kernels.append((name, launches))
+    for name in ("conv3x3x3_stats_bf16", "conv3x3x3_bf16", "gemm_stats_bf16",
+                 "moments_bf16", "weighted_sums_bf16"):
+        kernels.append((name, train_launches[name]))
+    line = []
+    for name, launches in kernels:
+        base = name.rsplit("_", 1)[0]
+        src = SRC_STATS if base in ("moments", "weighted_sums") \
+            else SRC_PGEMM
+        line.append({"name": name, "route": "cuda", "source": src,
+                     "replaces": REPLACES[base], "launches": launches,
+                     **summary.entry(name)})
     print(smi)
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": line}))
     loaded = {m.split(".")[0] for m in sys.modules}
     if loaded & {"jax", "flax", "nas_3d_unet_tpu"}:
         raise AssertionError("the JAX stack was imported")

@@ -1,17 +1,22 @@
 """nas_3d_unet_tpu_torch — the PyTorch/CUDA port of nas_3d_unet_tpu.
 
-Runs the flagship derived net over whole volumes on an NVIDIA H100 (Hopper,
-sm_90a), held against the JAX package beside it.  Module names mirror the
-JAX package's so each counterpart is easy to find:
+Trains the flagship derived net and runs it over whole volumes on an NVIDIA
+H100 (Hopper, sm_90a), held against the JAX package beside it.  Module
+names mirror the JAX package's so each counterpart is easy to find:
 
-    ops/      candidate ops; ops/pgemm.py: hand-written CUDA kernels
-              (csrc/pgemm.cu) with their plain PyTorch twins
-    models/   genotype, derived cells, derived net
+    ops/      candidate ops and GroupNorm; ops/pgemm.py and ops/stats.py:
+              hand-written CUDA kernels (csrc/) with their plain PyTorch
+              twins, ops/_cuda.py: their launch count and checks
+    models/   genotype, derived cells, derived net (fp32 or bf16)
+    train/    train step, eval step, plateau LR, AdamW
+    data/     device-side augmentation
     infer/    sliding-window whole-volume inference and the patient loop
-    metrics/  BraTS label/region mapping and region Dice
-    utils/    CUDA-event timing
+    metrics/  BraTS label/region mapping, region Dice, training losses
+    io/       NIfTI reading and writing
+    utils/    CUDA-event timing, the fp32 precision policy
     bridge.py flax parameter trees <-> state_dicts
 
-Activations are NDHWC fp32 and parameters keep flax's names and shapes.
-The package imports no JAX.
+Activations are NDHWC (fp32, or bf16 when training) and parameters keep
+flax's names, shapes and fp32.  The package imports no JAX and nothing of
+the JAX package.
 """

@@ -1,8 +1,9 @@
 """Build the package's CUDA sources into one shared library, at first use.
 
-`csrc/*.cu` are compiled by `nvcc` for Hopper (`sm_90a`) into a plain-C
-shared library that `ctypes` loads: no PyTorch headers, so a cold build takes
-seconds, not the minutes a `torch.utils.cpp_extension` build takes.  The
+`csrc/*.cu` are compiled by `nvcc` for Hopper (`sm_90a`), one `nvcc -c`
+per source, all started together, then linked into a plain-C shared library
+that `ctypes` loads: no PyTorch headers, so a cold build takes seconds, not
+the minutes a `torch.utils.cpp_extension` build takes.  The
 library lands in `_build/` beside this file (listed in .gitignore), named by
 a hash of the sources and flags, so an edited source is rebuilt and an
 unchanged one is reused.  Nothing is compiled at import: the CPU path never
@@ -23,8 +24,9 @@ _PKG = Path(__file__).resolve().parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC")
+NVCC_FLAGS = ARCH_FLAGS + ("-Xptxas", "-v")      # per source, with `-c`
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -73,13 +75,30 @@ def load() -> ctypes.CDLL:
 
 def _compile(so: Path) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-    cu = [str(p) for p in sorted(SRC_DIR.glob("*.cu"))]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(SRC_DIR), "-o", str(tmp), *cu]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    so.with_suffix(".log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    nvcc = _nvcc()
+    tag = f"{so.stem}.{os.getpid()}"
+    cu = sorted(SRC_DIR.glob("*.cu"))
+    objs = [BUILD_DIR / f"{tag}.{p.stem}.o" for p in cu]
+    cmds = [[nvcc, *NVCC_FLAGS, "-I", str(SRC_DIR), "-c", "-o", str(o),
+             str(p)] for p, o in zip(cu, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]      # waits for every one
+    tmp = so.with_name(f"{tag}.tmp.so")
+    link = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+    failed = [(c, o) for c, p, o in zip(cmds, procs, outs) if p.returncode]
+    if not failed:
+        proc = subprocess.run(link, capture_output=True, text=True)
+        outs.append(proc.stdout + proc.stderr)
+        if proc.returncode:
+            failed.append((link, proc.stdout + proc.stderr))
+    so.with_suffix(".log").write_text("".join(
+        " ".join(c) + "\n" + o for c, o in zip(cmds + [link], outs)))
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+        raise RuntimeError("nvcc failed:\n" + "\n".join(
+            " ".join(c) + "\n" + o for c, o in failed))
     os.replace(tmp, so)   # atomic: a concurrent loader sees all or nothing

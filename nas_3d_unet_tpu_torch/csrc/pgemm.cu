@@ -1,19 +1,29 @@
-// fp32 GEMM-with-moments kernels for the stride-1 ConvNormAct convs.
+// GEMM-with-moments kernels for the stride-1 ConvNormAct convs, fp32 or
+// bf16 elements with fp32 accumulation.
 //
 // Replaces (nas_3d_unet_tpu/ops/pallas/pgemm.py):
-//   K1 conv3x3x3_stats_f32 <- conv_pgemm (:174, body _kernel :74) with its
-//      GroupNorm-moments epilogue: stride-1 3^3 SAME conv, dilation 1 or 2.
-//   K2 gemm_stats_f32      <- gemm_stats (:311, body _gemm_kernel :287):
-//      y = x @ W over voxel rows (the 1^3 conv) with the same epilogue.
-// Both also emit per-(batch, channel) sums of y and y^2, which GroupNorm
-// folds into mean and variance without another pass over y.
+//   K1 conv3x3x3_stats_{f32,bf16} <- conv_pgemm (:174, body _kernel :74)
+//      with its GroupNorm-moments epilogue: stride-1 3^3 SAME conv,
+//      dilation 1 or 2.
+//   K1-dx conv3x3x3_{f32,bf16}    <- the same conv_pgemm with
+//      with_stats=False, as _pg_stats_fn's backward runs it for dx
+//      (ops/packed.py:491-504): the conv of dy with the flip-transposed
+//      kernel.  The epilogue and the moments reduce are compiled out.
+//   K2 gemm_stats_{f32,bf16}      <- gemm_stats (:311, body _gemm_kernel
+//      :287): y = x @ W over voxel rows (the 1^3 conv), same epilogue.
+// The moments are per-(batch, channel) sums of y and y^2, which GroupNorm
+// folds into mean and variance without another pass over y.  In bf16 they
+// are fp32 sums of the ROUNDED y, as the reference's are (packed.py:408).
 //
-// What bounds them on the H100: the slice runs in fp32 end to end, so the
-// tensor cores (bf16/TF32) are off limits and the ceiling is the 67 TFLOP/s
-// of fp32 FMA against 3.35 TB/s (balance ~20 flop/B).  K1 is compute-bound:
-// a 3^3 conv does 54*Cin flops per 4-byte output value (16->16: 216
-// flop/B).  K2 straddles the balance: a voxel row does 2*K*N flops for
-// (K+N)*4 bytes, 6 flop/B at 48->16 up to 38 at 192->128.
+// What bounds them on the H100: in fp32 the tensor cores (bf16/TF32) are
+// off limits and the ceiling is the 67 TFLOP/s of fp32 FMA against 3.35
+// TB/s (balance ~20 flop/B).  K1 is compute-bound: a 3^3 conv does 54*Cin
+// flops per output value (16->16: 216 flop/B in fp32).  K2 straddles the
+// balance: a voxel row does 2*K*N flops for (K+N)*4 bytes, 6 flop/B at
+// 48->16 up to 38 at 192->128.  In bf16 the bound is the tensor cores' 989
+// TFLOP/s and half the bytes; this version still widens bf16 to fp32 and
+// runs the same FMA tiling, so it is far from that bound (wgmma is later
+// work): bf16 here halves the bytes moved, not the FMA count.
 //
 // What the design does about it: one implicit-GEMM kernel for both,
 //   Y[m, n] = sum_k A[m, k] * Wt[k, n],  k = tap * Cin + ci,
@@ -34,7 +44,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
+
+using nas3d::load_f32;
+using nas3d::store_rounded;
 
 constexpr int kThreads = 256;
 constexpr int kBK = 8;   // K slice staged per iteration
@@ -62,15 +77,18 @@ int pick_bn(int n) {
 // CONV: rows = D*H*W voxels of one batch item, K = 27*Cin, A gathered from x
 //       with SAME zero padding (pad = dil on both sides, stride 1).
 // GEMM: rows = V voxel rows of one batch item, A = x[b] as (V, K).
-// partial: (B, gridDim.x, 2, N) per-block column sums of y and y^2.
+// partial: (B, gridDim.x, 2, N) per-block column sums of y and y^2 (STATS
+//          only; unused otherwise).
+// T: float or __nv_bfloat16 for x, w and y; shared memory and the
+//    accumulators are fp32 either way.
 //
 // Pipeline: shared memory holds two K slices; while the block multiplies
 // slice i, each thread's global loads for slice i+1 are already in flight
 // into registers, and land in the other buffer after the FMAs.
-template <int BN, bool CONV>
+template <int BN, bool CONV, typename T, bool STATS>
 __global__ void __launch_bounds__(kThreads, 2)
-gemm_moments_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                    float* __restrict__ y, float* __restrict__ partial,
+gemm_moments_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                    T* __restrict__ y, float* __restrict__ partial,
                     int rows, int K, int N, ConvGeom g) {
   constexpr int TN = tile_n(BN);
   constexpr int BM = row_block(BN);
@@ -93,7 +111,7 @@ gemm_moments_kernel(const float* __restrict__ x, const float* __restrict__ w,
   const int kk = tid % kBK;                 // this thread's K lane when staging
   const int r_base = tid / kBK;
 
-  const float* xb = x + (size_t)b * rows * (CONV ? g.Cin : K);
+  const T* xb = x + (size_t)b * rows * (CONV ? g.Cin : K);
 
   // staged rows: CONV packs (d, h, w) into 10-bit fields, GEMM keeps m;
   // -1 marks a row past the end (the ragged tail), which stages zeros
@@ -137,7 +155,8 @@ gemm_moments_kernel(const float* __restrict__ x, const float* __restrict__ w,
           const int h = ((p >> 10) & 1023) + oh;
           const int ww = (p & 1023) + ow;
           if (d >= 0 && d < g.D && h >= 0 && h < g.H && ww >= 0 && ww < g.W)
-            v = __ldg(xb + (((size_t)d * g.H + h) * g.W + ww) * g.Cin + ci);
+            v = load_f32(xb + (((size_t)d * g.H + h) * g.W + ww) * g.Cin +
+                         ci);
         }
         a_reg[i] = v;
       }
@@ -145,7 +164,8 @@ gemm_moments_kernel(const float* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
       for (int i = 0; i < LR; ++i) {
         const int p = rc[i];
-        a_reg[i] = (k < K && p >= 0) ? __ldg(xb + (size_t)p * K + k) : 0.f;
+        a_reg[i] = (k < K && p >= 0) ? load_f32(xb + (size_t)p * K + k)
+                                     : 0.f;
       }
     }
 #pragma unroll
@@ -153,7 +173,7 @@ gemm_moments_kernel(const float* __restrict__ x, const float* __restrict__ w,
       const int e = tid + i * kThreads;
       const int kg = k0 + e / BN, ng = n0 + e % BN;
       b_reg[i] = (e < kBK * BN && kg < K && ng < N)
-                     ? __ldg(w + (size_t)kg * N + ng) : 0.f;
+                     ? load_f32(w + (size_t)kg * N + ng) : 0.f;
     }
   };
   // registers -> shared buffer `s`
@@ -204,7 +224,8 @@ gemm_moments_kernel(const float* __restrict__ x, const float* __restrict__ w,
     s ^= 1;
   }
 
-  // epilogue: store y, then this tile's column sums in a fixed order
+  // epilogue: store y (rounded once to T), then this tile's column sums of
+  // the rounded values in a fixed order
   float c1[TN], c2[TN];
 #pragma unroll
   for (int j = 0; j < TN; ++j) c1[j] = c2[j] = 0.f;
@@ -212,31 +233,32 @@ gemm_moments_kernel(const float* __restrict__ x, const float* __restrict__ w,
   for (int i = 0; i < kTM; ++i) {
     const int m = m0 + ty * kTM + i;
     if (m >= rows) continue;
-    float* yrow = y + ((size_t)b * rows + m) * N;
+    T* yrow = y + ((size_t)b * rows + m) * N;
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const int n = n0 + tx * TN + j;
       if (n < N) {
-        const float v = acc[i][j];
-        yrow[n] = v;
+        const float v = store_rounded(yrow + n, acc[i][j]);
         c1[j] += v;
         c2[j] += v * v;
       }
     }
   }
+  if constexpr (STATS) {
 #pragma unroll
-  for (int j = 0; j < TN; ++j) {
-    red[0][ty][tx * TN + j] = c1[j];
-    red[1][ty][tx * TN + j] = c2[j];
-  }
-  __syncthreads();
-  if (tid < 2 * BN) {
-    const int s2 = tid / BN, nc = tid % BN;
-    float t = 0.f;
-    for (int r = 0; r < TY; ++r) t += red[s2][r][nc];
-    if (n0 + nc < N)
-      partial[(((size_t)b * gridDim.x + blockIdx.x) * 2 + s2) * N + n0 + nc] =
-          t;
+    for (int j = 0; j < TN; ++j) {
+      red[0][ty][tx * TN + j] = c1[j];
+      red[1][ty][tx * TN + j] = c2[j];
+    }
+    __syncthreads();
+    if (tid < 2 * BN) {
+      const int s2 = tid / BN, nc = tid % BN;
+      float t = 0.f;
+      for (int r = 0; r < TY; ++r) t += red[s2][r][nc];
+      if (n0 + nc < N)
+        partial[(((size_t)b * gridDim.x + blockIdx.x) * 2 + s2) * N + n0 +
+                nc] = t;
+    }
   }
 }
 
@@ -259,28 +281,29 @@ moments_reduce_kernel(const float* __restrict__ partial, float* __restrict__ s1,
   if (threadIdx.x == 0) (s ? s2 : s1)[(size_t)b * N + n] = (float)sh[0];
 }
 
-template <bool CONV>
-int launch(const float* x, const float* w, float* y, float* partial, float* s1,
-           float* s2, int B, int rows, int K, int N, ConvGeom g,
-           cudaStream_t st) {
+// STATS: also sum the per-block partials into s1/s2; otherwise partial, s1
+// and s2 are unused (may be null)
+template <bool CONV, bool STATS, typename T>
+int launch(const T* x, const T* w, T* y, float* partial, float* s1, float* s2,
+           int B, int rows, int K, int N, ConvGeom g, cudaStream_t st) {
   const int bn = pick_bn(N);
   const dim3 grid((rows + row_block(bn) - 1) / row_block(bn),
                   (N + bn - 1) / bn, B);
   switch (bn) {
     case 64:
-      gemm_moments_kernel<64, CONV><<<grid, kThreads, 0, st>>>(
+      gemm_moments_kernel<64, CONV, T, STATS><<<grid, kThreads, 0, st>>>(
           x, w, y, partial, rows, K, N, g);
       break;
     case 32:
-      gemm_moments_kernel<32, CONV><<<grid, kThreads, 0, st>>>(
+      gemm_moments_kernel<32, CONV, T, STATS><<<grid, kThreads, 0, st>>>(
           x, w, y, partial, rows, K, N, g);
       break;
     default:
-      gemm_moments_kernel<16, CONV><<<grid, kThreads, 0, st>>>(
+      gemm_moments_kernel<16, CONV, T, STATS><<<grid, kThreads, 0, st>>>(
           x, w, y, partial, rows, K, N, g);
   }
   cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess || !STATS) return (int)err;
   moments_reduce_kernel<<<dim3(N, B, 2), 256, 0, st>>>(partial, s1, s2,
                                                        (int)grid.x, N);
   return (int)cudaGetLastError();
@@ -291,27 +314,38 @@ int launch(const float* x, const float* w, float* y, float* partial, float* s1,
 extern "C" {
 
 // Rows of Y per block for an output width n; the caller sizes `partial`
-// as (B, ceil(rows / pgemm_row_block(n)), 2, n).
+// as (B, ceil(rows / pgemm_row_block(n)), 2, n) fp32.
 int pgemm_row_block(int n) { return row_block(pick_bn(n)); }
 
-// x (B, D, H, W, Cin), w (3, 3, 3, Cin, Cout), y (B, D, H, W, Cout),
-// s1/s2 (B, Cout); all fp32, contiguous, on the device of `stream`.
-int conv3x3x3_stats_f32(const float* x, const float* w, float* y,
-                        float* partial, float* s1, float* s2, int B, int D,
-                        int H, int W, int Cin, int Cout, int dil,
-                        void* stream) {
-  const ConvGeom g{D, H, W, Cin, dil};
-  return launch<true>(x, w, y, partial, s1, s2, B, D * H * W, 27 * Cin, Cout,
-                      g, (cudaStream_t)stream);
-}
+// K1: x (B, D, H, W, Cin), w (3, 3, 3, Cin, Cout), y (B, D, H, W, Cout) in
+// the element type; s1/s2 (B, Cout) fp32; all contiguous, on the device of
+// `stream`.
+#define NAS3D_CONV(NAME, T, STATS)                                            \
+  int NAME(const T* x, const T* w, T* y, float* partial, float* s1,           \
+           float* s2, int B, int D, int H, int W, int Cin, int Cout, int dil, \
+           void* stream) {                                                    \
+    const ConvGeom g{D, H, W, Cin, dil};                                      \
+    return launch<true, STATS>(x, w, y, partial, s1, s2, B, D * H * W,        \
+                               27 * Cin, Cout, g, (cudaStream_t)stream);      \
+  }
+NAS3D_CONV(conv3x3x3_stats_f32, float, true)
+NAS3D_CONV(conv3x3x3_stats_bf16, __nv_bfloat16, true)
+// K1-dx: the same conv without the moments (partial, s1, s2 unused)
+NAS3D_CONV(conv3x3x3_f32, float, false)
+NAS3D_CONV(conv3x3x3_bf16, __nv_bfloat16, false)
+#undef NAS3D_CONV
 
-// x (B, V, K), w (K, N), y (B, V, N), s1/s2 (B, N).
-int gemm_stats_f32(const float* x, const float* w, float* y, float* partial,
-                   float* s1, float* s2, int B, int V, int K, int N,
-                   void* stream) {
-  const ConvGeom g{0, 0, 0, 0, 0};
-  return launch<false>(x, w, y, partial, s1, s2, B, V, K, N, g,
-                       (cudaStream_t)stream);
-}
+// K2: x (B, V, K), w (K, N), y (B, V, N) in the element type; s1/s2 (B, N)
+// fp32.
+#define NAS3D_GEMM(NAME, T)                                                   \
+  int NAME(const T* x, const T* w, T* y, float* partial, float* s1,           \
+           float* s2, int B, int V, int K, int N, void* stream) {             \
+    const ConvGeom g{0, 0, 0, 0, 0};                                          \
+    return launch<false, true>(x, w, y, partial, s1, s2, B, V, K, N, g,       \
+                               (cudaStream_t)stream);                         \
+  }
+NAS3D_GEMM(gemm_stats_f32, float)
+NAS3D_GEMM(gemm_stats_bf16, __nv_bfloat16)
+#undef NAS3D_GEMM
 
 }  // extern "C"

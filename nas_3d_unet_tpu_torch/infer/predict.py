@@ -22,6 +22,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from ..io.nifti import write_nifti
 from ..metrics.dice import labels_to_regions, region_dice
 from .sliding import SlidingWindowPredictor
 
@@ -60,10 +61,6 @@ def _finalize_patient(labels_dev: torch.Tensor, dice_dev, rec: Dict,
     full = uncrop_labels(labels, rec["crop_start"], rec["orig_shape"])
     result: Dict = {"patient": rec["patient"]}
     if out_dir is not None:
-        # imported here so that the port's import graph holds nothing of the
-        # JAX package unless NIfTI is written (nifti.py itself is numpy only)
-        from nas_3d_unet_tpu.io.nifti import write_nifti
-
         os.makedirs(out_dir, exist_ok=True)
         out_path = os.path.join(out_dir, rec["patient"] + ".nii.gz")
         write_nifti(out_path, full, rec.get("affine"))

@@ -26,6 +26,18 @@ from ..metrics.dice import class_indices_to_labels, region_masks_to_labels
 from ..utils.precision import strict_fp32
 
 
+def resolve_device(device: torch.device | str | None) -> torch.device:
+    """`device` as a `torch.device`.  None means the card: an entry point
+    runs on the CPU only when the caller asks, and without a card None
+    raises instead of falling back."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run on the "
+                           "CPU")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
 def grid_starts(dim: int, patch: int, stride: int) -> List[int]:
     """1-D window start positions: stride steps, final window end-aligned."""
     if dim < patch:
@@ -89,15 +101,17 @@ def _stitch_sums(forward_fn: Callable[[torch.Tensor], torch.Tensor], volume,
 def sliding_window_probs(forward_fn, volume, patch_size: Sequence[int],
                          overlap: float = 0.5, batch_size: int = 4,
                          num_classes: int = 3,
-                         device: torch.device | str = "cpu") -> np.ndarray:
+                         device: torch.device | str | None = None
+                         ) -> np.ndarray:
     """Whole-volume averaged probabilities, (D, H, W, K) fp32 numpy.
 
     `forward_fn` maps a patch batch (B, p, p, p, C) to probabilities
     (B, p, p, p, K).  `volume` is the (D, H, W, C) image, numpy or tensor.
-    The divide runs once, on the host, as in the reference."""
+    The divide runs once, on the host, as in the reference.  `device`
+    None means the card (`resolve_device`)."""
     sums, cnts, (d, h, w) = _stitch_sums(forward_fn, volume, patch_size,
                                          overlap, batch_size, num_classes,
-                                         torch.device(device))
+                                         resolve_device(device))
     probs = sums.cpu().numpy() / cnts.cpu().numpy()
     return probs[:d, :h, :w]
 
@@ -122,14 +136,14 @@ def decode_labels(sums: torch.Tensor, cnts: torch.Tensor, threshold: float,
 def sliding_window_labels(forward_fn, volume, patch_size: Sequence[int],
                           overlap: float = 0.5, batch_size: int = 4,
                           num_classes: int = 3,
-                          device: torch.device | str = "cpu",
+                          device: torch.device | str | None = None,
                           threshold: float = 0.5,
                           label_mode: str = "regions") -> torch.Tensor:
     """Whole-volume BraTS labels decoded on `device`, (D, H, W) uint8: only
     the 1-byte label volume needs to leave the device."""
     sums, cnts, crop = _stitch_sums(forward_fn, volume, patch_size, overlap,
                                     batch_size, num_classes,
-                                    torch.device(device))
+                                    resolve_device(device))
     return decode_labels(sums, cnts, threshold, label_mode, crop)
 
 

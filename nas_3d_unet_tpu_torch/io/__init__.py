@@ -1,0 +1,1 @@
+"""io of the PyTorch port (see the package docstring)."""

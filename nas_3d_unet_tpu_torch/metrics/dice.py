@@ -42,6 +42,11 @@ def class_indices_to_labels(idx: torch.Tensor) -> torch.Tensor:
     return torch.where(idx == 3, 4, idx).to(torch.uint8)
 
 
+def class_logits_to_regions(logits: torch.Tensor) -> torch.Tensor:
+    """Class logits (..., 4) → hard region one-hots (..., 3) by argmax."""
+    return labels_to_regions(class_indices_to_labels(logits.argmax(dim=-1)))
+
+
 def region_dice(pred_regions: torch.Tensor, true_regions: torch.Tensor,
                 eps: float = 1e-7) -> torch.Tensor:
     """Hard Dice per region channel, (3,) float32; 1.0 where both masks are

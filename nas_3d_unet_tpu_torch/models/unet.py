@@ -3,8 +3,11 @@
 Counterpart of `DerivedNet` in `nas_3d_unet_tpu/models/unet.py`
 (:73-100, :162-190): stem ConvNormAct → `depth` down cells → `depth` up
 cells with encoder skips → fp32 1³ head with bias → region logits.
-Activations are NDHWC fp32; node channels double per level (c·2^l) and a
-cell outputs n_nodes·c_l channels.
+Activations are NDHWC in the compute dtype (`dtype`: "float32", or
+"bfloat16" as the training path runs); parameters stay fp32 and each op
+casts them, and the head runs in fp32 on fp32-cast features
+(`unet.py:90-100`).  Node channels double per level (c·2^l) and a cell
+outputs n_nodes·c_l channels.
 
 Children carry flax's names (`ConvNormAct_0` for the stem,
 `CheckpointDerivedDownCell_i` / `CheckpointDerivedUpCell_i` — the prefix
@@ -22,6 +25,8 @@ from ..ops.primitives import ConvNormAct, Kernel
 from .cell import DerivedDownCell, DerivedUpCell
 from .genotype import Genotype
 
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
 
 class DerivedNet(nn.Module):
     """Fixed-architecture network rebuilt from a genotype."""
@@ -29,8 +34,11 @@ class DerivedNet(nn.Module):
     def __init__(self, genotype: Genotype, in_channels: int = 4,
                  num_classes: int = 3, base_channels: int = 16,
                  depth: int = 3, n_nodes: int = 3, gn_groups: int = 8,
-                 merge_ops: bool = True):
+                 merge_ops: bool = True, dtype: str = "float32"):
         super().__init__()
+        if dtype not in DTYPES:
+            raise ValueError(f"dtype {dtype!r} not in {sorted(DTYPES)}")
+        self.compute_dtype = DTYPES[dtype]
         if genotype.n_nodes != n_nodes:
             raise ValueError(f"genotype has {genotype.n_nodes} nodes, "
                              f"net {n_nodes}")
@@ -58,7 +66,7 @@ class DerivedNet(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x (B, D, H, W, in_channels) → fp32 logits (B, D, H, W,
         num_classes); D, H, W divisible by 2**depth."""
-        stem = self.ConvNormAct_0(x.float())
+        stem = self.ConvNormAct_0(x.to(self.compute_dtype))
         feats = [stem]
         s_pp = s_p = stem
         for i in range(self.depth):
@@ -70,4 +78,5 @@ class DerivedNet(nn.Module):
             below = getattr(self, f"CheckpointDerivedUpCell_{i}")(
                 feats[level], below)
         head = self.Conv_0
-        return below @ head.kernel.view(below.shape[-1], -1) + head.bias
+        return below.float() @ head.kernel.view(below.shape[-1], -1) \
+            + head.bias

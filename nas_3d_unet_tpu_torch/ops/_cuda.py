@@ -1,0 +1,86 @@
+"""What every kernel wrapper shares: the launch count, the checks on the
+tensors it hands a kernel, and the launch itself.
+
+A wrapper takes its kernel's plain twin for a CPU tensor and launches the
+kernel for a CUDA tensor, or raises: there is no fallback from one to the
+other.  `LAUNCHES` counts kernel launches by name (`<kernel>_<f32|bf16>`),
+only on the kernel path, never the twin's.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+
+import torch
+
+from .. import _build
+
+# launches per kernel since the last `LAUNCHES.clear()`
+LAUNCHES: collections.Counter = collections.Counter()
+
+SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+P = ctypes.c_void_p
+I = ctypes.c_int
+# C signatures: name -> (pointer args, int args), each returning cudaError_t;
+# the stream comes last
+_SIGNATURES = {}
+for _t in SUFFIX.values():
+    _SIGNATURES.update({
+        f"conv3x3x3_stats_{_t}": (6, 7), f"conv3x3x3_{_t}": (6, 7),
+        f"gemm_stats_{_t}": (6, 4),
+        f"moments_{_t}": (4, 3), f"weighted_sums_{_t}": (5, 3)})
+_declared: ctypes.CDLL | None = None
+
+
+def lib() -> ctypes.CDLL:
+    """The compiled kernels, with every function's ctypes signature set."""
+    global _declared
+    lib_ = _build.load()
+    if _declared is not lib_:
+        for fn, argtypes in (("pgemm_row_block", [I]),
+                             ("stats_chunks", [I, I, I])):
+            getattr(lib_, fn).argtypes = argtypes
+            getattr(lib_, fn).restype = I
+        for fn, (n_ptr, n_int) in _SIGNATURES.items():
+            getattr(lib_, fn).argtypes = [P] * n_ptr + [I] * n_int + [P]
+            getattr(lib_, fn).restype = I
+        _declared = lib_
+    return lib_
+
+
+def dispatch(name: str, *ts: torch.Tensor) -> bool:
+    """True for CPU tensors (take the twin), False for CUDA (launch the
+    kernel); raises for any other device."""
+    dev = ts[0].device
+    if dev.type == "cpu":
+        return True
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: no kernel for {dev}")
+    return False
+
+
+def check(name: str, *ts: torch.Tensor) -> str:
+    """The element-type suffix of tensors a kernel takes: one device, one
+    dtype (fp32 or bf16), contiguous."""
+    dev, dtype = ts[0].device, ts[0].dtype
+    for t in ts:
+        if t.device != dev:
+            raise ValueError(f"{name}: tensors on {t.device} and {dev}")
+        if t.dtype != dtype or dtype not in SUFFIX:
+            raise TypeError(f"{name}: needs float32 or bfloat16 throughout, "
+                            f"got {t.dtype} and {dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: needs contiguous tensors")
+    return SUFFIX[dtype]
+
+
+def run(fn: str, dev: torch.device, *args) -> None:
+    """Launch `fn(*args, stream)` on `dev`'s current stream; count it."""
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(lib(), fn)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{fn}: CUDA launch failed with cudaError {err}")
+    LAUNCHES[fn] += 1

@@ -1,128 +1,147 @@
 """Conv / GEMM with GroupNorm raw moments: the counterpart of
-`nas_3d_unet_tpu/ops/pallas/pgemm.py`.
+`nas_3d_unet_tpu/ops/pallas/pgemm.py` and of the custom VJPs around it
+(`ops/packed.py` `_pg_stats_fn`, `_gemm_stats_fn`).
 
-Two kernels, each with its plain PyTorch twin and a launch count:
+Kernels (`csrc/pgemm.cu`), each in fp32 or bf16 with fp32 accumulation,
+each with its plain PyTorch twin:
 
-  K1 `conv3x3x3_stats(x, w, dilation)`: stride-1 3³ SAME conv on NDHWC with a
-     DHWIO kernel (replaces `conv_pgemm` with its moments epilogue);
-  K2 `gemm_stats(x3, w)`: `y = x3 @ w` over voxel rows, the 1³ conv
-     (replaces `gemm_stats`).
+  K1 `conv3x3x3_stats(x, w, dilation)`: stride-1 3³ SAME conv on NDHWC with
+     a DHWIO kernel plus the moments (replaces `conv_pgemm`);
+  K1-dx `conv3x3x3(x, w, dilation)`: the same conv without the moments,
+     which K1's backward runs for dx (`conv_pgemm(..., with_stats=False)`);
+  K2 `gemm_stats(x3, w)`: `y = x3 @ w` over voxel rows, the 1³ conv, plus
+     the moments (replaces `gemm_stats`).
 
-Both return `(y, s1, s2)` with `s1 = Σy`, `s2 = Σy²` per (batch, channel)
-over all voxels, fp32.  The JAX kernels work on the W-packed layout and
-return packed moments `(B, r·C)`; these take logical tensors and return the
-moments already folded to `(B, C)`.
+K1 and K2 return `(y, s1, s2)`: y in the input's dtype, `s1 = Σy` and
+`s2 = Σy²` per (batch, channel) over all voxels in fp32, taken of the
+rounded y.  The JAX kernels work on the W-packed layout and return packed
+moments `(B, r·C)`; these take logical tensors and return the moments
+already folded to `(B, C)`.
 
-Dispatch: a CPU tensor takes the twin; a CUDA tensor launches the kernel or
+Gradients (autograd Functions, as the reference's custom VJPs):
+  K1: dx = K1-dx on dy with the flip-transposed kernel
+      `w.flip(0, 1, 2).transpose(3, 4)` at the same dilation, skipped when x
+      needs no gradient (the stem); dW is the plain weight gradient of the
+      conv (cuDNN), as the reference leaves it to XLA.
+  K2: dx = dy @ wᵀ and dW = Σ x3ᵀ dy, plain matmuls.
+  The moments' cotangents are dropped by contract (`packed.py:410-413`):
+  s1 and s2 are non-differentiable outputs.  Their consumer, the GroupNorm
+  Function of `ops/groupnorm.py`, returns the complete gradient through y.
+
+Dispatch: a CPU tensor takes the twin (the Functions then run the twin
+forward and the twin conv for dx); a CUDA tensor launches the kernel or
 raises.  There is no fallback from one to the other.
 """
 
 from __future__ import annotations
 
-import collections
-import ctypes
-
 import torch
 import torch.nn.functional as F
 
-from .. import _build
-
-# launches per kernel since the last `LAUNCHES.clear()`; only the kernel
-# path counts, never the twin
-LAUNCHES: collections.Counter = collections.Counter()
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_declared: ctypes.CDLL | None = None
-
-
-def _lib() -> ctypes.CDLL:
-    global _declared
-    lib = _build.load()
-    if _declared is not lib:
-        lib.pgemm_row_block.argtypes = [_I]
-        lib.pgemm_row_block.restype = _I
-        lib.conv3x3x3_stats_f32.argtypes = [_P] * 6 + [_I] * 7 + [_P]
-        lib.conv3x3x3_stats_f32.restype = _I
-        lib.gemm_stats_f32.argtypes = [_P] * 6 + [_I] * 4 + [_P]
-        lib.gemm_stats_f32.restype = _I
-        _declared = lib
-    return lib
-
-
-def moments(y: torch.Tensor):
-    """(Σy, Σy²) over every axis but the first and last, in fp32."""
-    dims = tuple(range(1, y.dim() - 1))
-    return y.sum(dims), (y * y).sum(dims)
-
-
-def _check_cuda(name: str, *ts: torch.Tensor) -> None:
-    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
-        raise RuntimeError(f"{name}: the kernel has no backward yet; run it "
-                           "under torch.inference_mode()")
-    dev = ts[0].device
-    for t in ts:
-        if t.device != dev:
-            raise ValueError(f"{name}: tensors on {t.device} and {dev}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: needs float32, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: needs contiguous tensors")
-
-
-def _run(fn, name: str, dev: torch.device, *args) -> None:
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
-    LAUNCHES[name] += 1
-
+from . import _cuda
+from .stats import moments_twin
 
 # ---------------------------------------------------------------------------
-# K1: stride-1 3³ conv + moments
+# K1: stride-1 3³ conv (+ moments)
 # ---------------------------------------------------------------------------
 
 
-def conv3x3x3_stats_twin(x: torch.Tensor, w: torch.Tensor, dilation: int = 1):
-    """Plain PyTorch K1: explicit SAME pad (= dilation per side at stride 1,
-    `packed.py:123-128`), `F.conv3d`, then fp32 moments of y."""
+def conv3x3x3_twin(x: torch.Tensor, w: torch.Tensor, dilation: int = 1):
+    """Plain PyTorch K1-dx: explicit SAME pad (= dilation per side at
+    stride 1, `packed.py:123-128`), then `F.conv3d`; y in x's dtype."""
     p = dilation
     xt = F.pad(x.permute(0, 4, 1, 2, 3), (p, p, p, p, p, p))
     y = F.conv3d(xt, w.permute(4, 3, 0, 1, 2), dilation=dilation)
-    y = y.permute(0, 2, 3, 4, 1).contiguous()
-    return (y, *moments(y))
+    return y.permute(0, 2, 3, 4, 1).contiguous()
 
 
-def conv3x3x3_stats(x: torch.Tensor, w: torch.Tensor, dilation: int = 1):
-    """(y, Σy, Σy²): x (B, D, H, W, Cin), w (3, 3, 3, Cin, Cout) →
-    y (B, D, H, W, Cout) and moments (B, Cout), all fp32."""
-    if x.dim() != 5 or w.shape[:3] != (3, 3, 3) or w.dim() != 5 \
+def conv3x3x3_stats_twin(x: torch.Tensor, w: torch.Tensor, dilation: int = 1):
+    """Plain PyTorch K1: the conv, then fp32 moments of y."""
+    y = conv3x3x3_twin(x, w, dilation)
+    return (y, *moments_twin(y))
+
+
+def _check_conv(name: str, x: torch.Tensor, w: torch.Tensor,
+                dilation: int) -> None:
+    if x.dim() != 5 or w.dim() != 5 or w.shape[:3] != (3, 3, 3) \
             or w.shape[3] != x.shape[4]:
-        raise ValueError(f"conv3x3x3_stats: x {tuple(x.shape)} "
-                         f"w {tuple(w.shape)}")
+        raise ValueError(f"{name}: x {tuple(x.shape)} w {tuple(w.shape)}")
     if dilation not in (1, 2):
-        raise ValueError(f"conv3x3x3_stats: dilation {dilation}")
-    if x.device.type == "cpu":
-        return conv3x3x3_stats_twin(x, w, dilation)
-    if x.device.type != "cuda":
-        raise ValueError(f"conv3x3x3_stats: no kernel for {x.device}")
-    _check_cuda("conv3x3x3_stats", x, w)
+        raise ValueError(f"{name}: dilation {dilation}")
+
+
+def _k1(x: torch.Tensor, w: torch.Tensor, dilation: int, with_stats: bool):
+    """One K1 (with_stats) or K1-dx launch, or its twin on the CPU."""
+    name = "conv3x3x3_stats" if with_stats else "conv3x3x3"
+    if _cuda.dispatch(name, x, w):
+        if with_stats:
+            return conv3x3x3_stats_twin(x, w, dilation)
+        return conv3x3x3_twin(x, w, dilation)
+    t = _cuda.check(name, x, w)
     b, d, h, wd, cin = x.shape
     cout = w.shape[4]
     if max(d, h, wd) >= 1024:   # the kernel packs (d, h, w) in 10-bit fields
-        raise ValueError(f"conv3x3x3_stats: volume {(d, h, wd)} too large")
-    lib = _lib()
-    rows = d * h * wd
-    nblk = -(-rows // lib.pgemm_row_block(cout))
+        raise ValueError(f"{name}: volume {(d, h, wd)} too large")
     y = torch.empty((b, d, h, wd, cout), dtype=x.dtype, device=x.device)
-    partial = torch.empty((b, nblk, 2, cout), dtype=x.dtype, device=x.device)
-    s1 = torch.empty((b, cout), dtype=x.dtype, device=x.device)
-    s2 = torch.empty_like(s1)
-    _run(lib.conv3x3x3_stats_f32, "conv3x3x3_stats", x.device,
-         x.data_ptr(), w.data_ptr(), y.data_ptr(), partial.data_ptr(),
-         s1.data_ptr(), s2.data_ptr(), b, d, h, wd, cin, cout, dilation)
-    return y, s1, s2
+    if with_stats:
+        nblk = -(-(d * h * wd) // _cuda.lib().pgemm_row_block(cout))
+        partial = torch.empty((b, nblk, 2, cout), dtype=torch.float32,
+                              device=x.device)
+        s1 = torch.empty((b, cout), dtype=torch.float32, device=x.device)
+        s2 = torch.empty_like(s1)
+        ptrs = (partial.data_ptr(), s1.data_ptr(), s2.data_ptr())
+    else:
+        ptrs = (None, None, None)
+    _cuda.run(f"{name}_{t}", x.device, x.data_ptr(), w.data_ptr(),
+              y.data_ptr(), *ptrs, b, d, h, wd, cin, cout, dilation)
+    return (y, s1, s2) if with_stats else y
+
+
+def flip_transpose(w: torch.Tensor) -> torch.Tensor:
+    """The kernel whose stride-1 SAME conv is the transpose of w's:
+    spatially flipped, in and out channels swapped (`packed.py:494`)."""
+    return w.flip(0, 1, 2).transpose(3, 4).contiguous()
+
+
+class _ConvStats(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, dilation):
+        y, s1, s2 = _k1(x, w, dilation, True)
+        ctx.save_for_backward(x, w)
+        ctx.dilation = dilation
+        ctx.mark_non_differentiable(s1, s2)
+        return y, s1, s2
+
+    @staticmethod
+    def backward(ctx, dy, _ds1, _ds2):   # stats cotangents dropped
+        x, w = ctx.saved_tensors
+        d = ctx.dilation
+        dx = dw = None
+        dy = dy.contiguous()
+        if ctx.needs_input_grad[0]:
+            dx = _k1(dy, flip_transpose(w), d, False)
+        if ctx.needs_input_grad[1]:
+            # plain weight gradient of the SAME conv (cuDNN), OIDHW → DHWIO
+            dw = torch.nn.grad.conv3d_weight(
+                x.permute(0, 4, 1, 2, 3), w.permute(4, 3, 0, 1, 2).shape,
+                dy.permute(0, 4, 1, 2, 3), padding=d, dilation=d)
+            dw = dw.permute(2, 3, 4, 1, 0)
+        return dx, dw, None
+
+
+def conv3x3x3_stats(x: torch.Tensor, w: torch.Tensor, dilation: int = 1):
+    """K1 (y, Σy, Σy²): x (B, D, H, W, Cin), w (3, 3, 3, Cin, Cout) in one
+    dtype → y (B, D, H, W, Cout) in that dtype, moments (B, Cout) fp32.
+    Differentiable in x and w (see the module docstring)."""
+    _check_conv("conv3x3x3_stats", x, w, dilation)
+    return _ConvStats.apply(x, w, dilation)
+
+
+def conv3x3x3(x: torch.Tensor, w: torch.Tensor, dilation: int = 1):
+    """K1-dx: the conv alone, y (B, D, H, W, Cout) in x's dtype.  Not
+    differentiable: it is the backward of K1."""
+    _check_conv("conv3x3x3", x, w, dilation)
+    return _k1(x, w, dilation, False)
 
 
 # ---------------------------------------------------------------------------
@@ -133,28 +152,50 @@ def conv3x3x3_stats(x: torch.Tensor, w: torch.Tensor, dilation: int = 1):
 def gemm_stats_twin(x3: torch.Tensor, w: torch.Tensor):
     """Plain PyTorch K2: `x3 @ w`, then fp32 moments of y."""
     y = x3 @ w
-    return (y, *moments(y))
+    return (y, *moments_twin(y))
+
+
+def _k2(x3: torch.Tensor, w: torch.Tensor):
+    if _cuda.dispatch("gemm_stats", x3, w):
+        return gemm_stats_twin(x3, w)
+    t = _cuda.check("gemm_stats", x3, w)
+    b, v, k = x3.shape
+    n = w.shape[1]
+    nblk = -(-v // _cuda.lib().pgemm_row_block(n))
+    y = torch.empty((b, v, n), dtype=x3.dtype, device=x3.device)
+    partial = torch.empty((b, nblk, 2, n), dtype=torch.float32,
+                          device=x3.device)
+    s1 = torch.empty((b, n), dtype=torch.float32, device=x3.device)
+    s2 = torch.empty_like(s1)
+    _cuda.run(f"gemm_stats_{t}", x3.device, x3.data_ptr(), w.data_ptr(),
+              y.data_ptr(), partial.data_ptr(), s1.data_ptr(), s2.data_ptr(),
+              b, v, k, n)
+    return y, s1, s2
+
+
+class _GemmStats(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x3, w):
+        y, s1, s2 = _k2(x3, w)
+        ctx.save_for_backward(x3, w)
+        ctx.mark_non_differentiable(s1, s2)
+        return y, s1, s2
+
+    @staticmethod
+    def backward(ctx, dy, _ds1, _ds2):   # stats cotangents dropped
+        x3, w = ctx.saved_tensors
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = dy @ w.t()
+        if ctx.needs_input_grad[1]:
+            dw = x3.reshape(-1, x3.shape[-1]).t() @ dy.reshape(-1, dy.shape[-1])
+        return dx, dw
 
 
 def gemm_stats(x3: torch.Tensor, w: torch.Tensor):
-    """(y, Σy, Σy²): x3 (B, V, K), w (K, N) → y (B, V, N), moments (B, N)."""
+    """K2 (y, Σy, Σy²): x3 (B, V, K), w (K, N) in one dtype → y (B, V, N)
+    in that dtype, moments (B, N) fp32.  Differentiable in x3 and w."""
     if x3.dim() != 3 or w.dim() != 2 or w.shape[0] != x3.shape[2]:
         raise ValueError(f"gemm_stats: x3 {tuple(x3.shape)} "
                          f"w {tuple(w.shape)}")
-    if x3.device.type == "cpu":
-        return gemm_stats_twin(x3, w)
-    if x3.device.type != "cuda":
-        raise ValueError(f"gemm_stats: no kernel for {x3.device}")
-    _check_cuda("gemm_stats", x3, w)
-    b, v, k = x3.shape
-    n = w.shape[1]
-    lib = _lib()
-    nblk = -(-v // lib.pgemm_row_block(n))
-    y = torch.empty((b, v, n), dtype=x3.dtype, device=x3.device)
-    partial = torch.empty((b, nblk, 2, n), dtype=x3.dtype, device=x3.device)
-    s1 = torch.empty((b, n), dtype=x3.dtype, device=x3.device)
-    s2 = torch.empty_like(s1)
-    _run(lib.gemm_stats_f32, "gemm_stats", x3.device,
-         x3.data_ptr(), w.data_ptr(), y.data_ptr(), partial.data_ptr(),
-         s1.data_ptr(), s2.data_ptr(), b, v, k, n)
-    return y, s1, s2
+    return _GemmStats.apply(x3, w)

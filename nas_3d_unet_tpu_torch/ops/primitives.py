@@ -10,9 +10,14 @@ this path (`ConvNormAct` → `conv_stats_fused_viable`, `ops/packed.py:356`):
   * stride-1 3³ `ConvNormAct` → K1 `pgemm.conv3x3x3_stats` (conv + moments);
   * stride-1 1³ `ConvNormAct` → K2 `pgemm.gemm_stats`;
   * everything else (stride-2 convs, the depthwise conv, the pointwise conv
-    of `SepConv`, the k2s2 transpose conv) is plain PyTorch, as the JAX
-    package leaves it to XLA, followed by GroupNorm from fp32 moments.
+    of `SepConv`, the k2s2 transpose conv) is plain PyTorch with autograd
+    (cuDNN / cuBLAS), as the JAX package leaves it to XLA, followed by
+    GroupNorm from K5a's moments (`ops/stats.py`).
 The op order is conv → GroupNorm → ReLU throughout.
+
+Precision, as flax's `dtype` / `param_dtype`: parameters stay fp32 and each
+op casts its kernel to the activations' dtype (fp32 or bf16) before use;
+GroupNorm's statistics and affine are fp32.
 """
 
 from __future__ import annotations
@@ -119,7 +124,7 @@ class ConvNormAct(nn.Module):
         self.norm = Norm(features, _gn_groups_for(features, gn_groups))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w = self.conv.kernel
+        w = self.conv.kernel.to(x.dtype)
         n = self.norm
         if self.stride == 1:
             x = x.contiguous()
@@ -150,8 +155,8 @@ class SepConv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         c = x.shape[-1]
-        y = conv3d_same(x, self.dw.kernel, self.stride, groups=c)
-        y = y @ self.pw.kernel.view(c, -1)
+        y = conv3d_same(x, self.dw.kernel.to(x.dtype), self.stride, groups=c)
+        y = y @ self.pw.kernel.to(x.dtype).view(c, -1)
         n = self.norm
         return group_norm(y, n.scale, n.bias, n.groups, relu=True)
 
@@ -168,7 +173,8 @@ class UpTranspose(nn.Module):
         # lax.conv_transpose (flax ConvTranspose, transpose_kernel=False)
         # puts kernel tap 1−δ at output offset δ on each axis; torch puts
         # tap δ there, hence the flip (`packed.py:644-656`)
-        w = self.deconv.kernel.flip(0, 1, 2).permute(3, 4, 0, 1, 2)
+        w = self.deconv.kernel.to(x.dtype).flip(0, 1, 2).permute(3, 4, 0, 1,
+                                                                 2)
         y = F.conv_transpose3d(x.permute(0, 4, 1, 2, 3), w, stride=2)
         n = self.norm
         return group_norm(y.permute(0, 2, 3, 4, 1), n.scale, n.bias, n.groups,

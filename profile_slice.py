@@ -1,18 +1,22 @@
 #!/usr/bin/env python3
-"""Where one patient's serving time goes, on one NVIDIA GPU.
+"""Where one patient's serving time, or one train step's time, goes, on
+one NVIDIA GPU.
 
-    python3 profile_slice.py
+    python3 profile_slice.py [--train]
 
-Serves one synthetic 160x192x152x4 patient with the flagship net (the
+Serving: one synthetic 160x192x152x4 patient with the flagship net (the
 settings of `chip_smoke.py`) under `torch.profiler`, after one warm-up
-patient and three timed unprofiled ones.  Every device activity (kernel,
-memcpy, memset) is attributed to the innermost op module whose forward
-launched it (forward hooks open a `record_function` range per module; a
-kernel belongs to the range around its launch call), and classed by its
-kernel name.  Prints one JSON object:
+patient and three timed unprofiled ones.  --train: one train step of the
+bf16 flagship at 128^3, batch 2, microbatch 1 (chip_smoke.py's phase
+"train"), after three warm-up and three timed unprofiled steps.  Every
+device activity (kernel, memcpy, memset) is attributed to the innermost op
+module whose forward launched it (forward hooks open a `record_function`
+range per module; a kernel belongs to the range around its launch call;
+the backward, launched by autograd after the forward ranges closed, falls
+outside them), and classed by its kernel name.  Prints one JSON object:
 
-  wall_s_unprofiled   host seconds per patient, three runs
-  window_ms           the profiled patient, host range around it
+  wall_s_unprofiled   host seconds per patient (per step), three runs
+  window_ms           the profiled patient (step), host range around it
   device_sum_ms       sum of device activity durations
   device_busy_ms      union of device activity intervals in the window
   idle_share          1 - device_busy_ms / window_ms
@@ -24,6 +28,7 @@ Needs CUDA; imports nothing of JAX.
 
 from __future__ import annotations
 
+import argparse
 import bisect
 import collections
 import json
@@ -38,9 +43,14 @@ import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
 CLASSES = [   # (class, kernel-name pattern), first match wins
-    ("K1 conv3x3x3_stats", r"gemm_moments_kernel<\d+, true>"),
-    ("K2 gemm_stats", r"gemm_moments_kernel<\d+, false>"),
+    ("K1-dx conv3x3x3", r"gemm_moments_kernel<\d+, true, [\w:]+, false"),
+    ("K1 conv3x3x3_stats", r"gemm_moments_kernel<\d+, true"),
+    ("K2 gemm_stats", r"gemm_moments_kernel<\d+, false"),
     ("K1/K2 moments reduce", r"moments_reduce_kernel"),
+    ("K5b weighted_sums", r"channel_sums_kernel<[\w:]+, true"),
+    ("K5a moments", r"channel_sums_kernel<[\w:]+, false"),
+    ("K5 partials reduce", r"partial_reduce_kernel"),
+    ("AdamW (foreach)", r"multi_tensor_apply"),
     ("cuDNN layout transform", r"nhwcToNchw|nchwToNhwc"),
     ("cuDNN conv", r"conv|xmma_fprop|cudnn"),
     ("cuBLAS gemm", r"gemm"),
@@ -48,7 +58,8 @@ CLASSES = [   # (class, kernel-name pattern), first match wins
     ("elementwise", r"elementwise|Fill|copy|cat|index"),
 ]
 DEVICE_CATS = {"kernel", "gpu_memcpy", "gpu_memset"}
-OUTSIDE = "outside the net (pad, patch stack, sigmoid, stitch, decode)"
+OUTSIDE = ("outside the forward (serving: pad, patch stack, sigmoid, "
+           "stitch, decode; training: augment, loss, backward, AdamW)")
 
 
 def kernel_class(name: str, cat: str) -> str:
@@ -109,12 +120,13 @@ def union_ms(intervals, lo, hi) -> float:
     return busy / 1e3
 
 
-def attribute(trace) -> dict:
+def attribute(trace, window_name: str) -> dict:
     evs = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
     window = [e for e in evs if e.get("cat") == "user_annotation"
-              and e["name"] == "patient"]
+              and e["name"] == window_name]
     if len(window) != 1:
-        raise AssertionError(f"{len(window)} 'patient' ranges in the trace")
+        raise AssertionError(f"{len(window)} {window_name!r} ranges in the "
+                             "trace")
     lo, hi = window[0]["ts"], window[0]["ts"] + window[0]["dur"]
     ranges = sorted((e["ts"], e["ts"] + e["dur"], e["name"][4:])
                     for e in evs if e.get("cat") == "user_annotation"
@@ -172,31 +184,64 @@ def attribute(trace) -> dict:
             "top_kernels_ms": dict(top.most_common(15))}
 
 
+def _serving(dev):
+    """(walls, profiled callable) for one patient."""
+    from chip_smoke import flagship_predictor, synthetic_records
+
+    predictor = flagship_predictor(dev, seed=0)
+    annotate_modules(predictor.model)
+    recs = synthetic_records(dev, seed=0, n=5)
+    walls = []
+    for rec in recs[:4]:                         # warm-up, then three timed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        predictor.predict_labels(rec["image_dev"])
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return walls, lambda: predictor.predict_labels(recs[4]["image_dev"])
+
+
+def _training(dev):
+    """(walls, profiled callable) for one train step."""
+    from chip_smoke import (AUGMENT, MICRO, flagship_net, synthetic_batch)
+    from nas_3d_unet_tpu_torch.train.loop import make_train_step
+    from nas_3d_unet_tpu_torch.train.optim import make_optimizer
+
+    net = flagship_net(0, "bfloat16").to(dev)
+    annotate_modules(net)
+    x, y = synthetic_batch(dev, 0)
+    opt = make_optimizer(net.parameters(), 3e-4, 1e-4)
+    step = make_train_step(net, opt, augment=AUGMENT, microbatch=MICRO)
+    walls = []
+    for _ in range(6):                           # three warm-up, three timed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(x, y)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return walls[2:], lambda: step(x, y)
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--train", action="store_true",
+                    help="profile one train step instead of one patient")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_slice: no CUDA device; nothing measured",
               file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from chip_smoke import flagship_predictor, synthetic_records
     from nas_3d_unet_tpu_torch.utils.precision import strict_fp32
 
     dev = torch.device("cuda", 0)
-    predictor = flagship_predictor(dev, seed=0)
-    annotate_modules(predictor.model)
-    recs = synthetic_records(dev, seed=0, n=5)
-    walls = []
+    window = "step" if args.train else "patient"
     with strict_fp32():
-        for rec in recs[:4]:                     # warm-up, then three timed
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            predictor.predict_labels(rec["image_dev"])
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
+        walls, run = (_training if args.train else _serving)(dev)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            with record_function("patient"):
-                predictor.predict_labels(recs[4]["image_dev"])
+            with record_function(window):
+                run()
                 torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
@@ -207,7 +252,8 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
-    out = {"card": smi, "wall_s_unprofiled": walls[1:], **attribute(trace)}
+    out = {"card": smi, "window": window, "wall_s_unprofiled": walls[1:],
+           **attribute(trace, window)}
     print(json.dumps(out, indent=1))
     return 0
 

@@ -1,15 +1,17 @@
-"""The port (nas_3d_unet_tpu_torch/) imports no JAX stack and nothing of
-the JAX package but its numpy-only NIfTI module: an AST scan of every
-import statement, top level or inside a function."""
+"""The port (nas_3d_unet_tpu_torch/) and the scripts that drive it on the
+card (chip_smoke.py, profile_slice.py, grad_parity.py) import no JAX stack
+and nothing of the JAX package: an AST scan of every import statement, top
+level or inside a function."""
 
 import ast
 import pathlib
 
 import pytest
 
-PKG = pathlib.Path(__file__).resolve().parents[1] / "nas_3d_unet_tpu_torch"
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "h5py", "yaml"}
-ALLOWED_FROM_JAX_PACKAGE = {"nas_3d_unet_tpu.io.nifti"}
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PKG = ROOT / "nas_3d_unet_tpu_torch"
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "h5py", "yaml",
+             "nas_3d_unet_tpu"}
 
 
 def _imports(path):
@@ -21,18 +23,44 @@ def _imports(path):
 
 
 def _sources():
-    return sorted(PKG.rglob("*.py"))
+    return sorted(PKG.rglob("*.py")) + [
+        ROOT / name for name in ("chip_smoke.py", "profile_slice.py",
+                                 "grad_parity.py")]
 
 
 def test_scan_sees_the_package():
-    names = {p.relative_to(PKG).as_posix() for p in _sources()}
-    assert {"bridge.py", "ops/pgemm.py", "infer/predict.py"} <= names
+    names = {p.relative_to(ROOT).as_posix() for p in _sources()}
+    assert {"nas_3d_unet_tpu_torch/bridge.py",
+            "nas_3d_unet_tpu_torch/ops/pgemm.py",
+            "nas_3d_unet_tpu_torch/infer/predict.py",
+            "nas_3d_unet_tpu_torch/io/nifti.py",
+            "chip_smoke.py", "profile_slice.py", "grad_parity.py"} <= names
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: p.name)
 def test_no_forbidden_imports(path):
     for name in _imports(path):
-        root = name.split(".")[0]
-        assert root not in FORBIDDEN, f"{path}: imports {name}"
-        if root == "nas_3d_unet_tpu":
-            assert name in ALLOWED_FROM_JAX_PACKAGE, f"{path}: imports {name}"
+        assert name.split(".")[0] not in FORBIDDEN, f"{path}: imports {name}"
+
+
+def test_nifti_round_trips_through_the_jax_reader(tmp_path):
+    """The port's writer, read back by the JAX package's reader: the same
+    array, dtype and affine."""
+    import numpy as np
+
+    from nas_3d_unet_tpu.io.nifti import read_nifti as jax_read
+    from nas_3d_unet_tpu_torch.io.nifti import read_nifti, write_nifti
+
+    rng = np.random.default_rng(0)
+    labels = rng.choice(np.array([0, 1, 2, 4], np.uint8), (7, 6, 5))
+    affine = np.diag([1.5, 2.0, 0.5, 1.0]).astype(np.float32)
+    affine[:3, 3] = [-10.0, 4.0, 2.5]
+    for name, data in (("l.nii.gz", labels),
+                       ("f.nii", rng.standard_normal((4, 3, 5))
+                        .astype(np.float32))):
+        path = str(tmp_path / name)
+        write_nifti(path, data, affine)
+        for img in (jax_read(path), read_nifti(path)):
+            assert img.data.dtype == data.dtype
+            np.testing.assert_array_equal(img.data, data)
+            np.testing.assert_array_equal(img.affine, affine)

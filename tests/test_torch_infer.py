@@ -49,7 +49,7 @@ def test_stitch_bitexact_vs_numpy_oracle():
         return x[..., :k] * np.float32(0.5) + np.float32(0.25)
 
     got = tsl.sliding_window_probs(forward_t, vol, patch, 0.5, batch_size=3,
-                                   num_classes=k)
+                                   num_classes=k, device="cpu")
     pad = [max(0, p - s) for p, s in zip(patch, vol.shape[:3])]
     vpad = np.pad(vol, [(0, pad[0]), (0, pad[1]), (0, pad[2]), (0, 0)])
     want = _numpy_stitch_oracle(forward_np, vpad, patch, (4, 4, 4),
@@ -72,7 +72,7 @@ def test_stitch_reproduces_frozen_golden():
 
     got = tsl.sliding_window_probs(forward_t, vol, predictor.patch_size,
                                    predictor.overlap, predictor.batch_size,
-                                   predictor.num_classes)
+                                   predictor.num_classes, device="cpu")
     np.testing.assert_array_equal(got, np.load(_GOLDEN)["probs"])
 
 
@@ -124,7 +124,7 @@ def _predictor():
 
 
 def test_predict_records_keeps_patient_order(tmp_path):
-    from nas_3d_unet_tpu.io.nifti import read_nifti
+    from nas_3d_unet_tpu_torch.io.nifti import read_nifti
 
     predictor = _predictor()
     rng = np.random.default_rng(4)
@@ -152,6 +152,23 @@ def test_predict_records_keeps_patient_order(tmp_path):
         want = td.regions_to_labels(torch.from_numpy(probs)).numpy()
         np.testing.assert_array_equal(
             labels, uncrop_labels(want, rec["crop_start"], rec["orig_shape"]))
+
+
+def test_entry_points_default_to_the_card():
+    """No device means the card: without one the stitch raises rather
+    than run on the CPU."""
+    vol = np.zeros((8, 8, 8, 4), np.float32)
+
+    def fwd(x):
+        return x[..., :3]
+
+    if torch.cuda.is_available():
+        assert tsl.resolve_device(None).type == "cuda"
+        return
+    for fn in (tsl.sliding_window_probs, tsl.sliding_window_labels):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            fn(fwd, vol, (8, 8, 8), num_classes=3)
+    assert tsl.resolve_device("cpu") == torch.device("cpu")
 
 
 def test_predictor_scopes_the_fp32_policy():

@@ -19,7 +19,7 @@ from nas_3d_unet_tpu_torch import bridge
 from nas_3d_unet_tpu_torch.models.genotype import (Genotype, default_genotype,
                                                    parse_alphas)
 from nas_3d_unet_tpu_torch.models.unet import DerivedNet
-from nas_3d_unet_tpu_torch.ops import pgemm
+from nas_3d_unet_tpu_torch.ops import _cuda, pgemm
 
 SMALL = dict(in_channels=4, num_classes=3, base_channels=4, depth=3,
              n_nodes=3, gn_groups=8)
@@ -74,7 +74,7 @@ def test_flagship_forward_runs_each_kernel_path_as_counted(monkeypatch):
     with torch.inference_mode():
         net(torch.zeros(1, 16, 16, 16, 4))
     assert calls == {"conv3x3x3_stats": 16, "gemm_stats": 10}
-    assert not pgemm.LAUNCHES                       # CPU: twins only
+    assert not _cuda.LAUNCHES                       # CPU: twins only
 
 
 def test_genotype_json_validate_and_parse_match_jax():
