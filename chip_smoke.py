@@ -36,13 +36,28 @@ Phases, each printed as JSON lines:
      then 3 warm-up and 5 timed steps: patches/s, the loss per step (all
      finite), peak device memory, and launches equal to (per step, counted
      from the modules) x 5.
+  7. pallas_kernels: the `use_pallas` configuration's kernels against their
+     twins at every geometry it gives them: K6 conv3d (stride 1 and 2) in
+     fp32 at batch 2 and in bf16 at batch 1, plus a dilation-2 and a
+     bias+ReLU case off the path; K7 pointwise_conv (and one bias+ReLU
+     case); K4 conv_transpose2x (and one ReLU case);
+     K3's apply (fp32 and bf16) and dx (bf16); K5b masked by y > 0 (K3's
+     backward sums, bf16); K5a at the configuration's own geometries.
+  8. pallas_slice: phase 4 with `DerivedNet(use_pallas=True)` (edge convs
+     on K6/K7/K4, every GroupNorm on K3), the same patients and checks,
+     against the twin path of that configuration.
+  9. pallas_train: phase 6 with the bf16 `use_pallas` net: gradient
+     parity with its twin path (limits from `grad_parity.py --use-pallas`),
+     3 warm-up and 5 timed steps, patches/s, losses, peak memory, launch
+     counts.
 Then the nvidia-smi line, the kernels summary line and, last,
 `{"ok": true, "device": {...}}`.  In the kernels line a serving kernel's
 `ms`, `plain_ms`, `library_ms` and `bound_ms` are one flagship forward's
 worth at batch 2, a training kernel's one train step's worth: the sum over
 geometries of launches per unit x time per launch.  `plain_ms` is the twin,
 `library_ms` one PyTorch call computing the same function (F.conv3d, a
-matmul; null where none does), `bound_ms` the larger of bytes / 3.35 TB/s
+matmul, F.conv_transpose3d, F.group_norm with its statistics; null
+where none does), `bound_ms` the larger of bytes / 3.35 TB/s
 and flops / peak (67 TFLOP/s fp32, 989 bf16; an H100 SXM at 700 W).  Any
 failed check raises: the script never exits 0 after a failure.  Imports
 nothing of JAX or the JAX package.
@@ -66,12 +81,26 @@ import torch
 
 SRC_PGEMM = "nas_3d_unet_tpu_torch/csrc/pgemm.cu"
 SRC_STATS = "nas_3d_unet_tpu_torch/csrc/stats.cu"
+SRC_CONV = "nas_3d_unet_tpu_torch/csrc/conv3d.cu"
+SRC_GN = "nas_3d_unet_tpu_torch/csrc/groupnorm.cu"
+SOURCES = {"moments": SRC_STATS, "weighted_sums": SRC_STATS,
+           "weighted_sums_masked": SRC_STATS, "group_norm_apply": SRC_GN,
+           "group_norm_dx": SRC_GN, "conv3d": SRC_CONV,
+           "pointwise_conv": SRC_CONV,
+           "conv_transpose2x": SRC_CONV}     # the rest: SRC_PGEMM
 REPLACES = {
     "conv3x3x3_stats": "nas_3d_unet_tpu/ops/pallas/pgemm.py:174",  # conv_pgemm
     "conv3x3x3": "nas_3d_unet_tpu/ops/packed.py:497",      # its dx use
     "gemm_stats": "nas_3d_unet_tpu/ops/pallas/pgemm.py:311",
     "moments": "nas_3d_unet_tpu/ops/pallas/stats.py:65",
     "weighted_sums": "nas_3d_unet_tpu/ops/pallas/stats.py:87",
+    # K3 (groupnorm.py:184 group_norm): its apply, dx and backward sums
+    "group_norm_apply": "nas_3d_unet_tpu/ops/pallas/groupnorm.py:124",
+    "group_norm_dx": "nas_3d_unet_tpu/ops/pallas/groupnorm.py:144",
+    "weighted_sums_masked": "nas_3d_unet_tpu/ops/pallas/groupnorm.py:109",
+    "conv3d": "nas_3d_unet_tpu/ops/pallas/conv3d.py:201",             # K6
+    "pointwise_conv": "nas_3d_unet_tpu/ops/pallas/conv3d.py:279",     # K7
+    "conv_transpose2x": "nas_3d_unet_tpu/ops/pallas/conv3d.py:356",   # K4
 }
 
 # Serving, fp32, batch 2, launches per flagship forward.
@@ -108,6 +137,31 @@ K5B_TRAIN = [(16, 64, 2), (16, 128, 14), (32, 32, 2), (32, 64, 22),
              (64, 64, 6), (128, 16, 8), (128, 32, 6), (256, 16, 2)]
 MICRO = 1
 
+# The use_pallas configuration (phases 7-9), launches per forward at batch
+# 2; a train step runs each twice at batch 1.  K1 runs for the stem alone
+# (its input needs no dx), K2 at K2_GEOMS.
+# K6: (Cin, Cout, input edge, stride, dilation, launches)
+P_K6 = [(32, 32, 64, 1, 1, 5), (64, 64, 32, 1, 1, 5), (128, 128, 16, 1, 1, 2),
+        (16, 16, 128, 1, 1, 3),
+        (32, 32, 128, 2, 1, 1), (32, 64, 128, 2, 1, 1), (64, 64, 64, 2, 1, 1),
+        (64, 128, 64, 2, 1, 1), (128, 128, 32, 2, 1, 1),
+        (128, 256, 32, 2, 1, 1),
+        (32, 32, 64, 1, 2, 0)]               # dil_conv3: off the path
+P_K6_BIAS_RELU = (32, 32, 64, 1, 1)          # the fused epilogue, off the path
+# K7: (C, volume edge, launches); K4: (C, input edge, launches)
+P_K7 = [(32, 64, 3), (64, 32, 3), (128, 16, 1), (16, 128, 2)]
+P_K4 = [(64, 16, 1), (32, 32, 1), (16, 64, 1)]
+# K3: (C, volume edge, GroupNorms): the 33 edge ops' and the 13 of the stem
+# and the 1³ projections (on K1/K2/cuDNN moments); each is one apply
+# forward, one masked K5b and one dx backward
+P_K3 = [(16, 64, 1), (16, 128, 7), (32, 32, 1), (32, 64, 11), (32, 128, 2),
+        (48, 128, 1), (64, 16, 1), (64, 32, 11), (64, 64, 3), (128, 16, 4),
+        (128, 32, 3), (256, 16, 1)]
+# K5a: the moments of the 35 GroupNorms whose producer emits none
+P_K5A = [(16, 128, 6), (32, 64, 10), (64, 32, 10), (64, 64, 2), (128, 16, 4),
+         (128, 32, 2), (256, 16, 1)]
+P_K1 = [K1_GEOMS[0]]                         # the stem
+
 # limits
 Y_RTOL = Y_ATOL = 1e-4       # fp32 y: |k - t| <= atol + rtol·|t|
 Y_ULPS = 2                   # bf16 y: 2 ulps of max(|t|, 2^-8)
@@ -122,6 +176,11 @@ MOM_STORED_RTOL = 1e-6       # bf16 moments vs Σ stored y: 7.2e-8 / 8.2e-6
 GRAD_REL_L2 = 0.35           # per leaf ‖g_k − g_t‖/‖g_t‖, max: 0.22 / 0.43
 GRAD_REL_L2_MEDIAN = 0.08    # its median over the leaves: 0.042 / 0.16
 GRAD_COS = 0.95              # per leaf cosine of g_k and g_t: 0.978 / 0.908
+# use_pallas (grad_parity.py --use-pallas, H100, seeds 0-3 and a planted
+# K3-dx fault), see PERF.md
+P_GRAD_REL_L2 = 0.35
+P_GRAD_REL_L2_MEDIAN = 0.08
+P_GRAD_COS = 0.95
 N_PATIENTS = 3               # timed patients, after one warm-up patient
 SHAPE = (160, 192, 152)      # a cropped BraTS volume, as bench.py serves
 PATCH, OVERLAP, PATCH_BATCH = (128, 128, 128), 0.5, 2
@@ -288,8 +347,9 @@ def check_gemm(dev, gen, k, n, v, batch, dtype):
 
 
 def check_stats(dev, gen, name, c, v, batch, dtype):
-    """K5a (moments) or K5b (weighted_sums) against the twin, and against
-    float64 sums of the same input."""
+    """K5a (moments), K5b (weighted_sums) or K5b masked by y > 0
+    (weighted_sums_masked, K3's backward sums) against the twin, and
+    against float64 sums of the same input."""
     from nas_3d_unet_tpu_torch.ops import stats
 
     shape = (batch, v, v, v, c)
@@ -302,14 +362,19 @@ def check_stats(dev, gen, name, c, v, batch, dtype):
         g = torch.randn(shape, generator=gen, device=dev).to(dtype)
         args = (g, x)
         gd = g.double()
+        if name == "weighted_sums_masked":
+            y = torch.randn(shape, generator=gen, device=dev).relu().to(dtype)
+            args = (g, x, y)
+            gd = torch.where(y > 0, gd, 0.0)
         terms = (gd, gd * x.double())
-    kernel = getattr(stats, name)
-    twin = getattr(stats, name + "_twin")
+    kernel = getattr(stats, name.replace("_masked", ""))
+    twin = getattr(stats, name.replace("_masked", "") + "_twin")
     out = kernel(*args)
     rep = _repeatable(kernel, args, out)
     dims = (1, 2, 3)
-    errs = [((o.double() - t.sum(dims)).abs() / t.abs().sum(dims))
-            .max().item() for o, t in zip(out, terms)]
+    errs = [((o.double() - t.sum(dims)).abs()
+             / t.abs().sum(dims).clamp_min(1e-300)).max().item()
+            for o, t in zip(out, terms)]
     del terms
     torch.cuda.synchronize()
     rec = {"c": c, "volume": v, "batch": batch, "bitwise_repeatable": rep,
@@ -322,6 +387,152 @@ def check_stats(dev, gen, name, c, v, batch, dtype):
     rec["max_abs_err"] = max(
         (o - t).abs().max().item() for o, t in zip(out, twin(*args)))
     rec["ok"] = rep and max(errs) <= STATS_RTOL
+    return rec
+
+
+def _conv_library_strided(x, w, b, stride, dilation, relu):
+    """One cuDNN call doing a 3³ conv's work (the ReLU aside): F.conv3d
+    with symmetric padding (at stride 2 lax's pad is one-sided, so this
+    one's output is shifted by a voxel: the same shape and work, not the
+    same values)."""
+    return torch.nn.functional.conv3d(
+        x.permute(0, 4, 1, 2, 3), w.permute(4, 3, 0, 1, 2),
+        None if b is None else b.to(x.dtype), stride=stride,
+        padding=dilation, dilation=dilation)
+
+
+def check_conv3d(dev, gen, cin, cout, v, stride, dil, batch, dtype,
+                 bias_relu=False):
+    """K6 against its twin at one geometry."""
+    from nas_3d_unet_tpu_torch.ops import conv3d
+
+    x = torch.randn((batch, v, v, v, cin), generator=gen, device=dev)
+    w = torch.randn((3, 3, 3, cin, cout), generator=gen,
+                    device=dev) * (27 * cin) ** -0.5
+    b = (torch.randn((cout,), generator=gen, device=dev) * 0.5
+         if bias_relu else None)
+    args = (x.to(dtype), w.to(dtype).contiguous(), b, stride, dil, bias_relu)
+    with torch.no_grad():
+        yk = conv3d.conv3d(*args)
+        yt = conv3d.conv3d_twin(*args)
+        rep = _repeatable(conv3d.conv3d, args, yk)
+        times = _timings(conv3d.conv3d, conv3d.conv3d_twin,
+                         _conv_library_strided, args)
+    torch.cuda.synchronize()
+    rec = {"cin": cin, "cout": cout, "volume": v, "stride": stride,
+           "dilation": dil, "bias_relu": bias_relu, "batch": batch,
+           "bitwise_repeatable": rep, **_y_check(yk, yt), **times}
+    e = args[0].element_size()
+    rows = batch * -(-v // stride) ** 3
+    rec["bound_ms"], rec["bound_by"] = bound_ms(
+        (batch * v ** 3 * cin + rows * cout + 27 * cin * cout) * e,
+        2.0 * rows * 27 * cin * cout, dtype)
+    rec["ok"] = rec["y_ok"] and rep
+    return rec
+
+
+def check_pointwise(dev, gen, c, v, batch, dtype, bias_relu=False):
+    """K7 against its twin at one geometry (C -> C, as the flagship's)."""
+    from nas_3d_unet_tpu_torch.ops import conv3d
+
+    x = torch.randn((batch, v, v, v, c), generator=gen, device=dev).to(dtype)
+    w = (torch.randn((c, c), generator=gen, device=dev)
+         * c ** -0.5).to(dtype)
+    b = (torch.randn((c,), generator=gen, device=dev) * 0.5
+         if bias_relu else None)
+    args = (x, w, b, bias_relu)
+
+    def library(x, w, *_):
+        return torch.matmul(x, w)
+
+    with torch.no_grad():
+        yk = conv3d.pointwise_conv(*args)
+        yt = conv3d.pointwise_conv_twin(*args)
+        rep = _repeatable(conv3d.pointwise_conv, args, yk)
+        times = _timings(conv3d.pointwise_conv, conv3d.pointwise_conv_twin,
+                         library, args)
+    torch.cuda.synchronize()
+    rows = batch * v ** 3
+    rec = {"c": c, "volume": v, "batch": batch, "bias_relu": bias_relu,
+           "bitwise_repeatable": rep, **_y_check(yk, yt), **times}
+    rec["bound_ms"], rec["bound_by"] = bound_ms(
+        (2 * rows * c + c * c) * x.element_size(), 2.0 * rows * c * c, dtype)
+    rec["ok"] = rec["y_ok"] and rep
+    return rec
+
+
+def check_transpose(dev, gen, c, v, batch, dtype, relu=False):
+    """K4 against its twin at one geometry (C -> C, input edge v)."""
+    from nas_3d_unet_tpu_torch.ops import conv3d
+
+    x = torch.randn((batch, v, v, v, c), generator=gen, device=dev).to(dtype)
+    w = (torch.randn((2, 2, 2, c, c), generator=gen, device=dev)
+         * c ** -0.5).to(dtype)
+    args = (x, w, relu)
+
+    def library(x, w, _relu):
+        return torch.nn.functional.conv_transpose3d(
+            x.permute(0, 4, 1, 2, 3), w.permute(3, 4, 0, 1, 2), stride=2)
+
+    with torch.no_grad():
+        yk = conv3d.conv_transpose2x(*args)
+        yt = conv3d.conv_transpose2x_twin(*args)
+        rep = _repeatable(conv3d.conv_transpose2x, args, yk)
+        times = _timings(conv3d.conv_transpose2x,
+                         conv3d.conv_transpose2x_twin, library, args)
+    torch.cuda.synchronize()
+    rows = batch * v ** 3
+    rec = {"c": c, "volume": v, "batch": batch, "relu": relu,
+           "bitwise_repeatable": rep, **_y_check(yk, yt), **times}
+    rec["bound_ms"], rec["bound_by"] = bound_ms(
+        (rows * 9 * c + 8 * c * c) * x.element_size(),
+        2.0 * rows * c * 8 * c, dtype)
+    rec["ok"] = rec["y_ok"] and rep
+    return rec
+
+
+def check_gn(dev, gen, name, c, v, batch, dtype):
+    """K3's apply (`y = relu(x·s + t)`, library: F.group_norm with its
+    statistics, on the permuted tensor) or dx (`a·g + b·x + c`, g masked
+    by y > 0) against its twin at one geometry, as the flagship calls
+    them (ReLU fused)."""
+    from nas_3d_unet_tpu_torch.ops import groupnorm
+
+    shape = (batch, v, v, v, c)
+    x = torch.randn(shape, generator=gen, device=dev).to(dtype)
+    vec = lambda: torch.randn((batch, c), generator=gen, device=dev)
+    n = x.numel()
+    e = x.element_size()
+    if name == "group_norm_apply":
+        args = (x, vec() * 0.5 + 1, vec() * 0.5, True)
+        kernel = groupnorm.group_norm_apply
+        twin = groupnorm.group_norm_apply_twin
+        groups = min(8, c)
+        gamma, beta = args[1][0], args[2][0]
+
+        def library(x, *_):
+            return torch.nn.functional.group_norm(
+                x.permute(0, 4, 1, 2, 3), groups, gamma.to(x.dtype),
+                beta.to(x.dtype))
+
+        nbytes, flops = 2 * n * e + 8 * batch * c, 3.0 * n
+    else:
+        g = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        y = torch.randn(shape, generator=gen, device=dev).relu().to(dtype)
+        args = (g, x, y, vec(), vec(), vec())
+        kernel, twin = groupnorm.group_norm_dx, groupnorm.group_norm_dx_twin
+        library = None
+        nbytes, flops = 4 * n * e + 12 * batch * c, 6.0 * n
+    with torch.no_grad():
+        yk = kernel(*args)
+        yt = twin(*args)
+        rep = _repeatable(kernel, args, yk)
+        times = _timings(kernel, twin, library, args)
+    torch.cuda.synchronize()
+    rec = {"c": c, "volume": v, "batch": batch, "bitwise_repeatable": rep,
+           **_y_check(yk, yt), **times}
+    rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, flops, dtype)
+    rec["ok"] = rec["y_ok"] and rep
     return rec
 
 
@@ -397,29 +608,83 @@ def phase_train_kernels(dev, gen, summary):
                        c, v, MICRO, dtype)
 
 
+def phase_pallas_kernels(dev, gen, summary):
+    """The use_pallas kernels: fp32 at batch 2 (per_unit = launches per
+    forward), bf16 at batch 1 (per_unit = launches per train step)."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    for dtype, batch, per in ((f32, BATCH, 1), (bf16, MICRO, 2)):
+        t = SUFFIX[dtype]
+        for cin, cout, v, st, dil, n in P_K6:
+            _run_check("pallas_kernel", f"conv3d_{t}", check_conv3d, summary,
+                       per * n, dev, gen, cin, cout, v, st, dil, batch, dtype)
+        _run_check("pallas_kernel", f"conv3d_{t}", check_conv3d, summary, 0,
+                   dev, gen, *P_K6_BIAS_RELU, batch, dtype, True)
+        for c, v, n in P_K7:
+            _run_check("pallas_kernel", f"pointwise_conv_{t}",
+                       check_pointwise, summary, per * n, dev, gen, c, v,
+                       batch, dtype)
+        _run_check("pallas_kernel", f"pointwise_conv_{t}", check_pointwise,
+                   summary, 0, dev, gen, *P_K7[0][:2], batch, dtype, True)
+        for c, v, n in P_K4:
+            _run_check("pallas_kernel", f"conv_transpose2x_{t}",
+                       check_transpose, summary, per * n, dev, gen, c, v,
+                       batch, dtype)
+        _run_check("pallas_kernel", f"conv_transpose2x_{t}", check_transpose,
+                   summary, 0, dev, gen, *P_K4[0][:2], batch, dtype, True)
+        for c, v, n in P_K3:
+            _run_check("pallas_kernel", f"group_norm_apply_{t}", check_gn,
+                       summary, per * n, dev, gen, "group_norm_apply", c, v,
+                       batch, dtype)
+        for c, v, n in P_K5A:      # K5a's own rows count the default paths
+            _run_check("pallas_kernel", f"moments_{t}", check_stats,
+                       summary, 0, dev, gen, "moments", c, v, batch, dtype)
+    for c, v, n in P_K3:           # the backward: training only
+        for name, fn in (("group_norm_dx", check_gn),
+                         ("weighted_sums_masked", check_stats)):
+            _run_check("pallas_kernel", f"{name}_bf16", fn, summary, 2 * n,
+                       dev, gen, name, c, v, MICRO, bf16)
+
+
+# the kernels that run in a forward; the rest run in the backward
+FORWARD_KERNELS = ("conv3x3x3_stats", "gemm_stats", "moments", "conv3d",
+                   "pointwise_conv", "conv_transpose2x", "group_norm_apply")
+
+
 def _modules_per_forward(net):
     """Kernel launches one forward (and its backward) makes, counted from
-    the modules: every stride-1 ConvNormAct runs K1 (3³) or K2 (1³); each
-    plain producer's GroupNorm runs K5a; every GroupNorm's backward runs
-    K5b; every K1 but the stem's (its input needs no gradient) runs
-    K1-dx."""
+    the modules.  Default path: every stride-1 ConvNormAct runs K1 (3³) or
+    K2 (1³); each plain producer's GroupNorm runs K5a; every GroupNorm's
+    backward runs K5b; every K1 but the stem's (its input needs no
+    gradient) runs K1-dx.  use_pallas: the 3³ edge convs run K6, SepConv
+    K7, UpTranspose K4, every GroupNorm K3 (apply forward; masked K5b and
+    dx backward), K5a for the GroupNorms whose producer is not K1/K2; K1
+    (the stem) and K2 as before.  Kernels with no launch are left out."""
     from nas_3d_unet_tpu_torch.ops.primitives import (ConvNormAct, SepConv,
                                                       UpTranspose)
 
     mods = list(net.modules())
     cna = [m for m in mods if isinstance(m, ConvNormAct)]
-    k1 = sum(m.stride == 1 and m.kernel == 3 for m in cna)
+    k1 = sum(m.stride == 1 and m.kernel == 3 and not m.k6 for m in cna)
+    k2 = sum(m.stride == 1 and m.kernel == 1 for m in cna)
     norms = [m for m in mods if isinstance(m, (ConvNormAct, SepConv,
                                                UpTranspose))]
-    plain = [m for m in norms if not isinstance(m, ConvNormAct)
-             or m.stride == 2]
-    return {"conv3x3x3_stats": k1,
-            "gemm_stats": sum(m.stride == 1 and m.kernel == 1 for m in cna),
-            "moments": len(plain), "weighted_sums": len(norms),
-            "conv3x3x3": k1 - 1}
+    out = {"conv3x3x3_stats": k1, "gemm_stats": k2,
+           "moments": len(norms) - k1 - k2, "conv3x3x3": k1 - 1}
+    if any(m.norm.use_pallas for m in norms):
+        out.update({"conv3d": sum(m.k6 for m in cna),
+                    "pointwise_conv": sum(isinstance(m, SepConv)
+                                          for m in norms),
+                    "conv_transpose2x": sum(isinstance(m, UpTranspose)
+                                            for m in norms),
+                    "group_norm_apply": len(norms),
+                    "weighted_sums_masked": len(norms),
+                    "group_norm_dx": len(norms)})
+    else:
+        out["weighted_sums"] = len(norms)
+    return {k: n for k, n in out.items() if n}
 
 
-def flagship_net(seed, dtype="float32"):
+def flagship_net(seed, dtype="float32", use_pallas=False):
     """The flagship derived net on the CPU, random weights from `seed` at
     flax's initialiser scales."""
     from nas_3d_unet_tpu_torch import bridge
@@ -428,19 +693,19 @@ def flagship_net(seed, dtype="float32"):
 
     net = DerivedNet(default_genotype(3), in_channels=4, num_classes=3,
                      base_channels=16, depth=3, n_nodes=3, gn_groups=8,
-                     dtype=dtype)
+                     dtype=dtype, use_pallas=use_pallas)
     bridge.load_flax_params(net, bridge.random_flax_params(net, seed))
     return net
 
 
-def flagship_predictor(dev, seed):
+def flagship_predictor(dev, seed, use_pallas=False):
     """The fp32 flagship net on `dev`, bound to the serving window
     settings."""
     from nas_3d_unet_tpu_torch.infer.sliding import SlidingWindowPredictor
 
-    return SlidingWindowPredictor(flagship_net(seed).to(dev), PATCH,
-                                  overlap=OVERLAP, batch_size=PATCH_BATCH,
-                                  num_classes=3)
+    return SlidingWindowPredictor(
+        flagship_net(seed, use_pallas=use_pallas).to(dev), PATCH,
+        overlap=OVERLAP, batch_size=PATCH_BATCH, num_classes=3)
 
 
 def synthetic_records(dev, seed, n):
@@ -462,10 +727,12 @@ def synthetic_records(dev, seed, n):
 def noting_kernels(seen):
     """Context that records, per kernel, the geometry of each launch the
     net asks for: (kernel, *geometry) keys in `seen`."""
-    from nas_3d_unet_tpu_torch.ops import pgemm, stats
+    from nas_3d_unet_tpu_torch.ops import conv3d, groupnorm, pgemm, stats
 
     k1, k2 = pgemm._k1, pgemm._k2
     mom, wsum = stats.moments, stats.weighted_sums
+    k6, k7, k4 = conv3d._k6, conv3d._k7, conv3d._k4
+    apply_, dx = groupnorm.group_norm_apply, groupnorm.group_norm_dx
 
     def k1_noted(x, w, dilation, with_stats):
         name = "conv3x3x3_stats" if with_stats else "conv3x3x3"
@@ -481,25 +748,57 @@ def noting_kernels(seen):
         seen[("moments", x.shape[-1], x.shape[1])] += 1
         return mom(x)
 
-    def wsum_noted(g, x):
-        seen[("weighted_sums", x.shape[-1], x.shape[1])] += 1
-        return wsum(g, x)
+    def wsum_noted(g, x, y=None):
+        name = "weighted_sums" if y is None else "weighted_sums_masked"
+        seen[(name, x.shape[-1], x.shape[1])] += 1
+        return wsum(g, x, y)
+
+    def k6_noted(x, w, b, stride, dilation, relu):
+        seen[("conv3d", x.shape[4], w.shape[4], x.shape[1], stride,
+              dilation)] += 1
+        return k6(x, w, b, stride, dilation, relu)
+
+    def k7_noted(x, w, b, relu):
+        seen[("pointwise_conv", x.shape[-1], x.shape[1])] += 1
+        return k7(x, w, b, relu)
+
+    def k4_noted(x, w, relu):
+        seen[("conv_transpose2x", x.shape[-1], x.shape[1])] += 1
+        return k4(x, w, relu)
+
+    def apply_noted(x, s, t, relu):
+        seen[("group_norm_apply", x.shape[-1], x.shape[1])] += 1
+        return apply_(x, s, t, relu)
+
+    def dx_noted(g, x, y, a, b, c):
+        seen[("group_norm_dx", x.shape[-1], x.shape[1])] += 1
+        return dx(g, x, y, a, b, c)
 
     return _patched({(pgemm, "_k1"): k1_noted, (pgemm, "_k2"): k2_noted,
                      (stats, "moments"): mom_noted,
-                     (stats, "weighted_sums"): wsum_noted})
+                     (stats, "weighted_sums"): wsum_noted,
+                     (conv3d, "_k6"): k6_noted, (conv3d, "_k7"): k7_noted,
+                     (conv3d, "_k4"): k4_noted,
+                     (groupnorm, "group_norm_apply"): apply_noted,
+                     (groupnorm, "group_norm_dx"): dx_noted})
 
 
 def twin_path():
-    """Context that routes every kernel of the net to its plain twin (K1
-    and K2 with plain autograd, so dx goes through cuDNN's own
-    backward)."""
-    from nas_3d_unet_tpu_torch.ops import pgemm, stats
+    """Context that routes every kernel of the net to its plain twin (K1,
+    K2, K6, K7 and K4 with plain autograd, so dx goes through cuDNN's own
+    backward; K3 as plain PyTorch with autograd through its statistics)."""
+    from nas_3d_unet_tpu_torch.ops import conv3d, groupnorm, pgemm, stats
 
     return _patched({(pgemm, "conv3x3x3_stats"): pgemm.conv3x3x3_stats_twin,
                      (pgemm, "gemm_stats"): pgemm.gemm_stats_twin,
                      (stats, "moments"): stats.moments_twin,
-                     (stats, "weighted_sums"): stats.weighted_sums_twin})
+                     (stats, "weighted_sums"): stats.weighted_sums_twin,
+                     (conv3d, "conv3d"): conv3d.conv3d_twin,
+                     (conv3d, "pointwise_conv"): conv3d.pointwise_conv_twin,
+                     (conv3d, "conv_transpose2x"):
+                         conv3d.conv_transpose2x_twin,
+                     (groupnorm, "pallas_group_norm"):
+                         groupnorm.pallas_group_norm_twin})
 
 
 @contextlib.contextmanager
@@ -521,21 +820,65 @@ def _table(*groups):
     return out
 
 
-def phase_slice(dev, seed):
+def _twice(rows):
+    """Geometry rows with their launches doubled: one train step runs two
+    microbatches."""
+    return [(*r[:-1], 2 * r[-1]) for r in rows]
+
+
+def kernel_tables(use_pallas, train):
+    """{(kernel, *geometry): launches} a forward at batch 2 (serving) or a
+    train step (training) makes, from the geometry tables."""
+    if not use_pallas:
+        if train:
+            return _table(("conv3x3x3_stats", K1_TRAIN),
+                          ("conv3x3x3", K1DX_TRAIN), ("gemm_stats", K2_TRAIN),
+                          ("moments", K5A_TRAIN),
+                          ("weighted_sums", K5B_TRAIN))
+        return _table(("conv3x3x3_stats", K1_GEOMS), ("gemm_stats", K2_GEOMS),
+                      ("moments", K5A_GEOMS))
+    step = _twice if train else list
+    groups = [("conv3x3x3_stats", step(P_K1)), ("gemm_stats", step(K2_GEOMS)),
+              ("moments", step(P_K5A)), ("conv3d", step(P_K6)),
+              ("pointwise_conv", step(P_K7)),
+              ("conv_transpose2x", step(P_K4)),
+              ("group_norm_apply", step(P_K3))]
+    if train:
+        groups += [("group_norm_dx", step(P_K3)),
+                   ("weighted_sums_masked", step(P_K3))]
+    return _table(*groups)
+
+
+# launches per forward (and its backward) each configuration must count
+# from its modules
+PER_FORWARD = {
+    False: {"conv3x3x3_stats": 16, "gemm_stats": 10, "moments": 20,
+            "conv3x3x3": 15, "weighted_sums": 46},
+    True: {"conv3x3x3_stats": 1, "gemm_stats": 10, "moments": 35,
+           "conv3d": 21, "pointwise_conv": 9, "conv_transpose2x": 3,
+           "group_norm_apply": 46, "group_norm_dx": 46,
+           "weighted_sums_masked": 46},
+}
+
+
+def phase_slice(dev, seed, use_pallas=False):
+    """Serving (phase 4, or phase 8 with use_pallas)."""
     from nas_3d_unet_tpu_torch.infer.predict import predict_records
     from nas_3d_unet_tpu_torch.infer.sliding import grid_coords
     from nas_3d_unet_tpu_torch.metrics.dice import regions_to_labels
     from nas_3d_unet_tpu_torch.ops import _cuda
 
-    predictor = flagship_predictor(dev, seed)
+    phase = "pallas_slice" if use_pallas else "slice"
+    kernel_phase = "phase7" if use_pallas else "phase3"
+    predictor = flagship_predictor(dev, seed, use_pallas)
     net = predictor.model
     t0 = time.perf_counter()
     recs = synthetic_records(dev, seed, N_PATIENTS + 1)   # +1: warm-up
     setup_s = time.perf_counter() - t0
 
     # one patch through the kernels (noting the shapes the net hands them,
-    # which must be the geometries phase 3 checked), then through the
-    # twins, same weights
+    # which must be the geometries the kernel phase checked), then through
+    # the twins, same weights
     seen = collections.Counter()
     pd, ph, pw = PATCH
     x = recs[0]["image_dev"][:pd, :ph, :pw].unsqueeze(0).contiguous()
@@ -549,17 +892,16 @@ def phase_slice(dev, seed):
     agree = (regions_to_labels(torch.sigmoid(logits_k))
              == regions_to_labels(torch.sigmoid(logits_t))).float().mean()
     agree = agree.item()
-    tables = _table(("conv3x3x3_stats", K1_GEOMS), ("gemm_stats", K2_GEOMS),
-                    ("moments", K5A_GEOMS))
-    emit({"phase": "slice_parity", "logits_max_abs": logit_err,
+    tables = kernel_tables(use_pallas, train=False)
+    emit({"phase": f"{phase}_parity", "logits_max_abs": logit_err,
           "limit": LOGIT_ATOL, "label_agreement": agree,
           "agreement_limit": LABEL_AGREE,
-          "geometries_match_phase3": seen == tables})
+          f"geometries_match_{kernel_phase}": seen == tables})
     if not (logit_err <= LOGIT_ATOL and agree >= LABEL_AGREE):
         raise AssertionError("kernel path disagrees with the twin path")
     if seen != tables:
         raise AssertionError(f"the net's kernel shapes {dict(seen)} are not "
-                             f"the geometries checked in phase 3")
+                             f"the geometries checked in {kernel_phase}")
     del logits_k, logits_t, x
 
     # keep each patient's label volume for the checks below
@@ -592,11 +934,11 @@ def phase_slice(dev, seed):
     forwards = len(recs) * math.ceil(len(grid_coords(SHAPE, PATCH, stride))
                                      / PATCH_BATCH)
     per_fwd = _modules_per_forward(net)
-    expected = {f"{k}_f32": per_fwd[k] * forwards
-                for k in ("conv3x3x3_stats", "gemm_stats", "moments")}
+    expected = {f"{k}_f32": n * forwards for k, n in per_fwd.items()
+                if k in FORWARD_KERNELS}
     dice = [r["dice"] for r in out]
     label_sets = [sorted(torch.unique(t).tolist()) for t in labels_seen]
-    emit({"phase": "slice", "patients": len(out), "volume": list(SHAPE),
+    emit({"phase": phase, "patients": len(out), "volume": list(SHAPE),
           "s_per_patient": s_per_patient, "warmup_patient_s": warm_s,
           "setup_s": setup_s, "forwards": forwards,
           "launches_per_forward": per_fwd,
@@ -605,9 +947,9 @@ def phase_slice(dev, seed):
           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 2 ** 30})
     if [r["patient"] for r in out] != [r["patient"] for r in recs]:
         raise AssertionError("results out of patient order")
-    if (per_fwd["conv3x3x3_stats"], per_fwd["gemm_stats"],
-            per_fwd["moments"]) != (16, 10, 20) or launches != expected:
-        raise AssertionError(f"launch counts {launches} != {expected}")
+    if per_fwd != PER_FORWARD[use_pallas] or launches != expected:
+        raise AssertionError(f"launch counts {launches} != {expected} "
+                             f"(per forward {per_fwd})")
     if len(labels_seen) != len(recs):
         raise AssertionError("a patient's labels were not seen")
     for t in labels_seen:
@@ -631,12 +973,12 @@ def synthetic_batch(dev, seed):
     return x, torch.stack([wt, wt, wt], dim=-1)
 
 
-def grad_parity(net, x, y, kernel_ctx=None):
+def grad_parity(net, x, y, kernel_ctx=None, use_pallas=False):
     """One step's gradients on the kernel path (inside `kernel_ctx`) and on
     the twin path, leaf by leaf: the relative L2 distance
     ‖g_k − g_t‖ / ‖g_t‖ (its largest and its median), the cosine, and the
     relative difference of the norms.  `ok` holds all but the last to
-    their limits."""
+    their limits (the use_pallas configuration's own with use_pallas)."""
     from nas_3d_unet_tpu_torch.metrics.losses import dice_ce_loss
     from nas_3d_unet_tpu_torch.train.loop import loss_and_grads
 
@@ -657,41 +999,44 @@ def grad_parity(net, x, y, kernel_ctx=None):
         norm_rel.append(abs(nk - nt) / max(nt, 1e-30))
     worst, least = int(np.argmax(rel)), int(np.argmin(cos))
     vals = rel + cos + norm_rel
+    lim_rel, lim_med, lim_cos = (
+        (P_GRAD_REL_L2, P_GRAD_REL_L2_MEDIAN, P_GRAD_COS) if use_pallas
+        else (GRAD_REL_L2, GRAD_REL_L2_MEDIAN, GRAD_COS))
     return {"loss_kernel": out["kernel"][0], "loss_twin": out["twin"][0],
             "leaves": len(rel), "grad_rel_l2_max": rel[worst],
             "rel_l2_worst_leaf": names[worst],
             "grad_rel_l2_median": float(np.median(rel)),
             "grad_cos_min": cos[least], "cos_worst_leaf": names[least],
             "grad_norm_rel_max": max(norm_rel),
-            "limits": {"rel_l2": GRAD_REL_L2,
-                       "rel_l2_median": GRAD_REL_L2_MEDIAN, "cos": GRAD_COS},
-            "ok": (all(map(math.isfinite, vals)) and rel[worst] <= GRAD_REL_L2
-                   and np.median(rel) <= GRAD_REL_L2_MEDIAN
-                   and cos[least] >= GRAD_COS)}
+            "limits": {"rel_l2": lim_rel, "rel_l2_median": lim_med,
+                       "cos": lim_cos},
+            "ok": (all(map(math.isfinite, vals)) and rel[worst] <= lim_rel
+                   and np.median(rel) <= lim_med and cos[least] >= lim_cos)}
 
 
-def phase_train(dev, seed):
+def phase_train(dev, seed, use_pallas=False):
+    """Training (phase 6, or phase 9 with use_pallas)."""
     from nas_3d_unet_tpu_torch.ops import _cuda
     from nas_3d_unet_tpu_torch.train.loop import make_train_step
     from nas_3d_unet_tpu_torch.train.optim import make_optimizer
 
-    net = flagship_net(seed, "bfloat16").to(dev)
+    phase = "pallas_train" if use_pallas else "train"
+    kernel_phase = "phase7" if use_pallas else "phase5"
+    net = flagship_net(seed, "bfloat16", use_pallas).to(dev)
     x, y = synthetic_batch(dev, seed)
 
     # one step's gradients, kernel path (noting the shapes) then twin path
     seen = collections.Counter()
-    rec = grad_parity(net, x, y, noting_kernels(seen))
-    tables = _table(("conv3x3x3_stats", K1_TRAIN), ("conv3x3x3", K1DX_TRAIN),
-                    ("gemm_stats", K2_TRAIN), ("moments", K5A_TRAIN),
-                    ("weighted_sums", K5B_TRAIN))
-    emit({"phase": "train_parity", **rec,
-          "geometries_match_phase5": seen == tables})
+    rec = grad_parity(net, x, y, noting_kernels(seen), use_pallas)
+    tables = kernel_tables(use_pallas, train=True)
+    emit({"phase": f"{phase}_parity", **rec,
+          f"geometries_match_{kernel_phase}": seen == tables})
     if not rec["ok"]:
         raise AssertionError("kernel-path gradients disagree with the twin "
                              "path")
     if seen != tables:
         raise AssertionError(f"the step's kernel shapes {dict(seen)} are "
-                             f"not the geometries checked in phase 5")
+                             f"not the geometries checked in {kernel_phase}")
 
     opt = make_optimizer(net.parameters(), 3e-4, 1e-4)
     step = make_train_step(net, opt, augment=AUGMENT, microbatch=MICRO,
@@ -711,7 +1056,7 @@ def phase_train(dev, seed):
     per = _modules_per_forward(net)
     slices = TRAIN_BATCH // MICRO
     expected = {f"{k}_bf16": n * slices * TIMED_STEPS for k, n in per.items()}
-    rec = {"phase": "train", "batch": TRAIN_BATCH, "patch": TRAIN_PATCH,
+    rec = {"phase": phase, "batch": TRAIN_BATCH, "patch": TRAIN_PATCH,
            "microbatch": MICRO, "dtype": "bfloat16",
            "patches_per_s": TRAIN_BATCH / step_s, "step_s": step_s,
            "warmup_losses": warm, "warmup_s": warm_s, "losses": losses,
@@ -721,9 +1066,9 @@ def phase_train(dev, seed):
     emit(rec)
     if not all(map(math.isfinite, warm + losses)):
         raise AssertionError(f"non-finite loss {warm + losses}")
-    if (per["conv3x3x3_stats"], per["gemm_stats"], per["conv3x3x3"]) \
-            != (16, 10, 15) or launches != expected:
-        raise AssertionError(f"launch counts {launches} != {expected}")
+    if per != PER_FORWARD[use_pallas] or launches != expected:
+        raise AssertionError(f"launch counts {launches} != {expected} "
+                             f"(per microbatch {per})")
     return launches, rec
 
 
@@ -756,7 +1101,7 @@ def main() -> int:
     ptxas = [ln.strip() for ln in so.with_suffix(".log").read_text()
              .splitlines() if "registers" in ln or "spill" in ln]
     emit({"phase": "build", "seconds": build_s,
-          "sources": [SRC_PGEMM, SRC_STATS],
+          "sources": [SRC_PGEMM, SRC_CONV, SRC_STATS, SRC_GN],
           "flags": " ".join(_build.NVCC_FLAGS), "ptxas": ptxas})
 
     gen = torch.Generator(device=dev)
@@ -767,26 +1112,36 @@ def main() -> int:
         serve_launches, s_per_patient = phase_slice(dev, args.seed)
         phase_train_kernels(dev, gen, summary)
         train_launches, train = phase_train(dev, args.seed)
+        phase_pallas_kernels(dev, gen, summary)
+        p_serve_launches, p_s_per_patient = phase_slice(dev, args.seed, True)
+        p_train_launches, p_train = phase_train(dev, args.seed, True)
 
     emit({"phase": "done", "s_per_patient": s_per_patient,
           "train_patches_per_s": train["patches_per_s"],
           "train_peak_mem_gb": train["peak_mem_gb"],
+          "pallas_s_per_patient": p_s_per_patient,
+          "pallas_train_patches_per_s": p_train["patches_per_s"],
+          "pallas_train_peak_mem_gb": p_train["peak_mem_gb"],
           "card": smi, "build_s": build_s})
-    kernels = []
-    for name, launches in ((n, serve_launches[n]) for n in
-                           ("conv3x3x3_stats_f32", "gemm_stats_f32",
-                            "moments_f32")):
-        kernels.append((name, launches))
-    for name in ("conv3x3x3_stats_bf16", "conv3x3x3_bf16", "gemm_stats_bf16",
-                 "moments_bf16", "weighted_sums_bf16"):
-        kernels.append((name, train_launches[name]))
+    # each kernel's launches in the run of its path: the default path's
+    # serving and training, then the use_pallas configuration's
+    kernels = [(n, serve_launches) for n in
+               ("conv3x3x3_stats_f32", "gemm_stats_f32", "moments_f32")]
+    kernels += [(n, train_launches) for n in
+                ("conv3x3x3_stats_bf16", "conv3x3x3_bf16", "gemm_stats_bf16",
+                 "moments_bf16", "weighted_sums_bf16")]
+    kernels += [(f"{n}_f32", p_serve_launches) for n in
+                ("conv3d", "pointwise_conv", "conv_transpose2x",
+                 "group_norm_apply")]
+    kernels += [(f"{n}_bf16", p_train_launches) for n in
+                ("conv3d", "pointwise_conv", "conv_transpose2x",
+                 "group_norm_apply", "group_norm_dx", "weighted_sums_masked")]
     line = []
     for name, launches in kernels:
         base = name.rsplit("_", 1)[0]
-        src = SRC_STATS if base in ("moments", "weighted_sums") \
-            else SRC_PGEMM
-        line.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": REPLACES[base], "launches": launches,
+        line.append({"name": name, "route": "cuda",
+                     "source": SOURCES.get(base, SRC_PGEMM),
+                     "replaces": REPLACES[base], "launches": launches[name],
                      **summary.entry(name)})
     print(smi)
     print(json.dumps({"kernels": line}))

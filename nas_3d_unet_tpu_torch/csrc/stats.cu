@@ -6,8 +6,13 @@
 //       producer emits no moments (ops/packed.py:744-770);
 //   K5b weighted_sums_{f32,bf16} <- weighted_sums (:87, body
 //       _weighted_kernel :48): (sum g, sum g*x), the two reductions of every
-//       GroupNorm's backward (ops/packed.py:816-839).
-// Both reduce a (B, V, C) tensor over V to (B, C) fp32 sums.
+//       GroupNorm's backward (ops/packed.py:816-839);
+//   and K3's two reductions (nas_3d_unet_tpu/ops/pallas/groupnorm.py), the
+//       same functions on the use_pallas path: _lane_sums (:94, body
+//       _sum_kernel :51) is K5a, and _grad_lane_sums (:109, body
+//       _gsum_kernel :59) is K5b, with g masked by y > 0 when the ReLU was
+//       fused: weighted_sums_masked_{f32,bf16}.
+// All reduce a (B, V, C) tensor over V to (B, C) fp32 sums.
 //
 // What bounds them on the H100: bytes.  Each element is read once and
 // costs 2 flops, far below the 20 flop/B balance of fp32, so the floor is
@@ -57,12 +62,12 @@ int chunk_rows(int B, int V, int C) {
 }
 
 // partial: (B, nchunk, 2, C) double.  WEIGHTED: sums of g and g*x; else of
-// x and x*x (g unused).
-template <typename T, bool WEIGHTED>
+// x and x*x (g unused).  MASKED (WEIGHTED only): g counts where y > 0.
+template <typename T, bool WEIGHTED, bool MASKED>
 __global__ void __launch_bounds__(kThreads)
 channel_sums_kernel(const T* __restrict__ g, const T* __restrict__ x,
-                    double* __restrict__ partial, int V, int C, int cw,
-                    int rows) {
+                    const T* __restrict__ y, double* __restrict__ partial,
+                    int V, int C, int cw, int rows) {
   const int chunk = blockIdx.x, b = blockIdx.z;
   const int tid = threadIdx.x;
   const int rb = kThreads / cw;
@@ -76,6 +81,7 @@ channel_sums_kernel(const T* __restrict__ g, const T* __restrict__ x,
   if (roff < rb && c < C) {
     const T* xb = x + (size_t)b * V * C + c;
     const T* gb = WEIGHTED ? g + (size_t)b * V * C + c : nullptr;
+    const T* yb = MASKED ? y + (size_t)b * V * C + c : nullptr;
     for (int r = r0 + roff; r < r1; r += kUnroll * rb) {
       float f1 = 0.f, f2 = 0.f;
 #pragma unroll
@@ -84,7 +90,9 @@ channel_sums_kernel(const T* __restrict__ g, const T* __restrict__ x,
         if (rr < r1) {
           const float xv = load_f32(xb + (size_t)rr * C);
           if constexpr (WEIGHTED) {
-            const float gv = load_f32(gb + (size_t)rr * C);
+            float gv = load_f32(gb + (size_t)rr * C);
+            if constexpr (MASKED)
+              if (!(load_f32(yb + (size_t)rr * C) > 0.f)) gv = 0.f;
             f1 += gv;
             f2 = fmaf(gv, xv, f2);
           } else {
@@ -131,14 +139,14 @@ partial_reduce_kernel(const double* __restrict__ partial,
   if (threadIdx.x == 0) (s ? out2 : out1)[(size_t)b * C + c] = (float)sh[0];
 }
 
-template <typename T, bool WEIGHTED>
-int launch(const T* g, const T* x, double* partial, float* out1, float* out2,
-           int B, int V, int C, cudaStream_t st) {
+template <typename T, bool WEIGHTED, bool MASKED>
+int launch(const T* g, const T* x, const T* y, double* partial, float* out1,
+           float* out2, int B, int V, int C, cudaStream_t st) {
   const int cw = channel_width(C);
   const int rows = chunk_rows(B, V, C);
   const dim3 grid((V + rows - 1) / rows, (C + cw - 1) / cw, B);
-  channel_sums_kernel<T, WEIGHTED><<<grid, kThreads, 0, st>>>(
-      g, x, partial, V, C, cw, rows);
+  channel_sums_kernel<T, WEIGHTED, MASKED><<<grid, kThreads, 0, st>>>(
+      g, x, y, partial, V, C, cw, rows);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   partial_reduce_kernel<<<dim3(C, B, 2), kThreads, 0, st>>>(
@@ -162,8 +170,8 @@ int stats_chunks(int B, int V, int C) {
 #define NAS3D_MOMENTS(NAME, T)                                                \
   int NAME(const T* x, double* partial, float* s1, float* s2, int B, int V,   \
            int C, void* stream) {                                             \
-    return launch<T, false>(nullptr, x, partial, s1, s2, B, V, C,             \
-                            (cudaStream_t)stream);                            \
+    return launch<T, false, false>(nullptr, x, nullptr, partial, s1, s2, B,   \
+                                   V, C, (cudaStream_t)stream);               \
   }
 NAS3D_MOMENTS(moments_f32, float)
 NAS3D_MOMENTS(moments_bf16, __nv_bfloat16)
@@ -173,11 +181,23 @@ NAS3D_MOMENTS(moments_bf16, __nv_bfloat16)
 #define NAS3D_WEIGHTED(NAME, T)                                               \
   int NAME(const T* g, const T* x, double* partial, float* r1, float* r2,     \
            int B, int V, int C, void* stream) {                               \
-    return launch<T, true>(g, x, partial, r1, r2, B, V, C,                    \
-                           (cudaStream_t)stream);                             \
+    return launch<T, true, false>(g, x, nullptr, partial, r1, r2, B, V, C,    \
+                                  (cudaStream_t)stream);                      \
   }
 NAS3D_WEIGHTED(weighted_sums_f32, float)
 NAS3D_WEIGHTED(weighted_sums_bf16, __nv_bfloat16)
 #undef NAS3D_WEIGHTED
+
+// K3's backward sums with the ReLU fused: g, x, y (B, V, C) -> r1 = sum of
+// g where y > 0, r2 = sum of g*x where y > 0.
+#define NAS3D_MASKED(NAME, T)                                                 \
+  int NAME(const T* g, const T* x, const T* y, double* partial, float* r1,    \
+           float* r2, int B, int V, int C, void* stream) {                    \
+    return launch<T, true, true>(g, x, y, partial, r1, r2, B, V, C,           \
+                                 (cudaStream_t)stream);                       \
+  }
+NAS3D_MASKED(weighted_sums_masked_f32, float)
+NAS3D_MASKED(weighted_sums_masked_bf16, __nv_bfloat16)
+#undef NAS3D_MASKED
 
 }  // extern "C"

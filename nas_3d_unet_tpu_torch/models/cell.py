@@ -3,6 +3,10 @@
 Counterpart of `DerivedDownCell` / `DerivedUpCell` in
 `nas_3d_unet_tpu/models/cell.py` (:260-356, :457-507).
 
+`use_pallas` goes to the edge ops (`make_op`), as the reference passes it
+(`cell.py:288-290`, `:338-339`); the input projections take it for their
+GroupNorm only.
+
 Resolution contract:
   DerivedDownCell: inputs s0, s1 → output at half s1's resolution (s0 may
     be one level above s1; its 1³ projection then has stride 2).
@@ -41,12 +45,15 @@ class _DerivedCell(nn.Module):
 
     def __init__(self, in_channels: Tuple[int, int], features: int,
                  gene: Gene, gn_groups: int, merge_ops: bool,
-                 pre_strides: Tuple[int, int]):
+                 pre_strides: Tuple[int, int], use_pallas: bool):
         super().__init__()
         self.features = features
         self.gene = gene
         self._names: Counter = Counter()
-        self.pre = [self._add(ConvNormAct(ci, features, 1, s, 1, gn_groups))
+        # the reference builds the projections without use_pallas
+        # (`cell.py:271-274`): their GroupNorm still rounds once under it
+        self.pre = [self._add(ConvNormAct(ci, features, 1, s, 1, gn_groups,
+                                          use_pallas, pallas_conv=False))
                     for ci, s in zip(in_channels, pre_strides)]
         # (src, op) used k ≥ 2 times → one k·C-wide op (`_merged_edges`)
         self.merged: Dict[Tuple[str, str], str] = {}
@@ -57,9 +64,11 @@ class _DerivedCell(nn.Module):
             for key, k in counts.items():
                 if k >= 2:
                     self.merged[key] = self._add(
-                        make_op(key[1], features, k * features, k * g_eff))
+                        make_op(key[1], features, k * features, k * g_eff,
+                                use_pallas))
         self.edges = [[None if e in self.merged else
-                       self._add(make_op(e[1], features, features, gn_groups))
+                       self._add(make_op(e[1], features, features, gn_groups,
+                                         use_pallas))
                        for e in node] for node in gene]
 
     def _add(self, mod: nn.Module) -> str:
@@ -99,9 +108,9 @@ class DerivedDownCell(_DerivedCell):
 
     def __init__(self, c_pp: int, c_p: int, features: int, gene: Gene,
                  gn_groups: int = 8, merge_ops: bool = True,
-                 s0_stride: int = 1):
+                 s0_stride: int = 1, use_pallas: bool = False):
         super().__init__((c_pp, c_p), features, gene, gn_groups, merge_ops,
-                         (s0_stride, 1))
+                         (s0_stride, 1), use_pallas)
 
     def forward(self, s0: torch.Tensor, s1: torch.Tensor) -> torch.Tensor:
         p0, p1 = (getattr(self, n) for n in self.pre)
@@ -113,9 +122,10 @@ class DerivedUpCell(_DerivedCell):
     ops, so every path from the R/2 input is upsampled to R."""
 
     def __init__(self, c_skip: int, c_below: int, features: int, gene: Gene,
-                 gn_groups: int = 8, merge_ops: bool = True):
+                 gn_groups: int = 8, merge_ops: bool = True,
+                 use_pallas: bool = False):
         super().__init__((c_skip, c_below), features, gene, gn_groups,
-                         merge_ops, (1, 1))
+                         merge_ops, (1, 1), use_pallas)
 
     def forward(self, skip: torch.Tensor, below: torch.Tensor) -> torch.Tensor:
         p0, p1 = (getattr(self, n) for n in self.pre)

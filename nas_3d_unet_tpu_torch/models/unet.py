@@ -9,6 +9,11 @@ casts them, and the head runs in fp32 on fp32-cast features
 (`unet.py:90-100`).  Node channels double per level (c·2^l) and a cell
 outputs n_nodes·c_l channels.
 
+`use_pallas=True` is the reference's `packed=False, use_pallas=True`
+configuration (`config.py:88`): the cells' edge ops run the `use_pallas`
+kernels (K6, K7, K4) and every GroupNorm is K3 (`ops/primitives.py`); the
+parameters are the same either way.
+
 Children carry flax's names (`ConvNormAct_0` for the stem,
 `CheckpointDerivedDownCell_i` / `CheckpointDerivedUpCell_i` — the prefix
 is `nn.remat`'s — and `Conv_0` for the head), so `state_dict()` keys are
@@ -34,7 +39,8 @@ class DerivedNet(nn.Module):
     def __init__(self, genotype: Genotype, in_channels: int = 4,
                  num_classes: int = 3, base_channels: int = 16,
                  depth: int = 3, n_nodes: int = 3, gn_groups: int = 8,
-                 merge_ops: bool = True, dtype: str = "float32"):
+                 merge_ops: bool = True, dtype: str = "float32",
+                 use_pallas: bool = False):
         super().__init__()
         if dtype not in DTYPES:
             raise ValueError(f"dtype {dtype!r} not in {sorted(DTYPES)}")
@@ -45,12 +51,14 @@ class DerivedNet(nn.Module):
         self.depth = depth
         c_out = [n_nodes * base_channels]            # channels of each level
         self.ConvNormAct_0 = ConvNormAct(in_channels, c_out[0], 3, 1, 1,
-                                         gn_groups)
+                                         gn_groups, use_pallas,
+                                         pallas_conv=False)
         c_pp = c_p = c_out[0]
         for level in range(1, depth + 1):
             cell = DerivedDownCell(c_pp, c_p, base_channels * 2 ** level,
                                    genotype.down, gn_groups, merge_ops,
-                                   s0_stride=1 if level == 1 else 2)
+                                   s0_stride=1 if level == 1 else 2,
+                                   use_pallas=use_pallas)
             self.add_module(f"CheckpointDerivedDownCell_{level - 1}", cell)
             c_out.append(n_nodes * base_channels * 2 ** level)
             c_pp, c_p = c_p, c_out[-1]
@@ -58,7 +66,7 @@ class DerivedNet(nn.Module):
         for i, level in enumerate(range(depth - 1, -1, -1)):
             cell = DerivedUpCell(c_out[level], c_below,
                                  base_channels * 2 ** level, genotype.up,
-                                 gn_groups, merge_ops)
+                                 gn_groups, merge_ops, use_pallas)
             self.add_module(f"CheckpointDerivedUpCell_{i}", cell)
             c_below = n_nodes * base_channels * 2 ** level
         self.Conv_0 = Kernel((1, 1, 1, c_below, num_classes), bias=True)

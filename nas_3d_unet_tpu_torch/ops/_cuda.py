@@ -30,7 +30,11 @@ for _t in SUFFIX.values():
     _SIGNATURES.update({
         f"conv3x3x3_stats_{_t}": (6, 7), f"conv3x3x3_{_t}": (6, 7),
         f"gemm_stats_{_t}": (6, 4),
-        f"moments_{_t}": (4, 3), f"weighted_sums_{_t}": (5, 3)})
+        f"moments_{_t}": (4, 3), f"weighted_sums_{_t}": (5, 3),
+        f"weighted_sums_masked_{_t}": (6, 3),
+        f"conv3d_{_t}": (4, 12), f"pointwise_conv_{_t}": (4, 4),
+        f"conv_transpose2x_{_t}": (3, 7),
+        f"group_norm_apply_{_t}": (4, 5), f"group_norm_dx_{_t}": (7, 5)})
 _declared: ctypes.CDLL | None = None
 
 
@@ -59,6 +63,12 @@ def dispatch(name: str, *ts: torch.Tensor) -> bool:
     if dev.type != "cuda":
         raise ValueError(f"{name}: no kernel for {dev}")
     return False
+
+
+def ptr(t: torch.Tensor | None) -> int | None:
+    """A tensor's device address for ctypes; None (a null pointer) for an
+    absent optional input."""
+    return None if t is None else t.data_ptr()
 
 
 def check(name: str, *ts: torch.Tensor) -> str:

@@ -17,13 +17,26 @@ fused pass for `dx = dy·a + x·c2 + c1`, in fp32, rounded once to the input
 dtype.  The ReLU mask is recomputed from the affine, so y is not kept.  The
 moments' gradients are zero by contract (`packed.py:888-891`): the
 backward through dy is already complete.
+
+`pallas_group_norm` is the `use_pallas` path's GroupNorm (K3), the
+counterpart of `nas_3d_unet_tpu/ops/pallas/groupnorm.py` `group_norm`
+(:184): forward Σx, Σx² (K5a, or the producer's moments), the fold, and
+`y = x·s + t` with `s = γ·rstd`, `t = β − s·mean` in fp32, rounded once
+(`_gn_fwd`, :191-219); backward Σg, Σg·x (K5b, masked by y > 0 when the
+ReLU is fused), the (B, C) algebra of `_gn_bwd` (:222-268) and one pass
+`dx = A·g + B·x + C` in fp32, rounded once.  The cotangent is cast to x's
+dtype first (:238).  Its two elementwise passes are kernels
+(`csrc/groupnorm.cu`): `group_norm_apply` and `group_norm_dx`.  The
+reference takes its lane-packed Pallas path only where C divides 128 and
+its two-pass XLA reference elsewhere; the port takes every shape through
+the one formula (variance `E[x²] − mean²`, eps 1e-6).
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import stats
+from . import _cuda, stats
 
 EPS = 1e-6
 
@@ -119,3 +132,149 @@ def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     with torch.no_grad():
         s1, s2 = stats.moments(x)
     return group_norm_from_moments(x, s1, s2, scale, bias, groups, relu, eps)
+
+
+# ---------------------------------------------------------------------------
+# K3: the use_pallas GroupNorm (+ReLU), one rounding, hand-written backward
+# ---------------------------------------------------------------------------
+
+
+def _vec_ok(c: int, *ts: torch.Tensor) -> int:
+    """1 when the 8-wide kernel variant applies: C % 8 == 0 and every
+    tensor 16-byte aligned."""
+    return int(c % 8 == 0 and all(t.data_ptr() % 16 == 0 for t in ts))
+
+
+def _bcast(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """(B, C) → broadcastable against x (B, ..., C)."""
+    return v.view((x.shape[0],) + (1,) * (x.dim() - 2) + (x.shape[-1],))
+
+
+def group_norm_apply_twin(x: torch.Tensor, s: torch.Tensor, t: torch.Tensor,
+                          relu: bool) -> torch.Tensor:
+    """Plain K3 apply: `x·s + t` in fp32 per (batch, channel), optional
+    ReLU, rounded once to x's dtype."""
+    y = torch.addcmul(_bcast(t, x), x.float(), _bcast(s, x))
+    return (y.relu_() if relu else y).to(x.dtype)
+
+
+def group_norm_apply(x: torch.Tensor, s: torch.Tensor, t: torch.Tensor,
+                     relu: bool) -> torch.Tensor:
+    """K3 apply: x (B, ..., C) contiguous, s, t (B, C) fp32 → y in x's
+    dtype.  Not differentiable (the K3 Function's forward)."""
+    if _cuda.dispatch("group_norm_apply", x):
+        return group_norm_apply_twin(x, s, t, relu)
+    t_ = _cuda.check("group_norm_apply", x)
+    b, c = x.shape[0], x.shape[-1]
+    s, t = s.contiguous(), t.contiguous()
+    y = torch.empty_like(x)
+    _cuda.run(f"group_norm_apply_{t_}", x.device, x.data_ptr(), s.data_ptr(),
+              t.data_ptr(), y.data_ptr(), b, x.numel() // (b * c), c,
+              int(relu), _vec_ok(c, x, y, s, t))
+    return y
+
+
+def group_norm_dx_twin(g: torch.Tensor, x: torch.Tensor,
+                       y: torch.Tensor | None, a: torch.Tensor,
+                       bc: torch.Tensor, cc: torch.Tensor) -> torch.Tensor:
+    """Plain K3 dx: `a·g + b·x + c` in fp32 (g masked by y > 0 when y is
+    given), rounded once to x's dtype."""
+    gf = g.float()
+    if y is not None:
+        gf = torch.where(y > 0, gf, 0.0)
+    dx = _bcast(a, x) * gf + _bcast(bc, x) * x.float() + _bcast(cc, x)
+    return dx.to(x.dtype)
+
+
+def group_norm_dx(g: torch.Tensor, x: torch.Tensor, y: torch.Tensor | None,
+                  a: torch.Tensor, bc: torch.Tensor,
+                  cc: torch.Tensor) -> torch.Tensor:
+    """K3 dx: g, x (and y, whose `y > 0` masks g when the ReLU was fused)
+    (B, ..., C) contiguous in one dtype, a, b, c (B, C) fp32 → dx in x's
+    dtype."""
+    ts = (g, x) if y is None else (g, x, y)
+    if _cuda.dispatch("group_norm_dx", *ts):
+        return group_norm_dx_twin(g, x, y, a, bc, cc)
+    t_ = _cuda.check("group_norm_dx", *ts)
+    b, c = x.shape[0], x.shape[-1]
+    a, bc, cc = (v.contiguous() for v in (a, bc, cc))
+    dx = torch.empty_like(x)
+    _cuda.run(f"group_norm_dx_{t_}", x.device, g.data_ptr(), x.data_ptr(),
+              _cuda.ptr(y), a.data_ptr(), bc.data_ptr(), cc.data_ptr(),
+              dx.data_ptr(), b, x.numel() // (b * c), c, int(y is not None),
+              _vec_ok(c, *ts, dx, a, bc, cc))
+    return dx
+
+
+def _k3_affine(mean, rstd, scale, bias, gsize):
+    """(s, t) (B, C) fp32: s = γ·rstd, t = β − s·mean (`_gn_fwd`)."""
+    s = scale.float() * _by_channel(rstd, gsize)
+    return s, bias.float() - s * _by_channel(mean, gsize)
+
+
+class _PallasGroupNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, bias, s1, s2, groups, relu, eps):
+        c = x.shape[-1]
+        gsize = c // groups
+        n = (x.numel() // (x.shape[0] * c)) * gsize
+        mean, rstd = _fold(s1, s2, groups, n, eps)
+        y = group_norm_apply(x, *_k3_affine(mean, rstd, scale, bias, gsize),
+                             relu)
+        ctx.save_for_backward(x, scale, mean, rstd, y if relu else None)
+        ctx.gsize, ctx.n = gsize, n
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale, mean, rstd, y = ctx.saved_tensors
+        gsize, n = ctx.gsize, ctx.n
+        bsz = x.shape[0]
+        g = g.to(x.dtype).contiguous()
+        r1, r2 = stats.weighted_sums(g, x, y)        # Σg, Σg·x (B, C)
+        mean_c, rstd_c = _by_channel(mean, gsize), _by_channel(rstd, gsize)
+        dgamma = ((r2 - mean_c * r1) * rstd_c).sum(0)
+        dbeta = r1.sum(0)
+        # ĝ = γ·g:  dx = rstd·(ĝ − S1/n − x̂·S2/n), S1 = Σ ĝ over the group,
+        # S2 = Σ ĝ·x̂ = (Σ ĝ·x − mean·S1)·rstd  (`_gn_bwd`)
+        gamma = scale.float()
+        t1 = (gamma * r1).view(bsz, -1, gsize).sum(-1)
+        t2 = (gamma * r2).view(bsz, -1, gsize).sum(-1)
+        t2 = (t2 - mean * t1) * rstd
+        s1n, s2n = _by_channel(t1 / n, gsize), _by_channel(t2 / n, gsize)
+        a = gamma * rstd_c
+        bc = -rstd_c * rstd_c * s2n
+        cc = -rstd_c * s1n + rstd_c * rstd_c * mean_c * s2n
+        dx = group_norm_dx(g, x, y, a, bc, cc)
+        return (dx, dgamma.to(scale.dtype), dbeta.to(scale.dtype), None,
+                None, None, None, None)
+
+
+def pallas_group_norm(x: torch.Tensor, scale: torch.Tensor,
+                      bias: torch.Tensor, groups: int, relu: bool = False,
+                      eps: float = EPS,
+                      moments: tuple | None = None) -> torch.Tensor:
+    """K3: GroupNorm(+ReLU) of x (B, ..., C) in fp32 or bf16, y in x's
+    dtype.  `moments` = (Σx, Σx²) (B, C) fp32 when the producer emitted
+    them (K1, K2), else K5a takes them.  Differentiable in x, scale and
+    bias; the moments get no gradient."""
+    x = x.contiguous()      # the kernels take dense NDHWC
+    if moments is None:
+        with torch.no_grad():
+            moments = stats.moments(x)
+    return _PallasGroupNorm.apply(x, scale, bias, *moments, groups, relu, eps)
+
+
+def pallas_group_norm_twin(x: torch.Tensor, scale: torch.Tensor,
+                           bias: torch.Tensor, groups: int,
+                           relu: bool = False, eps: float = EPS,
+                           moments: tuple | None = None) -> torch.Tensor:
+    """Plain PyTorch K3 with autograd throughout: the moments (the given
+    ones, or the twin's of x, differentiable either way), the same fold,
+    the apply twin."""
+    c = x.shape[-1]
+    gsize = c // groups
+    n = (x.numel() // (x.shape[0] * c)) * gsize
+    mean, rstd = _fold(*(moments or stats.moments_twin(x)), groups, n, eps)
+    return group_norm_apply_twin(x, *_k3_affine(mean, rstd, scale, bias,
+                                                gsize), relu)

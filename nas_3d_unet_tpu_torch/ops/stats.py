@@ -6,7 +6,11 @@ Kernels (`csrc/stats.cu`), fp32 or bf16 inputs, each with its plain twin:
   K5a `moments(x)` → (Σx, Σx²): the statistics of a GroupNorm whose
       producer emits no moments (replaces `moments`);
   K5b `weighted_sums(g, x)` → (Σg, Σg·x): the reductions of every
-      GroupNorm's backward (replaces `weighted_sums`).
+      GroupNorm's backward (replaces `weighted_sums`);
+      `weighted_sums(g, x, y)` counts g only where y > 0: the backward
+      sums of K3 with its ReLU fused (replaces `groupnorm.py`
+      `_grad_lane_sums`, whose unmasked form is K5b and whose forward
+      twin `_lane_sums` is K5a).
 
 Both sum over every axis but the first and the last and return (B, C)
 fp32, reading the volume once.  The JAX package runs them on packed lanes
@@ -39,9 +43,12 @@ def moments_twin(x: torch.Tensor):
     return xf.sum(_dims(x)), (xf * xf).sum(_dims(x))
 
 
-def weighted_sums_twin(g: torch.Tensor, x: torch.Tensor):
-    """Plain (Σg, Σg·x) in fp32."""
+def weighted_sums_twin(g: torch.Tensor, x: torch.Tensor,
+                       y: torch.Tensor | None = None):
+    """Plain (Σg, Σg·x) in fp32; with y, g counts only where y > 0."""
     gf = g.float()
+    if y is not None:
+        gf = torch.where(y > 0, gf, 0.0)
     return gf.sum(_dims(g)), (gf * x.float()).sum(_dims(g))
 
 
@@ -69,12 +76,19 @@ def moments(x: torch.Tensor):
     return _launch("moments", x)
 
 
-def weighted_sums(g: torch.Tensor, x: torch.Tensor):
-    """K5b: g, x (B, ..., C) → (Σg, Σg·x), (B, C) fp32.  Not
+def weighted_sums(g: torch.Tensor, x: torch.Tensor,
+                  y: torch.Tensor | None = None):
+    """K5b: g, x (B, ..., C) → (Σg, Σg·x), (B, C) fp32; with y (same
+    shape), g counts only where y > 0 (`weighted_sums_masked`).  Not
     differentiable."""
-    if x.dim() < 3 or g.shape != x.shape:
+    if x.dim() < 3 or g.shape != x.shape or (y is not None
+                                             and y.shape != x.shape):
         raise ValueError(f"weighted_sums: g {tuple(g.shape)} "
                          f"x {tuple(x.shape)}")
-    if _cuda.dispatch("weighted_sums", g, x):
-        return weighted_sums_twin(g, x)
-    return _launch("weighted_sums", g, x)
+    if y is None:
+        if _cuda.dispatch("weighted_sums", g, x):
+            return weighted_sums_twin(g, x)
+        return _launch("weighted_sums", g, x)
+    if _cuda.dispatch("weighted_sums_masked", g, x, y):
+        return weighted_sums_twin(g, x, y)
+    return _launch("weighted_sums_masked", g, x, y)

@@ -2,13 +2,15 @@
 """Where one patient's serving time, or one train step's time, goes, on
 one NVIDIA GPU.
 
-    python3 profile_slice.py [--train]
+    python3 profile_slice.py [--train] [--use-pallas]
 
 Serving: one synthetic 160x192x152x4 patient with the flagship net (the
 settings of `chip_smoke.py`) under `torch.profiler`, after one warm-up
 patient and three timed unprofiled ones.  --train: one train step of the
 bf16 flagship at 128^3, batch 2, microbatch 1 (chip_smoke.py's phase
-"train"), after three warm-up and three timed unprofiled steps.  Every
+"train"), after three warm-up and three timed unprofiled steps.
+--use-pallas: the same with `DerivedNet(use_pallas=True)` (chip_smoke.py's
+phases "pallas_slice" and "pallas_train").  Every
 device activity (kernel, memcpy, memset) is attributed to the innermost op
 module whose forward launched it (forward hooks open a `record_function`
 range per module; a kernel belongs to the range around its launch call;
@@ -43,10 +45,21 @@ import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
 CLASSES = [   # (class, kernel-name pattern), first match wins
-    ("K1-dx conv3x3x3", r"gemm_moments_kernel<\d+, true, [\w:]+, false"),
-    ("K1 conv3x3x3_stats", r"gemm_moments_kernel<\d+, true"),
-    ("K2 gemm_stats", r"gemm_moments_kernel<\d+, false"),
+    # gemm_moments_kernel<BN, LAYOUT, T, STATS, EPI> (csrc/igemm.cuh):
+    # K1-dx and K6 at stride 1 are one kernel (the conv without moments);
+    # only the default path runs K1-dx and only use_pallas K6
+    ("K1-dx / K6 stride-1 conv",
+     r"gemm_moments_kernel<\d+, 1, [\w:]+, false"),
+    ("K1 conv3x3x3_stats", r"gemm_moments_kernel<\d+, 1, [\w:]+, true"),
+    ("K6 stride-2 conv3d", r"gemm_moments_kernel<\d+, 2,"),
+    ("K2 gemm_stats", r"gemm_moments_kernel<\d+, 0, [\w:]+, true"),
+    ("K7 pointwise_conv", r"gemm_moments_kernel<\d+, 0, [\w:]+, false"),
+    ("K4 conv_transpose2x", r"gemm_moments_kernel<\d+, 3,"),
     ("K1/K2 moments reduce", r"moments_reduce_kernel"),
+    ("K3 apply", r"apply_kernel<"),
+    ("K3 dx", r"dx_kernel<"),
+    ("K5b masked (K3 backward sums)",
+     r"channel_sums_kernel<[\w:]+, true, true"),
     ("K5b weighted_sums", r"channel_sums_kernel<[\w:]+, true"),
     ("K5a moments", r"channel_sums_kernel<[\w:]+, false"),
     ("K5 partials reduce", r"partial_reduce_kernel"),
@@ -184,11 +197,11 @@ def attribute(trace, window_name: str) -> dict:
             "top_kernels_ms": dict(top.most_common(15))}
 
 
-def _serving(dev):
+def _serving(dev, use_pallas):
     """(walls, profiled callable) for one patient."""
     from chip_smoke import flagship_predictor, synthetic_records
 
-    predictor = flagship_predictor(dev, seed=0)
+    predictor = flagship_predictor(dev, 0, use_pallas)
     annotate_modules(predictor.model)
     recs = synthetic_records(dev, seed=0, n=5)
     walls = []
@@ -201,13 +214,13 @@ def _serving(dev):
     return walls, lambda: predictor.predict_labels(recs[4]["image_dev"])
 
 
-def _training(dev):
+def _training(dev, use_pallas):
     """(walls, profiled callable) for one train step."""
     from chip_smoke import (AUGMENT, MICRO, flagship_net, synthetic_batch)
     from nas_3d_unet_tpu_torch.train.loop import make_train_step
     from nas_3d_unet_tpu_torch.train.optim import make_optimizer
 
-    net = flagship_net(0, "bfloat16").to(dev)
+    net = flagship_net(0, "bfloat16", use_pallas).to(dev)
     annotate_modules(net)
     x, y = synthetic_batch(dev, 0)
     opt = make_optimizer(net.parameters(), 3e-4, 1e-4)
@@ -226,6 +239,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--train", action="store_true",
                     help="profile one train step instead of one patient")
+    ap.add_argument("--use-pallas", action="store_true",
+                    help="the use_pallas configuration (K6/K7/K4, K3)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_slice: no CUDA device; nothing measured",
@@ -237,7 +252,8 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     window = "step" if args.train else "patient"
     with strict_fp32():
-        walls, run = (_training if args.train else _serving)(dev)
+        walls, run = (_training if args.train else _serving)(
+            dev, args.use_pallas)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             with record_function(window):
@@ -252,7 +268,8 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
-    out = {"card": smi, "window": window, "wall_s_unprofiled": walls[1:],
+    out = {"card": smi, "window": window, "use_pallas": args.use_pallas,
+           "wall_s_unprofiled": walls[1:],
            **attribute(trace, window)}
     print(json.dumps(out, indent=1))
     return 0

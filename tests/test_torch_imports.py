@@ -1,5 +1,6 @@
 """The port (nas_3d_unet_tpu_torch/) and the scripts that drive it on the
-card (chip_smoke.py, profile_slice.py, grad_parity.py) import no JAX stack
+card (chip_smoke.py, profile_slice.py, grad_parity.py, ab_default_path.py)
+import no JAX stack
 and nothing of the JAX package: an AST scan of every import statement, top
 level or inside a function."""
 
@@ -25,7 +26,7 @@ def _imports(path):
 def _sources():
     return sorted(PKG.rglob("*.py")) + [
         ROOT / name for name in ("chip_smoke.py", "profile_slice.py",
-                                 "grad_parity.py")]
+                                 "grad_parity.py", "ab_default_path.py")]
 
 
 def test_scan_sees_the_package():
