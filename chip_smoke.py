@@ -50,15 +50,27 @@ Phases, each printed as JSON lines:
      parity with its twin path (limits from `grad_parity.py --use-pallas`),
      3 warm-up and 5 timed steps, patches/s, losses, peak memory, launch
      counts.
+ 10. probes: E1 `copy_rows` (a 64 MiB bf16 copy) at every rows-per-block
+     of the probe, bit-equal to its twin, GB/s and share of 3.35 TB/s
+     (library: `dst.copy_`, and the `x + 1` pass); E2's five variants of
+     K1's shifted-GEMM conv at the level-0 geometry (NB = 128), nodot
+     bit-equal and the others within 2 bf16 ulps of the fp32-accumulated
+     twin, TFLOP/s against the bound; the HMMA instructions in each E2
+     kernel's SASS (none in nodot, some in every other); then the two
+     probes' entry points (`main()`), with the launch counts read.
 Then the nvidia-smi line, the kernels summary line and, last,
 `{"ok": true, "device": {...}}`.  In the kernels line a serving kernel's
 `ms`, `plain_ms`, `library_ms` and `bound_ms` are one flagship forward's
 worth at batch 2, a training kernel's one train step's worth: the sum over
-geometries of launches per unit x time per launch.  `plain_ms` is the twin,
+geometries of launches per unit x time per launch; E1's one sweep (a copy
+at each rows-per-block), an E2 variant's one call.  `plain_ms` is the twin,
 `library_ms` one PyTorch call computing the same function (F.conv3d, a
-matmul, F.conv_transpose3d, F.group_norm with its statistics; null
-where none does), `bound_ms` the larger of bytes / 3.35 TB/s
-and flops / peak (67 TFLOP/s fp32, 989 bf16; an H100 SXM at 700 W).  Any
+matmul, F.conv_transpose3d, F.group_norm with its statistics,
+native_group_norm_backward for K3 dx and K5b, var_mean for K5a,
+`dst.copy_` for E1, the gather for E2 nodot, a matmul for E2 fold1536;
+null where none does), `bound_ms` the larger of bytes / 3.35 TB/s and
+flops / peak (67 TFLOP/s fp32, 989 bf16; an H100 SXM at 700 W;
+`nas_3d_unet_tpu_torch/utils/bounds.py`).  Any
 failed check raises: the script never exits 0 after a failure.  Imports
 nothing of JAX or the JAX package.
 """
@@ -79,15 +91,21 @@ from unittest import mock
 import numpy as np
 import torch
 
+from nas_3d_unet_tpu_torch.utils.bounds import bound_ms
+
 SRC_PGEMM = "nas_3d_unet_tpu_torch/csrc/pgemm.cu"
 SRC_STATS = "nas_3d_unet_tpu_torch/csrc/stats.cu"
 SRC_CONV = "nas_3d_unet_tpu_torch/csrc/conv3d.cu"
 SRC_GN = "nas_3d_unet_tpu_torch/csrc/groupnorm.cu"
+SRC_PROBES = "nas_3d_unet_tpu_torch/csrc/probes.cu"
+PG_VARIANTS = ("nodot", "c6", "full", "mt4", "fold1536")
 SOURCES = {"moments": SRC_STATS, "weighted_sums": SRC_STATS,
            "weighted_sums_masked": SRC_STATS, "group_norm_apply": SRC_GN,
            "group_norm_dx": SRC_GN, "conv3d": SRC_CONV,
-           "pointwise_conv": SRC_CONV,
-           "conv_transpose2x": SRC_CONV}     # the rest: SRC_PGEMM
+           "pointwise_conv": SRC_CONV, "conv_transpose2x": SRC_CONV,
+           "copy_rows": SRC_PROBES,
+           **{f"pg_{v}": SRC_PROBES for v in PG_VARIANTS}}
+# the rest: SRC_PGEMM
 REPLACES = {
     "conv3x3x3_stats": "nas_3d_unet_tpu/ops/pallas/pgemm.py:174",  # conv_pgemm
     "conv3x3x3": "nas_3d_unet_tpu/ops/packed.py:497",      # its dx use
@@ -101,6 +119,9 @@ REPLACES = {
     "conv3d": "nas_3d_unet_tpu/ops/pallas/conv3d.py:201",             # K6
     "pointwise_conv": "nas_3d_unet_tpu/ops/pallas/conv3d.py:279",     # K7
     "conv_transpose2x": "nas_3d_unet_tpu/ops/pallas/conv3d.py:356",   # K4
+    "copy_rows": "experiments/r3_dma_probe.py:28",                    # E1
+    **{f"pg_{v}": "experiments/r3_pg_variants.py:129"                 # E2
+       for v in PG_VARIANTS},
 }
 
 # Serving, fp32, batch 2, launches per flagship forward.
@@ -188,22 +209,11 @@ TRAIN_PATCH, TRAIN_BATCH = 128, 2
 WARMUP_STEPS, TIMED_STEPS = 3, 5
 AUGMENT = dict(flip_prob=0.5, intensity_shift=0.1, intensity_scale=0.1)
 
-# peaks of one H100 SXM at 700 W (NVIDIA's data sheet, dense)
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
-
-
-def bound_ms(nbytes: float, flops: float, dtype) -> tuple[float, str]:
-    """The least time the card could take: bytes over HBM bandwidth or
-    flops over the dtype's peak, whichever is larger."""
-    t_b = nbytes / HBM_BYTES_PER_S * 1e3
-    t_f = flops / PEAK_FLOPS[dtype] * 1e3
-    return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
 
 def _y_check(yk, yt):
@@ -346,6 +356,46 @@ def check_gemm(dev, gen, k, n, v, batch, dtype):
     return rec
 
 
+def _ncdhw(t):
+    """An NDHWC tensor as a contiguous NCDHW copy: PyTorch's GroupNorm
+    layout (its CPU backward crashes on the channels-last view)."""
+    return t.permute(0, 4, 1, 2, 3).contiguous()
+
+
+def _gn_backward(g, x, mean, rstd, gamma, groups, mask):
+    """`native_group_norm_backward` on NCDHW tensors: (dx, dgamma, dbeta),
+    those of `mask` computed."""
+    b, c, *vol = x.shape
+    return torch.ops.aten.native_group_norm_backward(
+        g, x, mean, rstd, gamma, b, c, math.prod(vol), groups, mask)
+
+
+def _stats_library(name, args):
+    """One PyTorch call computing the same sums: K5a's moments as
+    `torch.var_mean` per (batch, channel); K5b's Σg·x and Σg as the
+    dgamma and dbeta of `native_group_norm_backward` with one group per
+    channel, mean 0 and rstd 1 (summed over the batch: the same sums at
+    batch 1 only, else None), on NCDHW copies made beforehand; masked K5b
+    the same after `torch.where` masks g by y > 0."""
+    if name == "moments":
+        return lambda t: torch.var_mean(t, dim=(1, 2, 3), correction=0)
+    x = args[1]
+    b, c = x.shape[0], x.shape[-1]
+    if b != 1:
+        return None
+    g, x, *y = map(_ncdhw, args)
+    mean = torch.zeros((b, c), dtype=x.dtype, device=x.device)
+    rstd = torch.ones_like(mean)
+    gamma = torch.ones((c,), dtype=x.dtype, device=x.device)
+
+    def library(*_):
+        gm = torch.where(y[0] > 0, g, 0.0) if y else g
+        return _gn_backward(gm, x, mean, rstd, gamma, c,
+                            [False, True, True])[1:]
+
+    return library
+
+
 def check_stats(dev, gen, name, c, v, batch, dtype):
     """K5a (moments), K5b (weighted_sums) or K5b masked by y > 0
     (weighted_sums_masked, K3's backward sums) against the twin, and
@@ -379,7 +429,7 @@ def check_stats(dev, gen, name, c, v, batch, dtype):
     torch.cuda.synchronize()
     rec = {"c": c, "volume": v, "batch": batch, "bitwise_repeatable": rep,
            "max_err_over_sum_abs": errs, "limit": STATS_RTOL,
-           **_timings(kernel, twin, None, args)}
+           **_timings(kernel, twin, _stats_library(name, args), args)}
     n_in = len(args)
     rec["bound_ms"], rec["bound_by"] = bound_ms(
         n_in * x.numel() * x.element_size() + 8 * batch * c,
@@ -521,7 +571,19 @@ def check_gn(dev, gen, name, c, v, batch, dtype):
         y = torch.randn(shape, generator=gen, device=dev).relu().to(dtype)
         args = (g, x, y, vec(), vec(), vec())
         kernel, twin = groupnorm.group_norm_dx, groupnorm.group_norm_dx_twin
-        library = None
+        # library: the whole GroupNorm backward's dx (which also takes its
+        # own sums), with the ReLU mask applied to g, on NCDHW copies and
+        # the statistics and γ of x from native_group_norm
+        groups = min(8, c)
+        gamma = (vec()[0] * 0.5 + 1).to(dtype)
+        gc, xc, yc = map(_ncdhw, args[:3])
+        _, mean, rstd = torch.ops.aten.native_group_norm(
+            xc, gamma, None, batch, c, v ** 3, groups, 1e-6)
+
+        def library(*_):
+            return _gn_backward(torch.where(yc > 0, gc, 0.0), xc, mean, rstd,
+                                gamma, groups, [True, False, False])[0]
+
         nbytes, flops = 4 * n * e + 12 * batch * c, 6.0 * n
     with torch.no_grad():
         yk = kernel(*args)
@@ -1072,6 +1134,117 @@ def phase_train(dev, seed, use_pallas=False):
     return launches, rec
 
 
+def check_copy(x, rpb):
+    """E1 at one rows-per-block: bit-equal to the twin, the same bits on a
+    second launch; library: `dst.copy_(x)`.  Timed as the probe times it
+    (its ITERS launches after 2 warm-up ones): a launch takes ~0.05 ms."""
+    from nas_3d_unet_tpu_torch.experiments import r3_dma_probe as e1
+    from nas_3d_unet_tpu_torch.utils.timing import cuda_ms
+
+    yk = e1.copy_rows(x, rpb)
+    rep = _repeatable(e1.copy_rows, (x, rpb), yk)
+    equal = torch.equal(yk, e1.copy_rows_twin(x))
+    dst = torch.empty_like(x)
+    rec = {"rows_per_block": rpb, "blocks": x.shape[0] // rpb,
+           "bit_equal": equal, "bitwise_repeatable": rep,
+           "max_abs_err": (yk.float() - x.float()).abs().max().item()}
+    for key, fn, args in (("ms", e1.copy_rows, (x, rpb)),
+                          ("plain_ms", e1.copy_rows_twin, (x,)),
+                          ("library_ms", dst.copy_, (x,))):
+        rec[key] = cuda_ms(fn, *args, iters=e1.ITERS, warmup=2)
+    rec.update(e1.rate(x, rec["ms"]))
+    rec["bound_ms"], rec["bound_by"] = bound_ms(e1.copy_bytes(x), 0.0,
+                                                torch.bfloat16)
+    rec["ok"] = equal and rep
+    return rec
+
+
+def check_pg(variant, ops):
+    """E2's `variant` at the level-0 geometry against its fp32-accumulated
+    twin: nodot bit-equal, the others within Y_ULPS bf16 ulps.  Library
+    (`e2.LIBRARY`): nodot's gather and, for fold1536, `torch.matmul` of the
+    pre-built concat with ac2, the GEMM alone."""
+    from nas_3d_unet_tpu_torch.experiments import r3_pg_variants as e2
+
+    args = (variant, *ops, e2.WP)
+    yk = e2.pg(*args)
+    yt = e2.pg_twin(*args)
+    rep = _repeatable(e2.pg, args, yk)
+    torch.cuda.synchronize()
+    rec = {"variant": variant, "nb": ops[0].shape[0],
+           "bitwise_repeatable": rep, **_y_check(yk, yt)}
+    if variant == "nodot":
+        rec["y_ok"] = rec["bit_equal"] = torch.equal(yk, yt)
+    del yk, yt
+    rec.update(_timings(e2.pg, e2.pg_twin, e2.library(*args), args))
+    flops, nbytes = e2.work(variant)
+    rec["TFLOP_s"] = flops / rec["ms"] / 1e9
+    rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, flops, torch.bfloat16)
+    rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+    rec["ok"] = rec["y_ok"] and rep
+    return rec
+
+
+def sass_hmma(so):
+    """HMMA instructions in each E2 kernel's SASS (`cuobjdump -sass` on the
+    built library), by variant."""
+    from nas_3d_unet_tpu_torch import _build
+
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(so)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts, cur = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            fn = ln.split("Function :", 1)[1]
+            cur = next((v for v in PG_VARIANTS if f"pg_{v}_kernel" in fn),
+                       None)
+            if cur:
+                counts[cur] = 0
+        elif cur and "HMMA" in ln:
+            counts[cur] += 1
+    return counts
+
+
+def phase_probes(dev, seed, summary, so):
+    """E1 at every rows-per-block and E2's variants at NB = 128 against
+    their twins, their SASS, then the probes' entry points with the
+    launch counts cleared just before and read just after."""
+    from nas_3d_unet_tpu_torch.experiments import r3_dma_probe as e1
+    from nas_3d_unet_tpu_torch.experiments import r3_pg_variants as e2
+    from nas_3d_unet_tpu_torch.ops import _cuda
+
+    x = e1.operand(seed, dev)
+    for rpb in e1.RPB:      # per_unit 1: the row is one sweep's worth
+        _run_check("probes", "copy_rows_bf16", check_copy, summary, 1, x, rpb)
+    emit({"phase": "probes", "kernel": "copy_rows_bf16",
+          "library": e1.library(x)})
+    del x
+    ops = e2.operands(seed, dev)
+    for v in PG_VARIANTS:
+        _run_check("probes", f"pg_{v}_bf16", check_pg, summary, 1, v, ops)
+    del ops
+    hmma = sass_hmma(so)
+    emit({"phase": "probes_sass", "hmma": hmma})
+    if set(hmma) != set(PG_VARIANTS) or hmma["nodot"] \
+            or not all(hmma[v] for v in PG_VARIANTS if v != "nodot"):
+        raise AssertionError(f"E2's kernels: HMMA counts {hmma}")
+
+    _cuda.LAUNCHES.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    e1.main(["--seed", str(seed)])
+    e2.main(["--seed", str(seed)])
+    torch.cuda.synchronize()
+    launches = dict(_cuda.LAUNCHES)
+    emit({"phase": "probes_main", "seconds": time.perf_counter() - t0,
+          "launches": launches})
+    names = ["copy_rows_bf16"] + [f"pg_{v}_bf16" for v in PG_VARIANTS]
+    if not all(launches.get(n) for n in names):
+        raise AssertionError(f"a probe kernel did not launch: {launches}")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1101,7 +1274,7 @@ def main() -> int:
     ptxas = [ln.strip() for ln in so.with_suffix(".log").read_text()
              .splitlines() if "registers" in ln or "spill" in ln]
     emit({"phase": "build", "seconds": build_s,
-          "sources": [SRC_PGEMM, SRC_CONV, SRC_STATS, SRC_GN],
+          "sources": [SRC_PGEMM, SRC_CONV, SRC_STATS, SRC_GN, SRC_PROBES],
           "flags": " ".join(_build.NVCC_FLAGS), "ptxas": ptxas})
 
     gen = torch.Generator(device=dev)
@@ -1115,6 +1288,7 @@ def main() -> int:
         phase_pallas_kernels(dev, gen, summary)
         p_serve_launches, p_s_per_patient = phase_slice(dev, args.seed, True)
         p_train_launches, p_train = phase_train(dev, args.seed, True)
+        probe_launches = phase_probes(dev, args.seed, summary, so)
 
     emit({"phase": "done", "s_per_patient": s_per_patient,
           "train_patches_per_s": train["patches_per_s"],
@@ -1124,7 +1298,7 @@ def main() -> int:
           "pallas_train_peak_mem_gb": p_train["peak_mem_gb"],
           "card": smi, "build_s": build_s})
     # each kernel's launches in the run of its path: the default path's
-    # serving and training, then the use_pallas configuration's
+    # serving and training, the use_pallas configuration's, the probes'
     kernels = [(n, serve_launches) for n in
                ("conv3x3x3_stats_f32", "gemm_stats_f32", "moments_f32")]
     kernels += [(n, train_launches) for n in
@@ -1136,6 +1310,8 @@ def main() -> int:
     kernels += [(f"{n}_bf16", p_train_launches) for n in
                 ("conv3d", "pointwise_conv", "conv_transpose2x",
                  "group_norm_apply", "group_norm_dx", "weighted_sums_masked")]
+    kernels += [(n, probe_launches) for n in
+                ["copy_rows_bf16"] + [f"pg_{v}_bf16" for v in PG_VARIANTS]]
     line = []
     for name, launches in kernels:
         base = name.rsplit("_", 1)[0]

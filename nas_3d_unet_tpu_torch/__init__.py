@@ -13,7 +13,9 @@ names mirror the JAX package's so each counterpart is easy to find:
     infer/    sliding-window whole-volume inference and the patient loop
     metrics/  BraTS label/region mapping, region Dice, training losses
     io/       NIfTI reading and writing
-    utils/    CUDA-event timing, the fp32 precision policy
+    utils/    CUDA-event timing, the fp32 precision policy, the bounds
+    experiments/  the measuring probes E1 (copy bandwidth) and E2 (K1's
+              variants on the tensor cores), csrc/probes.cu
     bridge.py flax parameter trees <-> state_dicts
 
 Activations are NDHWC (fp32, or bf16 when training) and parameters keep

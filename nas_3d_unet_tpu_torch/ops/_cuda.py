@@ -35,6 +35,10 @@ for _t in SUFFIX.values():
         f"conv3d_{_t}": (4, 12), f"pointwise_conv_{_t}": (4, 4),
         f"conv_transpose2x_{_t}": (3, 7),
         f"group_norm_apply_{_t}": (4, 5), f"group_norm_dx_{_t}": (7, 5)})
+# the probes (csrc/probes.cu), bf16 only
+_SIGNATURES["copy_rows_bf16"] = (2, 3)
+for _v in ("full", "c6", "nodot", "mt4", "fold1536"):
+    _SIGNATURES[f"pg_{_v}_bf16"] = (5, 4)
 _declared: ctypes.CDLL | None = None
 
 

@@ -35,6 +35,8 @@ def test_scan_sees_the_package():
             "nas_3d_unet_tpu_torch/ops/pgemm.py",
             "nas_3d_unet_tpu_torch/infer/predict.py",
             "nas_3d_unet_tpu_torch/io/nifti.py",
+            "nas_3d_unet_tpu_torch/experiments/r3_dma_probe.py",
+            "nas_3d_unet_tpu_torch/experiments/r3_pg_variants.py",
             "chip_smoke.py", "profile_slice.py", "grad_parity.py"} <= names
 
 
