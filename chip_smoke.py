@@ -22,10 +22,12 @@ Phases, each printed as JSON lines:
      the shapes the net hands the kernels are exactly phase 3's.
   5. train_kernels: the training kernels against their twins at every
      geometry one flagship train step gives them (bf16, microbatch 1): K1
-     bf16, K1-dx (the no-moments conv, checked against the twin conv with
-     the flip-transposed kernel), K2 bf16, K5a moments and K5b
-     weighted_sums in bf16 and fp32.  bf16 K1/K2 moments are also held
-     against float64 sums of the y the kernel stored.
+     bf16, K1-dx (the no-moments conv, on the tensor cores, checked
+     against the twin conv with the flip-transposed kernel; also off the
+     path at a ragged 19x24x21 volume and at Cin 4 -> Cout 12), K2 bf16,
+     K5a moments and K5b weighted_sums in bf16 and fp32.  bf16 K1/K2
+     moments are also held against float64 sums of the y the kernel
+     stored.
   6. train: the flagship in bf16 trained as bench.py's bench_train does
      (batch 2 of 128^3, microbatch 1, AdamW 3e-4 / 1e-4, flips and
      intensity jitter), synthetic x and y from --seed.  One step's
@@ -38,8 +40,10 @@ Phases, each printed as JSON lines:
      from the modules) x 5.
   7. pallas_kernels: the `use_pallas` configuration's kernels against their
      twins at every geometry it gives them: K6 conv3d (stride 1 and 2) in
-     fp32 at batch 2 and in bf16 at batch 1, plus a dilation-2 and a
-     bias+ReLU case off the path; K7 pointwise_conv (and one bias+ReLU
+     fp32 at batch 2 and in bf16 at batch 1, plus off the path a
+     dilation-2 and a bias+ReLU case, the ragged volume at stride 1 and
+     2, Cin 4 -> Cout 12 at stride 1 and at stride 2 with dilation 2, and
+     stride 2 with dilation 2; K7 pointwise_conv (and one bias+ReLU
      case); K4 conv_transpose2x (and one ReLU case);
      K3's apply (fp32 and bf16) and dx (bf16); K5b masked by y > 0 (K3's
      backward sums, bf16); K5a at the configuration's own geometries.
@@ -58,6 +62,13 @@ Phases, each printed as JSON lines:
      twin, TFLOP/s against the bound; the HMMA instructions in each E2
      kernel's SASS (none in nodot, some in every other); then the two
      probes' entry points (`main()`), with the launch counts read.
+ 11. sass: the kernels K1-dx and K6 in bf16 launch (read from a
+     `torch.profiler` trace) are the tensor-core conv's
+     (`conv_mma_kernel`), each instantiation with HMMA in its SASS; K1
+     bf16 and the fp32 convs launch the FMA template
+     (`gemm_moments_kernel`), none of whose instantiations has any; the
+     kernel's tile plan equals `ops/conv_mma.py`'s mirror at every K1-dx
+     and K6 geometry checked.
 Then the nvidia-smi line, the kernels summary line and, last,
 `{"ok": true, "device": {...}}`.  In the kernels line a serving kernel's
 `ms`, `plain_ms`, `library_ms` and `bound_ms` are one flagship forward's
@@ -67,11 +78,11 @@ at each rows-per-block), an E2 variant's one call.  `plain_ms` is the twin,
 `library_ms` one PyTorch call computing the same function (F.conv3d, a
 matmul, F.conv_transpose3d, F.group_norm with its statistics,
 native_group_norm_backward for K3 dx and K5b, var_mean for K5a,
-`dst.copy_` for E1, the gather for E2 nodot, a matmul for E2 fold1536;
-null where none does), `bound_ms` the larger of bytes / 3.35 TB/s and
-flops / peak (67 TFLOP/s fp32, 989 bf16; an H100 SXM at 700 W;
-`nas_3d_unet_tpu_torch/utils/bounds.py`).  Any
-failed check raises: the script never exits 0 after a failure.  Imports
+`dst.copy_` for E1, the gather for E2 nodot, for the other E2 variants
+the matmul of a pre-built concat of their slices; null where none does),
+`bound_ms` the larger of bytes / 3.35 TB/s and flops / peak (67 TFLOP/s
+fp32, 989 bf16; an H100 SXM at 700 W;
+`nas_3d_unet_tpu_torch/utils/bounds.py`).  Any failed check raises: the script never exits 0 after a failure.  Imports
 nothing of JAX or the JAX package.
 """
 
@@ -98,14 +109,16 @@ SRC_STATS = "nas_3d_unet_tpu_torch/csrc/stats.cu"
 SRC_CONV = "nas_3d_unet_tpu_torch/csrc/conv3d.cu"
 SRC_GN = "nas_3d_unet_tpu_torch/csrc/groupnorm.cu"
 SRC_PROBES = "nas_3d_unet_tpu_torch/csrc/probes.cu"
+SRC_MMA = "nas_3d_unet_tpu_torch/csrc/conv_mma.cuh"   # in pgemm.cu, conv3d.cu
 PG_VARIANTS = ("nodot", "c6", "full", "mt4", "fold1536")
 SOURCES = {"moments": SRC_STATS, "weighted_sums": SRC_STATS,
            "weighted_sums_masked": SRC_STATS, "group_norm_apply": SRC_GN,
            "group_norm_dx": SRC_GN, "conv3d": SRC_CONV,
            "pointwise_conv": SRC_CONV, "conv_transpose2x": SRC_CONV,
            "copy_rows": SRC_PROBES,
-           **{f"pg_{v}": SRC_PROBES for v in PG_VARIANTS}}
-# the rest: SRC_PGEMM
+           **{f"pg_{v}": SRC_PROBES for v in PG_VARIANTS},
+           "conv3x3x3_bf16": SRC_MMA, "conv3d_bf16": SRC_MMA}
+# the rest: SRC_PGEMM (by kernel name, else by its name without the dtype)
 REPLACES = {
     "conv3x3x3_stats": "nas_3d_unet_tpu/ops/pallas/pgemm.py:174",  # conv_pgemm
     "conv3x3x3": "nas_3d_unet_tpu/ops/packed.py:497",      # its dx use
@@ -150,6 +163,10 @@ BATCH = 2
 K1_TRAIN = [(ci, co, v, d, 2 * n) for ci, co, v, d, n in K1_GEOMS]
 K1DX_TRAIN = [(co, ci, v, d, 2 * n) for ci, co, v, d, n in K1_GEOMS
               if ci != 4]            # dy (Cout) -> dx (Cin); no stem dx
+# off the path (the tensor-core conv's masking): a ragged, non-cubic
+# volume (D, H, W), and odd channel counts
+RAGGED = (19, 24, 21)
+K1DX_EXTRA = [(32, 32, RAGGED, 1, 0), (4, 12, RAGGED, 1, 0)]
 K2_TRAIN = [(k, n, v, 2 * c) for k, n, v, c in K2_GEOMS]
 K5A_TRAIN = [(c, v, 2 * n) for c, v, n in K5A_GEOMS]
 # K5b: every GroupNorm's backward, (C, volume edge, launches per step)
@@ -169,6 +186,9 @@ P_K6 = [(32, 32, 64, 1, 1, 5), (64, 64, 32, 1, 1, 5), (128, 128, 16, 1, 1, 2),
         (128, 256, 32, 2, 1, 1),
         (32, 32, 64, 1, 2, 0)]               # dil_conv3: off the path
 P_K6_BIAS_RELU = (32, 32, 64, 1, 1)          # the fused epilogue, off the path
+P_K6_EXTRA = [(32, 32, RAGGED, 1, 1, 0), (32, 32, RAGGED, 2, 1, 0),
+              (4, 12, RAGGED, 1, 1, 0), (4, 12, RAGGED, 2, 2, 0),
+              (32, 32, 64, 2, 2, 0)]         # ragged, odd channels, s2 d2
 # K7: (C, volume edge, launches); K4: (C, input edge, launches)
 P_K7 = [(32, 64, 3), (64, 32, 3), (128, 16, 1), (16, 128, 2)]
 P_K4 = [(64, 16, 1), (32, 32, 1), (16, 64, 1)]
@@ -285,11 +305,16 @@ def _conv_library(x, w, dilation=1):
                                       padding=dilation, dilation=dilation)
 
 
+def _volume(v):
+    """A geometry's volume: an edge (a cube) or (D, H, W)."""
+    return (v,) * 3 if isinstance(v, int) else tuple(v)
+
+
 def check_conv(dev, gen, cin, cout, v, dil, batch, dtype, stats):
     """K1 (stats) or K1-dx (no stats) against its twin at one geometry."""
     from nas_3d_unet_tpu_torch.ops import pgemm
 
-    x = torch.randn((batch, v, v, v, cin), generator=gen, device=dev)
+    x = torch.randn((batch, *_volume(v), cin), generator=gen, device=dev)
     w = torch.randn((3, 3, 3, cin, cout), generator=gen,
                     device=dev) * (27 * cin) ** -0.5
     args = (x.to(dtype), w.to(dtype).contiguous(), dil)
@@ -318,7 +343,7 @@ def check_conv(dev, gen, cin, cout, v, dil, batch, dtype, stats):
     with torch.no_grad():
         rec.update(_timings(kernel, twin, _conv_library, args))
     e = args[0].element_size()
-    rows = batch * v ** 3
+    rows = batch * math.prod(_volume(v))
     rec["bound_ms"], rec["bound_by"] = bound_ms(
         (rows * (cin + cout) + 27 * cin * cout) * e
         + (8 * batch * cout if stats else 0),
@@ -456,7 +481,7 @@ def check_conv3d(dev, gen, cin, cout, v, stride, dil, batch, dtype,
     """K6 against its twin at one geometry."""
     from nas_3d_unet_tpu_torch.ops import conv3d
 
-    x = torch.randn((batch, v, v, v, cin), generator=gen, device=dev)
+    x = torch.randn((batch, *_volume(v), cin), generator=gen, device=dev)
     w = torch.randn((3, 3, 3, cin, cout), generator=gen,
                     device=dev) * (27 * cin) ** -0.5
     b = (torch.randn((cout,), generator=gen, device=dev) * 0.5
@@ -473,9 +498,10 @@ def check_conv3d(dev, gen, cin, cout, v, stride, dil, batch, dtype,
            "dilation": dil, "bias_relu": bias_relu, "batch": batch,
            "bitwise_repeatable": rep, **_y_check(yk, yt), **times}
     e = args[0].element_size()
-    rows = batch * -(-v // stride) ** 3
+    rows = batch * math.prod(-(-s // stride) for s in _volume(v))
     rec["bound_ms"], rec["bound_by"] = bound_ms(
-        (batch * v ** 3 * cin + rows * cout + 27 * cin * cout) * e,
+        (batch * math.prod(_volume(v)) * cin + rows * cout
+         + 27 * cin * cout) * e,
         2.0 * rows * 27 * cin * cout, dtype)
     rec["ok"] = rec["y_ok"] and rep
     return rec
@@ -654,7 +680,7 @@ def phase_train_kernels(dev, gen, summary):
     for cin, cout, v, dil, n in K1_TRAIN:
         _run_check("train_kernel", "conv3x3x3_stats_bf16", check_conv,
                    summary, n, dev, gen, cin, cout, v, dil, MICRO, bf16, True)
-    for cin, cout, v, dil, n in K1DX_TRAIN:
+    for cin, cout, v, dil, n in K1DX_TRAIN + K1DX_EXTRA:
         _run_check("train_kernel", "conv3x3x3_bf16", check_conv, summary, n,
                    dev, gen, cin, cout, v, dil, MICRO, bf16, False)
     for k, nn, v, n in K2_TRAIN:
@@ -676,7 +702,7 @@ def phase_pallas_kernels(dev, gen, summary):
     bf16, f32 = torch.bfloat16, torch.float32
     for dtype, batch, per in ((f32, BATCH, 1), (bf16, MICRO, 2)):
         t = SUFFIX[dtype]
-        for cin, cout, v, st, dil, n in P_K6:
+        for cin, cout, v, st, dil, n in P_K6 + P_K6_EXTRA:
             _run_check("pallas_kernel", f"conv3d_{t}", check_conv3d, summary,
                        per * n, dev, gen, cin, cout, v, st, dil, batch, dtype)
         _run_check("pallas_kernel", f"conv3d_{t}", check_conv3d, summary, 0,
@@ -1162,8 +1188,9 @@ def check_copy(x, rpb):
 def check_pg(variant, ops):
     """E2's `variant` at the level-0 geometry against its fp32-accumulated
     twin: nodot bit-equal, the others within Y_ULPS bf16 ulps.  Library
-    (`e2.LIBRARY`): nodot's gather and, for fold1536, `torch.matmul` of the
-    pre-built concat with ac2, the GEMM alone."""
+    (`e2.LIBRARY`): nodot's gather, for the others `torch.matmul` of a
+    pre-built concat of the variant's slices with its stacked weight tiles
+    (fold1536: its own concat with ac2), the GEMM alone."""
     from nas_3d_unet_tpu_torch.experiments import r3_pg_variants as e2
 
     args = (variant, *ops, e2.WP)
@@ -1185,28 +1212,127 @@ def check_pg(variant, ops):
     return rec
 
 
-def sass_hmma(so):
-    """HMMA instructions in each E2 kernel's SASS (`cuobjdump -sass` on the
-    built library), by variant."""
+def sass_functions(so):
+    """[(function, HMMA instructions)] for every kernel function in the
+    built library's SASS (`cuobjdump -sass`), mangled names (the two
+    sources' instantiations of one template each appear)."""
     from nas_3d_unet_tpu_torch import _build
 
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(so)], capture_output=True,
                           text=True, check=True, timeout=300).stdout
-    counts, cur = {}, None
+    out = []
     for ln in sass.splitlines():
         if "Function :" in ln:
-            fn = ln.split("Function :", 1)[1]
-            cur = next((v for v in PG_VARIANTS if f"pg_{v}_kernel" in fn),
-                       None)
-            if cur:
-                counts[cur] = 0
-        elif cur and "HMMA" in ln:
-            counts[cur] += 1
+            out.append([ln.split("Function :", 1)[1].strip(), 0])
+        elif out and "HMMA" in ln:
+            out[-1][1] += 1
+    return [tuple(f) for f in out]
+
+
+def sass_hmma(functions):
+    """HMMA instructions in each E2 kernel's SASS, by variant."""
+    counts = {}
+    for fn, n in functions:
+        v = next((v for v in PG_VARIANTS if f"pg_{v}_kernel" in fn), None)
+        if v:
+            counts[v] = n
     return counts
 
 
-def phase_probes(dev, seed, summary, so):
+def kernels_launched(fn, *args):
+    """The names of the device kernels one call of `fn` launches, from a
+    `torch.profiler` trace (demangled: `(anonymous namespace)::...`)."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn(*args)
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    return sorted({e["name"] for e in events if e.get("cat") == "kernel"})
+
+
+# (kernel, call) pairs whose launched kernels phase_sass reads: the
+# tensor-core conv behind K1-dx and K6 in bf16, the FMA template behind
+# K1 bf16 and the fp32 convs
+def _sass_calls(dev, gen):
+    from nas_3d_unet_tpu_torch.ops import conv3d, pgemm
+
+    def rand(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    bf, f32 = torch.bfloat16, torch.float32
+    x, w = rand(1, 16, 16, 16, 32), rand(3, 3, 3, 32, 32) * 0.06
+    xf, wf = x.float(), w.float()
+    bias = torch.randn((32,), generator=gen, device=dev)
+    return [("conv3x3x3_bf16", True, pgemm.conv3x3x3, (x, w, 1)),
+            ("conv3d_bf16", True, conv3d.conv3d, (x, w, None, 1, 1, False)),
+            ("conv3d_bf16", True, conv3d.conv3d, (x, w, bias, 2, 2, True)),
+            ("conv3x3x3_stats_bf16", False, pgemm.conv3x3x3_stats,
+             (x, w, 1)),
+            ("conv3x3x3_f32", False, pgemm.conv3x3x3, (xf, wf, 1)),
+            ("conv3d_f32", False, conv3d.conv3d, (xf, wf, None, 2, 1, False))]
+
+
+def plans_agree():
+    """The tensor-core conv's plan from the library (`conv_mma_plan`)
+    against `ops/conv_mma.py`'s mirror, at every K1-dx and K6 geometry
+    checked: {geometry: (library, mirror)} where they differ."""
+    import ctypes
+
+    from nas_3d_unet_tpu_torch.ops import _cuda, conv_mma
+
+    geoms = {(ci, co, 1, d) for ci, co, _, d, _ in K1DX_TRAIN + K1DX_EXTRA}
+    geoms |= {(ci, co, s, d) for ci, co, _, s, d, _ in P_K6 + P_K6_EXTRA}
+    bad = {}
+    for g in sorted(geoms):
+        out = (ctypes.c_int * 5)()
+        if _cuda.lib().conv_mma_plan(*g, out):
+            raise AssertionError(f"conv_mma_plan refused {g}")
+        p = conv_mma.plan(*g)
+        mirror = [p.bn, p.brick[0], p.nbuf, p.smem, math.prod(p.halo)]
+        if list(out) != mirror:
+            bad[str(g)] = (list(out), mirror)
+    return bad
+
+
+def phase_sass(dev, gen, functions):
+    """The bf16 convs without moments (K1-dx, K6) on the tensor cores: the
+    kernels their wrappers launch are conv_mma_kernel instantiations, each
+    with HMMA in its SASS; K1 bf16 and the fp32 convs launch the FMA
+    template (gemm_moments_kernel), with none in any instantiation.  And
+    the kernel's plan is the one `ops/conv_mma.py` mirrors."""
+    mma = {fn: n for fn, n in functions if "conv_mma_kernel" in fn}
+    fma = {fn: n for fn, n in functions if "gemm_moments_kernel" in fn}
+    launched, ok = {}, bool(mma) and all(mma.values()) \
+        and not any(fma.values())
+    with torch.no_grad():
+        for name, on_mma, fn, args in _sass_calls(dev, gen):
+            names = kernels_launched(fn, *args)
+            launched.setdefault(name, []).extend(names)
+            convs = [n for n in names if "conv_mma_kernel" in n
+                     or "gemm_moments_kernel" in n]
+            want = "conv_mma_kernel" if on_mma else "gemm_moments_kernel"
+            ok = ok and bool(convs) and all(want in n for n in convs)
+    plans_differ = plans_agree()
+    emit({"phase": "sass", "conv_mma_hmma": mma, "gemm_moments_hmma": fma,
+          "launched": launched, "plans_differ": plans_differ,
+          "ok": ok and not plans_differ})
+    if not ok:
+        raise AssertionError("the bf16 convs without moments are not all on "
+                             "the tensor cores, or an FMA kernel has HMMA")
+    if plans_differ:
+        raise AssertionError(f"conv_mma plans differ: {plans_differ}")
+
+
+def phase_probes(dev, seed, summary, functions):
     """E1 at every rows-per-block and E2's variants at NB = 128 against
     their twins, their SASS, then the probes' entry points with the
     launch counts cleared just before and read just after."""
@@ -1224,7 +1350,7 @@ def phase_probes(dev, seed, summary, so):
     for v in PG_VARIANTS:
         _run_check("probes", f"pg_{v}_bf16", check_pg, summary, 1, v, ops)
     del ops
-    hmma = sass_hmma(so)
+    hmma = sass_hmma(functions)
     emit({"phase": "probes_sass", "hmma": hmma})
     if set(hmma) != set(PG_VARIANTS) or hmma["nodot"] \
             or not all(hmma[v] for v in PG_VARIANTS if v != "nodot"):
@@ -1288,7 +1414,9 @@ def main() -> int:
         phase_pallas_kernels(dev, gen, summary)
         p_serve_launches, p_s_per_patient = phase_slice(dev, args.seed, True)
         p_train_launches, p_train = phase_train(dev, args.seed, True)
-        probe_launches = phase_probes(dev, args.seed, summary, so)
+        functions = sass_functions(so)
+        probe_launches = phase_probes(dev, args.seed, summary, functions)
+        phase_sass(dev, gen, functions)
 
     emit({"phase": "done", "s_per_patient": s_per_patient,
           "train_patches_per_s": train["patches_per_s"],
@@ -1316,7 +1444,7 @@ def main() -> int:
     for name, launches in kernels:
         base = name.rsplit("_", 1)[0]
         line.append({"name": name, "route": "cuda",
-                     "source": SOURCES.get(base, SRC_PGEMM),
+                     "source": SOURCES.get(name, SOURCES.get(base, SRC_PGEMM)),
                      "replaces": REPLACES[base], "launches": launches[name],
                      **summary.entry(name)})
     print(smi)

@@ -1,15 +1,17 @@
 // The use_pallas configuration's conv kernels, fp32 or bf16 elements with
-// fp32 accumulation, rounded once (the template, its bound and its
-// design: igemm.cuh).
+// fp32 accumulation, rounded once.  In fp32 they instantiate the FMA
+// implicit-GEMM template (its bound and design: igemm.cuh); K6 in bf16 is
+// the tensor-core conv (conv_mma.cuh), K7 and K4 in bf16 the template.
 //
 // Replaces (nas_3d_unet_tpu/ops/pallas/conv3d.py):
 //   K6 conv3d_{f32,bf16}           <- conv3d (:201, _conv3d_pallas_fwd
 //      :139, body _conv3d_kernel :51): 3^3 SAME conv, stride 1 or 2,
 //      dilation 1 or 2, lax's pads (the odd one high), optional bias and
-//      ReLU.  At stride 1 without either it is K1-dx's kernel (pad = dil on
-//      both sides); otherwise the general gather, whose stride and low
-//      pads ride in the row coordinates each thread computes once, so the
-//      per-load work is the same add and bounds test.
+//      ReLU.  fp32: at stride 1 without either it is K1-dx's fp32 kernel
+//      (pad = dil on both sides); otherwise the general gather, whose
+//      stride and low pads ride in the row coordinates each thread
+//      computes once, so the per-load work is the same add and bounds
+//      test.  bf16: conv_mma.cuh at every stride, dilation and epilogue.
 //   K7 pointwise_conv_{f32,bf16}   <- pointwise_conv (:279,
 //      _pointwise_fwd :300, body :251): the K2 GEMM without the moments,
 //      optional bias and ReLU.
@@ -18,12 +20,14 @@
 //      whose store writes the depth-to-space layout directly, so the 8x
 //      larger output is written once and never permuted; optional ReLU.
 //      The caller passes the flipped, flattened kernel.
-// The TPU kernels fuse bias and ReLU into the matmul's epilogue; so does
-// this one, compiled in only for a call that asks for either.
+// The TPU kernels fuse bias and ReLU into the matmul's epilogue; so do
+// these, compiled in only for a call that asks for either (the template's
+// EPI flag; conv_mma.cuh's epilogue reads the flags at run time).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "conv_mma.cuh"
 #include "igemm.cuh"
 
 namespace {
@@ -48,24 +52,43 @@ extern "C" {
 // null, y (B, ceil(D/stride), ceil(H/stride), ceil(W/stride), Cout) in the
 // element type; pd/ph/pw the low-side SAME pads; all contiguous, on the
 // device of `stream`.
-#define NAS3D_CONV3D(NAME, T)                                                 \
-  int NAME(const T* x, const T* w, const float* bias, T* y, int B, int D,     \
-           int H, int W, int Cin, int Cout, int stride, int dil, int pd,      \
-           int ph, int pw, int relu, void* stream) {                          \
-    if (stride == 1 && bias == nullptr && !relu) {                            \
-      const ConvGeom g{D, H, W, Cin, dil};                                    \
-      return launch<kConvS1>(x, w, bias, y, B, D * H * W, 27 * Cin, Cout, 0,  \
-                             g, stream);                                      \
-    }                                                                         \
-    const int Do = (D + stride - 1) / stride, Ho = (H + stride - 1) / stride; \
-    const int Wo = (W + stride - 1) / stride;                                 \
-    const ConvGeom g{D, H, W, Cin, dil, stride, pd, ph, pw, Ho, Wo};          \
-    return launch<kConv>(x, w, bias, y, B, Do * Ho * Wo, 27 * Cin, Cout,      \
-                         relu, g, stream);                                    \
+int conv3d_f32(const float* x, const float* w, const float* bias, float* y,
+               int B, int D, int H, int W, int Cin, int Cout, int stride,
+               int dil, int pd, int ph, int pw, int relu, void* stream) {
+  if (stride == 1 && bias == nullptr && !relu) {
+    const ConvGeom g{D, H, W, Cin, dil};
+    return launch<kConvS1>(x, w, bias, y, B, D * H * W, 27 * Cin, Cout, 0, g,
+                           stream);
   }
-NAS3D_CONV3D(conv3d_f32, float)
-NAS3D_CONV3D(conv3d_bf16, __nv_bfloat16)
-#undef NAS3D_CONV3D
+  const int Do = (D + stride - 1) / stride, Ho = (H + stride - 1) / stride;
+  const int Wo = (W + stride - 1) / stride;
+  const ConvGeom g{D, H, W, Cin, dil, stride, pd, ph, pw, Ho, Wo};
+  return launch<kConv>(x, w, bias, y, B, Do * Ho * Wo, 27 * Cin, Cout, relu,
+                       g, stream);
+}
+
+int conv3d_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w,
+                const float* bias, __nv_bfloat16* y, int B, int D, int H,
+                int W, int Cin, int Cout, int stride, int dil, int pd, int ph,
+                int pw, int relu, void* stream) {
+  return cmma::launch_conv_mma(x, w, bias, y, B, D, H, W, Cin, Cout, stride,
+                               dil, pd, ph, pw, relu, (cudaStream_t)stream);
+}
+
+// The tensor-core conv's plan for (Cin, Cout, stride, dil) into out[5]:
+// BN, the output brick's depth, the shared-memory stages, the bytes of
+// shared memory, the halo brick's voxels (ops/conv_mma.py:plan mirrors it).
+int conv_mma_plan(int cin, int cout, int stride, int dil, int* out) {
+  if (cin < 1 || cout < 1 || stride < 1 || stride > 2 || dil < 1 || dil > 2)
+    return (int)cudaErrorInvalidValue;
+  const cmma::Plan p = cmma::make_plan(cin, cout, stride, dil);
+  out[0] = p.bn;
+  out[1] = p.bd;
+  out[2] = p.nbuf;
+  out[3] = (int)p.smem;
+  out[4] = p.hd * p.hh * p.hw;
+  return 0;
+}
 
 // K7: x (rows, K), w (K, N), bias (N,) fp32 or null, y (rows, N).
 #define NAS3D_POINTWISE(NAME, T)                                              \

@@ -1,6 +1,8 @@
-// The implicit-GEMM kernel template behind every conv and GEMM kernel of
-// the package (pgemm.cu: K1, K1-dx, K2; conv3d.cu: K6, K7, K4), fp32 or
-// bf16 elements with fp32 accumulation.
+// The implicit-GEMM kernel template behind the package's conv and GEMM
+// kernels on the FMA units (pgemm.cu: K1, K1-dx fp32, K2; conv3d.cu: K6
+// fp32, K7, K4), fp32 or bf16 elements with fp32 accumulation.  The bf16
+// 3^3 convs without moments (K1-dx, K6) run on the tensor cores instead
+// (conv_mma.cuh).
 //
 // What bounds them on the H100: in fp32 the tensor cores (bf16/TF32) are
 // off limits and the ceiling is the 67 TFLOP/s of fp32 FMA against 3.35
@@ -9,9 +11,9 @@
 // fp32).  The GEMMs (K2, K7, K4) straddle the balance: a voxel row does
 // 2*K*N flops for (K+N)*4 bytes, 6 flop/B at 48->16 up to 38 at 192->128.
 // In bf16 the bound is the tensor cores' 989 TFLOP/s and half the bytes;
-// this version still widens bf16 to fp32 and runs the same FMA tiling, so
-// it is far from that bound (wgmma is later work): bf16 here halves the
-// bytes moved, not the FMA count.
+// the bf16 users left on this template (K1 with its moments, K2, K7, K4)
+// still widen bf16 to fp32 and run the same FMA tiling, so they are far
+// from that bound: bf16 here halves the bytes moved, not the FMA count.
 //
 // What the design does about it: one implicit-GEMM kernel for all,
 //   Y[m, n] = sum_k A[m, k] * Wt[k, n],  k = tap * Cin + ci,
@@ -31,7 +33,9 @@
 // K2's code is not burdened by K6's: the gather (stride 1 with pad = dil,
 // or any stride with lax's low-side pads), the store (rows, or the 2^3
 // output block of each voxel for K4), the moments, and a bias/ReLU step.
-// Simple first: no cp.async/TMA, no wgmma (later PRs, with bf16).
+// Simple first: no cp.async/TMA, no tensor cores (conv_mma.cuh has them
+// for the bf16 convs without moments; K1's moments epilogue on its MMA
+// accumulators is next).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -52,8 +56,9 @@ constexpr int kTM = 8;   // rows of Y per thread
 
 // How A is read and Y written (the template's LAYOUT):
 constexpr int kGemm = 0;     // A = x[b] as (rows, K); Y stored as rows
-constexpr int kConvS1 = 1;   // A gathered, stride 1, pad = dil (K1, K1-dx)
-constexpr int kConv = 2;     // A gathered, g's stride and low pads (K6)
+constexpr int kConvS1 = 1;   // A gathered, stride 1, pad = dil (K1; fp32
+                             // K1-dx and K6)
+constexpr int kConv = 2;     // A gathered, g's stride and low pads (fp32 K6)
 constexpr int kGemmD2S = 3;  // A as rows; Y stored depth-to-space (K4)
 
 // kConvS1/kConv: input volume (D, H, W) x Cin and dilation; kConv also

@@ -1,6 +1,7 @@
 // GEMM-with-moments kernels for the stride-1 ConvNormAct convs, fp32 or
 // bf16 elements with fp32 accumulation (the template, its bound and its
-// design: igemm.cuh).
+// design: igemm.cuh), and K1's dx (in bf16 on the tensor cores:
+// conv_mma.cuh).
 //
 // Replaces (nas_3d_unet_tpu/ops/pallas/pgemm.py):
 //   K1 conv3x3x3_stats_{f32,bf16} <- conv_pgemm (:174, body _kernel :74)
@@ -9,7 +10,9 @@
 //   K1-dx conv3x3x3_{f32,bf16}    <- the same conv_pgemm with
 //      with_stats=False, as _pg_stats_fn's backward runs it for dx
 //      (ops/packed.py:491-504): the conv of dy with the flip-transposed
-//      kernel.  The epilogue and the moments reduce are compiled out.
+//      kernel.  fp32: the template with the epilogue and the moments
+//      reduce compiled out; bf16: the tensor-core conv at stride 1, pad =
+//      dilation.
 //   K2 gemm_stats_{f32,bf16}      <- gemm_stats (:311, body _gemm_kernel
 //      :287): y = x @ W over voxel rows (the 1^3 conv), same epilogue.
 // The moments are per-(batch, channel) sums of y and y^2, which GroupNorm
@@ -24,6 +27,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "conv_mma.cuh"
 #include "igemm.cuh"
 
 namespace {
@@ -84,8 +88,15 @@ NAS3D_CONV(conv3x3x3_stats_f32, float, true)
 NAS3D_CONV(conv3x3x3_stats_bf16, __nv_bfloat16, true)
 // K1-dx: the same conv without the moments (partial, s1, s2 unused)
 NAS3D_CONV(conv3x3x3_f32, float, false)
-NAS3D_CONV(conv3x3x3_bf16, __nv_bfloat16, false)
 #undef NAS3D_CONV
+
+int conv3x3x3_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w,
+                   __nv_bfloat16* y, float* partial, float* s1, float* s2,
+                   int B, int D, int H, int W, int Cin, int Cout, int dil,
+                   void* stream) {
+  return cmma::launch_conv_mma(x, w, nullptr, y, B, D, H, W, Cin, Cout, 1,
+                               dil, dil, dil, dil, 0, (cudaStream_t)stream);
+}
 
 // K2: x (B, V, K), w (K, N), y (B, V, N) in the element type; s1/s2 (B, N)
 // fp32.

@@ -50,9 +50,19 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma.cuh"
+
 namespace {
 
 typedef __nv_bfloat16 bf16;
+
+using nas3d::cp_async16;
+using nas3d::cp_async16_zfill;
+using nas3d::cp_async_commit;
+using nas3d::cp_async_wait;
+using nas3d::ldsm_x4;
+using nas3d::ldsm_x4_trans;
+using nas3d::mma_bf16;
 
 // ---------------------------------------------------------------------------
 // E1: the copy
@@ -113,51 +123,6 @@ template <> struct Tile<kMt4> {
 };
 template <> struct Tile<kFold> { static constexpr int BM = 128, WM = 4; };
 template <> struct Tile<kNodot> { static constexpr int BM = 128; };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
-                                              const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-// d += a (16x16, row) @ b (16x8, col), bf16 in, fp32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // rows x cols bf16 from global (row stride cols) into shared memory (row
 // stride ld), 16 bytes per cp.async, all threads of the block
@@ -297,7 +262,7 @@ __device__ __forceinline__ void fold_stage(bf16* st, int j, const bf16* x,
     const int r = i / kVecs, v = i % kVecs;
     const int c = j * kFoldKC + v * 8;
     const bf16* src = x;
-    int bytes = 16;
+    bool full = true;
     if (c < 9 * kRC) {
       const int seg = c / kRC, kh = seg / 3, k = seg % 3;
       src = x + ((size_t)min(bd + k, NB - 1) * HPWP + kh * WP + m0 + r) * kRC
@@ -307,11 +272,9 @@ __device__ __forceinline__ void fold_stage(bf16* st, int j, const bf16* x,
       src = xe + ((size_t)min(bd + k, NB - 1) * HPWP + kh * WP + m0 + r) * kKE
             + e % kKE;
     } else {
-      bytes = 0;
+      full = false;
     }
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                     smem_u32(as + r * kLdA + v * 8)),
-                 "l"(src), "r"(bytes));
+    cp_async16_zfill(as + r * kLdA + v * 8, src, full);
   }
   stage(bs, kLdC, w + (size_t)j * kFoldKC * kRC, kRC, kFoldKC);
   cp_async_commit();

@@ -23,8 +23,9 @@ and xe passed three times become one x and one xe; its module-global ac2
 becomes an input.  `main()` prints the TPU script's `{variant: ms}` line
 per variant with the bound beside it, a line for `full_parallel` (no CUDA
 counterpart of its dimension semantics), and a library line for each
-variant one PyTorch call computes (`LIBRARY`): nodot's gather and the
-`torch.matmul` of fold1536's pre-built concat with ac2 (the GEMM alone).
+variant (`LIBRARY`): nodot's gather, and for the others the
+`torch.matmul` of a pre-built concat of the variant's slices with its
+stacked weight tiles (fold1536: its own concat with ac2), the GEMM alone.
 Every launch reads the same pre-built operands.  Raises without a card.
 """
 
@@ -151,14 +152,35 @@ def work(variant: str, nb: int = NB, hp: int = HP, wp: int = WP,
 
 
 LIBRARY = {"nodot": "the gather x[P_1, WP:WP+M], P_1 pre-built",
+           "c6": "torch.matmul of the pre-built (NB*M, 6*RC) concat of its "
+                 "6 centre slices with their stacked ac tiles, the GEMM "
+                 "alone",
+           "full": "torch.matmul of the pre-built (NB*M, 9*(RC+KE)) concat "
+                   "of its 18 slices with their stacked ac and ae tiles, "
+                   "the GEMM alone",
+           "mt4": "as full (the same function)",
            "fold1536": "torch.matmul of the pre-built (NB*M, 1536) concat "
                        "with ac2, the GEMM alone"}
 
 
+def _folded(x, xe, ac, ae, wp: int, n_kh: int, edge: bool):
+    """(the concat of a shifted variant's slices (NB·M, K), its tiles
+    stacked (K, RC)): the centre terms in (kh, k) order, then the edge
+    terms, so that one GEMM computes the variant."""
+    nb, rows, _ = x.shape
+    m = rows - 2 * wp
+    srcs = [(x, ac)] + ([(xe, ae)] if edge else [])
+    cols = [t[planes(nb, k, t.device), kh * wp:kh * wp + m]
+            for t, _ in srcs for kh in range(n_kh) for k in range(3)]
+    tiles = [a[k, kh] for _, a in srcs for kh in range(n_kh)
+             for k in range(3)]
+    return (torch.cat(cols, dim=-1).reshape(nb * m, -1),
+            torch.cat(tiles, dim=0))
+
+
 def library(variant: str, x, xe, ac, ae, ac2, wp: int):
     """One PyTorch call computing `variant` on operands built beforehand
-    (`LIBRARY` says which), as a callable that ignores its arguments; None
-    where no single call computes the variant."""
+    (`LIBRARY` says which), as a callable that ignores its arguments."""
     m = x.shape[1] - 2 * wp
     if variant == "nodot":
         p1 = planes(x.shape[0], 1, x.device)
@@ -166,7 +188,9 @@ def library(variant: str, x, xe, ac, ae, ac2, wp: int):
     if variant == "fold1536":
         a = xcat(x, xe, wp).reshape(-1, FOLD_K)
         return lambda *_: torch.matmul(a, ac2)
-    return None
+    a, b = _folded(x, xe, ac, ae, wp, *((2, False) if variant == "c6"
+                                        else (3, True)))
+    return lambda *_: torch.matmul(a, b)
 
 
 def operands(seed: int, device, nb: int = NB, hp: int = HP, wp: int = WP,

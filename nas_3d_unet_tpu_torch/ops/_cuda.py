@@ -51,6 +51,8 @@ def lib() -> ctypes.CDLL:
                              ("stats_chunks", [I, I, I])):
             getattr(lib_, fn).argtypes = argtypes
             getattr(lib_, fn).restype = I
+        lib_.conv_mma_plan.argtypes = [I] * 4 + [ctypes.POINTER(I)]
+        lib_.conv_mma_plan.restype = I
         for fn, (n_ptr, n_int) in _SIGNATURES.items():
             getattr(lib_, fn).argtypes = [P] * n_ptr + [I] * n_int + [P]
             getattr(lib_, fn).restype = I

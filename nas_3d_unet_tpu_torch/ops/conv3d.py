@@ -1,9 +1,11 @@
 """The `use_pallas` convs: the counterpart of
 `nas_3d_unet_tpu/ops/pallas/conv3d.py`.
 
-Kernels (`csrc/conv3d.cu`, on the implicit-GEMM template of K1 and K2,
-`csrc/igemm.cuh`), fp32 or bf16 with fp32 accumulation, rounded once to
-the input's dtype, each with its plain PyTorch twin beside it:
+Kernels (`csrc/conv3d.cu`: on the FMA implicit-GEMM template of K1 and
+K2, `csrc/igemm.cuh`, except K6 in bf16, which runs on the tensor cores,
+`csrc/conv_mma.cuh`, planned as `ops/conv_mma.py` mirrors), fp32 or bf16
+with fp32 accumulation, rounded once to the input's dtype, each with its
+plain PyTorch twin beside it:
 
   K6 `conv3d(x, w, b, stride, dilation, relu)`: 3³ SAME conv, stride 1 or
      2, dilation 1 or 2, lax's pads (the odd one high, `_same_pad`),

@@ -9,6 +9,7 @@ each with its plain PyTorch twin:
      a DHWIO kernel plus the moments (replaces `conv_pgemm`);
   K1-dx `conv3x3x3(x, w, dilation)`: the same conv without the moments,
      which K1's backward runs for dx (`conv_pgemm(..., with_stats=False)`);
+     in bf16 on the tensor cores (`csrc/conv_mma.cuh`, `ops/conv_mma.py`);
   K2 `gemm_stats(x3, w)`: `y = x3 @ w` over voxel rows, the 1³ conv, plus
      the moments (replaces `gemm_stats`).
 

@@ -45,9 +45,13 @@ import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
 CLASSES = [   # (class, kernel-name pattern), first match wins
+    # conv_mma_kernel<BN> (csrc/conv_mma.cuh): the bf16 convs without
+    # moments, on the tensor cores; only the default path runs K1-dx and
+    # only use_pallas K6
+    ("K1-dx / K6 bf16 conv (tensor cores)", r"conv_mma_kernel<"),
     # gemm_moments_kernel<BN, LAYOUT, T, STATS, EPI> (csrc/igemm.cuh):
-    # K1-dx and K6 at stride 1 are one kernel (the conv without moments);
-    # only the default path runs K1-dx and only use_pallas K6
+    # K1-dx and K6 at stride 1 in fp32 are one kernel (the conv without
+    # moments)
     ("K1-dx / K6 stride-1 conv",
      r"gemm_moments_kernel<\d+, 1, [\w:]+, false"),
     ("K1 conv3x3x3_stats", r"gemm_moments_kernel<\d+, 1, [\w:]+, true"),
