@@ -22,11 +22,16 @@ Phases, each printed as JSON lines:
      the shapes the net hands the kernels are exactly phase 3's.
   5. train_kernels: the training kernels against their twins at every
      geometry one flagship train step gives them (bf16, microbatch 1): K1
-     bf16, K1-dx (the no-moments conv, on the tensor cores, checked
-     against the twin conv with the flip-transposed kernel; also off the
-     path at a ragged 19x24x21 volume and at Cin 4 -> Cout 12), K2 bf16,
-     K5a moments and K5b weighted_sums in bf16 and fp32.  bf16 K1/K2
-     moments are also held against float64 sums of the y the kernel
+     bf16 (the tensor-core conv with its moments epilogue; also off the
+     path at dilation 2 at 64^3, at a ragged 19x24x21 volume at 32 -> 32
+     and dilation 1 and 2, and at Cin 4 -> Cout 12 ragged), K1-dx (the
+     no-moments conv, on the tensor cores, checked against the twin conv
+     with the flip-transposed kernel; also off the path at the ragged
+     volume and at Cin 4 -> Cout 12), K2 bf16 (the tensor-core GEMM with
+     its moments epilogue; also off the path at the ragged volume's V =
+     9576 rows at 32 -> 32, K 40 -> N 24, and K 12 -> N 7, the scalar
+     copies), K5a moments and K5b weighted_sums in bf16 and fp32.  bf16
+     K1/K2 moments are also held against float64 sums of the y the kernel
      stored.
   6. train: the flagship in bf16 trained as bench.py's bench_train does
      (batch 2 of 128^3, microbatch 1, AdamW 3e-4 / 1e-4, flips and
@@ -62,13 +67,15 @@ Phases, each printed as JSON lines:
      twin, TFLOP/s against the bound; the HMMA instructions in each E2
      kernel's SASS (none in nodot, some in every other); then the two
      probes' entry points (`main()`), with the launch counts read.
- 11. sass: the kernels K1-dx and K6 in bf16 launch (read from a
+ 11. sass: the kernels K1, K1-dx and K6 in bf16 launch (read from a
      `torch.profiler` trace) are the tensor-core conv's
-     (`conv_mma_kernel`), each instantiation with HMMA in its SASS; K1
-     bf16 and the fp32 convs launch the FMA template
+     (`conv_mma_kernel`), K2 bf16's the tensor-core GEMM's
+     (`gemm_mma_kernel`), each instantiation of both with HMMA in its
+     SASS; K1 and K2 in fp32 and the fp32 convs launch the FMA template
      (`gemm_moments_kernel`), none of whose instantiations has any; the
-     kernel's tile plan equals `ops/conv_mma.py`'s mirror at every K1-dx
-     and K6 geometry checked.
+     conv's tile plan and brick count equal `ops/conv_mma.py`'s mirror at
+     every K1, K1-dx and K6 geometry checked, the GEMM's plan
+     `ops/gemm_mma.py`'s at every K2 geometry.
 Then the nvidia-smi line, the kernels summary line and, last,
 `{"ok": true, "device": {...}}`.  In the kernels line a serving kernel's
 `ms`, `plain_ms`, `library_ms` and `bound_ms` are one flagship forward's
@@ -110,6 +117,7 @@ SRC_CONV = "nas_3d_unet_tpu_torch/csrc/conv3d.cu"
 SRC_GN = "nas_3d_unet_tpu_torch/csrc/groupnorm.cu"
 SRC_PROBES = "nas_3d_unet_tpu_torch/csrc/probes.cu"
 SRC_MMA = "nas_3d_unet_tpu_torch/csrc/conv_mma.cuh"   # in pgemm.cu, conv3d.cu
+SRC_GMMA = "nas_3d_unet_tpu_torch/csrc/gemm_mma.cuh"  # in pgemm.cu
 PG_VARIANTS = ("nodot", "c6", "full", "mt4", "fold1536")
 SOURCES = {"moments": SRC_STATS, "weighted_sums": SRC_STATS,
            "weighted_sums_masked": SRC_STATS, "group_norm_apply": SRC_GN,
@@ -117,7 +125,8 @@ SOURCES = {"moments": SRC_STATS, "weighted_sums": SRC_STATS,
            "pointwise_conv": SRC_CONV, "conv_transpose2x": SRC_CONV,
            "copy_rows": SRC_PROBES,
            **{f"pg_{v}": SRC_PROBES for v in PG_VARIANTS},
-           "conv3x3x3_bf16": SRC_MMA, "conv3d_bf16": SRC_MMA}
+           "conv3x3x3_bf16": SRC_MMA, "conv3d_bf16": SRC_MMA,
+           "conv3x3x3_stats_bf16": SRC_MMA, "gemm_stats_bf16": SRC_GMMA}
 # the rest: SRC_PGEMM (by kernel name, else by its name without the dtype)
 REPLACES = {
     "conv3x3x3_stats": "nas_3d_unet_tpu/ops/pallas/pgemm.py:174",  # conv_pgemm
@@ -167,7 +176,14 @@ K1DX_TRAIN = [(co, ci, v, d, 2 * n) for ci, co, v, d, n in K1_GEOMS
 # volume (D, H, W), and odd channel counts
 RAGGED = (19, 24, 21)
 K1DX_EXTRA = [(32, 32, RAGGED, 1, 0), (4, 12, RAGGED, 1, 0)]
+# K1's moments masking at the ragged edge (dilation 2 at 64^3 is K1_TRAIN's
+# dil_conv3 row)
+K1_EXTRA = [(32, 32, RAGGED, 1, 0), (32, 32, RAGGED, 2, 0),
+            (4, 12, RAGGED, 1, 0)]
 K2_TRAIN = [(k, n, v, 2 * c) for k, n, v, c in K2_GEOMS]
+# V = 9576 rows (not a multiple of the 128-row block); K and N multiples
+# of 8 (16-byte copies) and not (scalar copies)
+K2_EXTRA = [(32, 32, RAGGED, 0), (40, 24, RAGGED, 0), (12, 7, RAGGED, 0)]
 K5A_TRAIN = [(c, v, 2 * n) for c, v, n in K5A_GEOMS]
 # K5b: every GroupNorm's backward, (C, volume edge, launches per step)
 K5B_TRAIN = [(16, 64, 2), (16, 128, 14), (32, 32, 2), (32, 64, 22),
@@ -356,7 +372,7 @@ def check_gemm(dev, gen, k, n, v, batch, dtype):
     """K2 against its twin at one geometry."""
     from nas_3d_unet_tpu_torch.ops import pgemm
 
-    rows = v ** 3
+    rows = math.prod(_volume(v))
     x = torch.randn((batch, rows, k), generator=gen, device=dev).to(dtype)
     w = (torch.randn((k, n), generator=gen, device=dev) * k ** -0.5).to(dtype)
     args = (x, w)
@@ -677,13 +693,13 @@ def phase_train_kernels(dev, gen, summary):
     """Training kernels at one train step's geometries (bf16, microbatch
     1); per_unit = launches per step.  K5b also in fp32 (per_unit 0)."""
     bf16, f32 = torch.bfloat16, torch.float32
-    for cin, cout, v, dil, n in K1_TRAIN:
+    for cin, cout, v, dil, n in K1_TRAIN + K1_EXTRA:
         _run_check("train_kernel", "conv3x3x3_stats_bf16", check_conv,
                    summary, n, dev, gen, cin, cout, v, dil, MICRO, bf16, True)
     for cin, cout, v, dil, n in K1DX_TRAIN + K1DX_EXTRA:
         _run_check("train_kernel", "conv3x3x3_bf16", check_conv, summary, n,
                    dev, gen, cin, cout, v, dil, MICRO, bf16, False)
-    for k, nn, v, n in K2_TRAIN:
+    for k, nn, v, n in K2_TRAIN + K2_EXTRA:
         _run_check("train_kernel", "gemm_stats_bf16", check_gemm, summary,
                    n, dev, gen, k, nn, v, MICRO, bf16)
     for c, v, n in K5A_TRAIN:
@@ -1240,6 +1256,37 @@ def sass_hmma(functions):
     return counts
 
 
+def ptxas_report(log, kinds):
+    """{"<source>: <kernel>": [registers, spill stores, spill loads]} for
+    each kernel whose name holds one of `kinds`, from the ptxas -v report
+    of the build log (names demangled to `kernel<args>` where `c++filt`
+    is at hand)."""
+    import re
+    import shutil
+
+    out, src, fn = {}, None, None
+    for ln in log.splitlines():
+        if " -c -o " in ln:                  # an nvcc command: its source
+            src, fn = os.path.basename(ln.split()[-1]), None
+        elif m := re.search(r"Compiling entry function '(\w+)'", ln):
+            fn = m.group(1) if any(k in m.group(1) for k in kinds) else None
+        elif fn and (m := re.search(r"(\d+) bytes spill stores, (\d+) "
+                                    r"bytes spill loads", ln)):
+            out.setdefault((src, fn), [0, 0, 0])[1:] = map(int, m.groups())
+        elif fn and (m := re.search(r"Used (\d+) registers", ln)):
+            out.setdefault((src, fn), [0, 0, 0])[0] = int(m.group(1))
+    names = [fn for _, fn in out]
+    tool = shutil.which("c++filt")
+    if tool and names:
+        names = subprocess.run([tool], input="\n".join(names), text=True,
+                               capture_output=True, timeout=60,
+                               check=True).stdout.splitlines()
+    short = [(re.search(r"\w+_kernel<[^>]*>", n) or re.search(".*", n))
+             .group(0) for n in names]
+    return {f"{src}: {name}": v for ((src, _), v), name
+            in zip(out.items(), short)}
+
+
 def kernels_launched(fn, *args):
     """The names of the device kernels one call of `fn` launches, from a
     `torch.profiler` trace (demangled: `(anonymous namespace)::...`)."""
@@ -1259,77 +1306,103 @@ def kernels_launched(fn, *args):
     return sorted({e["name"] for e in events if e.get("cat") == "kernel"})
 
 
-# (kernel, call) pairs whose launched kernels phase_sass reads: the
-# tensor-core conv behind K1-dx and K6 in bf16, the FMA template behind
-# K1 bf16 and the fp32 convs
+# (kernel, device kernel it must launch, call): the tensor-core conv behind
+# K1, K1-dx and K6 in bf16, the tensor-core GEMM behind K2 bf16, the FMA
+# template behind K1, K2 and the convs in fp32
+MMA, GMMA, FMA = "conv_mma_kernel", "gemm_mma_kernel", "gemm_moments_kernel"
+
+
 def _sass_calls(dev, gen):
     from nas_3d_unet_tpu_torch.ops import conv3d, pgemm
 
     def rand(*shape, dtype=torch.bfloat16):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
-    bf, f32 = torch.bfloat16, torch.float32
     x, w = rand(1, 16, 16, 16, 32), rand(3, 3, 3, 32, 32) * 0.06
-    xf, wf = x.float(), w.float()
+    x3, w2 = x.view(1, -1, 32), rand(32, 16) * 0.2
+    xf, wf, x3f, w2f = x.float(), w.float(), x3.float(), w2.float()
     bias = torch.randn((32,), generator=gen, device=dev)
-    return [("conv3x3x3_bf16", True, pgemm.conv3x3x3, (x, w, 1)),
-            ("conv3d_bf16", True, conv3d.conv3d, (x, w, None, 1, 1, False)),
-            ("conv3d_bf16", True, conv3d.conv3d, (x, w, bias, 2, 2, True)),
-            ("conv3x3x3_stats_bf16", False, pgemm.conv3x3x3_stats,
-             (x, w, 1)),
-            ("conv3x3x3_f32", False, pgemm.conv3x3x3, (xf, wf, 1)),
-            ("conv3d_f32", False, conv3d.conv3d, (xf, wf, None, 2, 1, False))]
+    return [("conv3x3x3_bf16", MMA, pgemm.conv3x3x3, (x, w, 1)),
+            ("conv3d_bf16", MMA, conv3d.conv3d, (x, w, None, 1, 1, False)),
+            ("conv3d_bf16", MMA, conv3d.conv3d, (x, w, bias, 2, 2, True)),
+            ("conv3x3x3_stats_bf16", MMA, pgemm.conv3x3x3_stats, (x, w, 1)),
+            ("gemm_stats_bf16", GMMA, pgemm.gemm_stats, (x3, w2)),
+            ("conv3x3x3_stats_f32", FMA, pgemm.conv3x3x3_stats, (xf, wf, 1)),
+            ("gemm_stats_f32", FMA, pgemm.gemm_stats, (x3f, w2f)),
+            ("conv3x3x3_f32", FMA, pgemm.conv3x3x3, (xf, wf, 1)),
+            ("conv3d_f32", FMA, conv3d.conv3d, (xf, wf, None, 2, 1, False))]
 
 
 def plans_agree():
-    """The tensor-core conv's plan from the library (`conv_mma_plan`)
-    against `ops/conv_mma.py`'s mirror, at every K1-dx and K6 geometry
-    checked: {geometry: (library, mirror)} where they differ."""
+    """The tensor-core kernels' plans from the library against their
+    mirrors: the conv's (`conv_mma_plan`, and `conv_mma_blocks`, which
+    sizes K1's moments partials) against `ops/conv_mma.py` at every K1,
+    K1-dx and K6 geometry checked, the GEMM's (`gemm_mma_plan`) against
+    `ops/gemm_mma.py` at every K2 geometry: {geometry: (library, mirror)}
+    where they differ."""
     import ctypes
 
-    from nas_3d_unet_tpu_torch.ops import _cuda, conv_mma
+    from nas_3d_unet_tpu_torch.ops import _cuda, conv_mma, gemm_mma
 
+    lib = _cuda.lib()
     geoms = {(ci, co, 1, d) for ci, co, _, d, _ in K1DX_TRAIN + K1DX_EXTRA}
     geoms |= {(ci, co, s, d) for ci, co, _, s, d, _ in P_K6 + P_K6_EXTRA}
+    geoms |= {(ci, co, 1, d) for ci, co, _, d, _ in K1_TRAIN + K1_EXTRA}
     bad = {}
     for g in sorted(geoms):
         out = (ctypes.c_int * 5)()
-        if _cuda.lib().conv_mma_plan(*g, out):
+        if lib.conv_mma_plan(*g, out):
             raise AssertionError(f"conv_mma_plan refused {g}")
         p = conv_mma.plan(*g)
         mirror = [p.bn, p.brick[0], p.nbuf, p.smem, math.prod(p.halo)]
         if list(out) != mirror:
             bad[str(g)] = (list(out), mirror)
+    for ci, co, v, d, _ in K1_TRAIN + K1_EXTRA:
+        vol = _volume(v)
+        got = lib.conv_mma_blocks(ci, co, d, *vol)
+        want = len(list(conv_mma.bricks(vol, conv_mma.plan(ci, co, 1, d))))
+        if got != want:
+            bad[str(("blocks", ci, co, d, vol))] = (got, want)
+    for k, n, _, _ in K2_TRAIN + K2_EXTRA:
+        out = (ctypes.c_int * 4)()
+        if lib.gemm_mma_plan(k, n, out):
+            raise AssertionError(f"gemm_mma_plan refused {(k, n)}")
+        p = gemm_mma.plan(k, n)
+        mirror = [p.bn, p.rows, p.nchunks, p.smem]
+        if list(out) != mirror:
+            bad[str(("gemm", k, n))] = (list(out), mirror)
     return bad
 
 
 def phase_sass(dev, gen, functions):
-    """The bf16 convs without moments (K1-dx, K6) on the tensor cores: the
-    kernels their wrappers launch are conv_mma_kernel instantiations, each
-    with HMMA in its SASS; K1 bf16 and the fp32 convs launch the FMA
-    template (gemm_moments_kernel), with none in any instantiation.  And
-    the kernel's plan is the one `ops/conv_mma.py` mirrors."""
-    mma = {fn: n for fn, n in functions if "conv_mma_kernel" in fn}
-    fma = {fn: n for fn, n in functions if "gemm_moments_kernel" in fn}
-    launched, ok = {}, bool(mma) and all(mma.values()) \
-        and not any(fma.values())
+    """The bf16 convs (K1, K1-dx, K6) and K2 bf16 on the tensor cores: the
+    kernels their wrappers launch are conv_mma_kernel or gemm_mma_kernel
+    instantiations, each with HMMA in its SASS; K1, K2 and the convs in
+    fp32 launch the FMA template (gemm_moments_kernel), with none in any
+    instantiation.  And the kernels' plans are the ones `ops/conv_mma.py`
+    and `ops/gemm_mma.py` mirror."""
+    hmma = {kind: {fn: n for fn, n in functions if kind in fn}
+            for kind in (MMA, GMMA, FMA)}
+    ok = all(hmma[MMA].values()) and all(hmma[GMMA].values()) \
+        and bool(hmma[MMA]) and bool(hmma[GMMA]) \
+        and not any(hmma[FMA].values())
+    launched = {}
     with torch.no_grad():
-        for name, on_mma, fn, args in _sass_calls(dev, gen):
+        for name, want, fn, args in _sass_calls(dev, gen):
             names = kernels_launched(fn, *args)
             launched.setdefault(name, []).extend(names)
-            convs = [n for n in names if "conv_mma_kernel" in n
-                     or "gemm_moments_kernel" in n]
-            want = "conv_mma_kernel" if on_mma else "gemm_moments_kernel"
-            ok = ok and bool(convs) and all(want in n for n in convs)
+            mains = [n for n in names if any(k in n for k in hmma)]
+            ok = ok and bool(mains) and all(want in n for n in mains)
     plans_differ = plans_agree()
-    emit({"phase": "sass", "conv_mma_hmma": mma, "gemm_moments_hmma": fma,
+    emit({"phase": "sass", "conv_mma_hmma": hmma[MMA],
+          "gemm_mma_hmma": hmma[GMMA], "gemm_moments_hmma": hmma[FMA],
           "launched": launched, "plans_differ": plans_differ,
           "ok": ok and not plans_differ})
     if not ok:
-        raise AssertionError("the bf16 convs without moments are not all on "
-                             "the tensor cores, or an FMA kernel has HMMA")
+        raise AssertionError("the bf16 convs and K2 bf16 are not all on the "
+                             "tensor cores, or an FMA kernel has HMMA")
     if plans_differ:
-        raise AssertionError(f"conv_mma plans differ: {plans_differ}")
+        raise AssertionError(f"tensor-core plans differ: {plans_differ}")
 
 
 def phase_probes(dev, seed, summary, functions):
@@ -1397,11 +1470,13 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.load()
     build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in so.with_suffix(".log").read_text()
-             .splitlines() if "registers" in ln or "spill" in ln]
+    log = so.with_suffix(".log").read_text()
+    ptxas = [ln.strip() for ln in log.splitlines()
+             if "registers" in ln or "spill" in ln]
     emit({"phase": "build", "seconds": build_s,
           "sources": [SRC_PGEMM, SRC_CONV, SRC_STATS, SRC_GN, SRC_PROBES],
-          "flags": " ".join(_build.NVCC_FLAGS), "ptxas": ptxas})
+          "flags": " ".join(_build.NVCC_FLAGS), "ptxas": ptxas,
+          "ptxas_tensor_core_kernels": ptxas_report(log, (MMA, GMMA))})
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)

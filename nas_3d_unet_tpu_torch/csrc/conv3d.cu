@@ -71,8 +71,9 @@ int conv3d_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w,
                 const float* bias, __nv_bfloat16* y, int B, int D, int H,
                 int W, int Cin, int Cout, int stride, int dil, int pd, int ph,
                 int pw, int relu, void* stream) {
-  return cmma::launch_conv_mma(x, w, bias, y, B, D, H, W, Cin, Cout, stride,
-                               dil, pd, ph, pw, relu, (cudaStream_t)stream);
+  return cmma::launch_conv_mma<false>(x, w, bias, y, nullptr, B, D, H, W, Cin,
+                                      Cout, stride, dil, pd, ph, pw, relu,
+                                      (cudaStream_t)stream);
 }
 
 // The tensor-core conv's plan for (Cin, Cout, stride, dil) into out[5]:

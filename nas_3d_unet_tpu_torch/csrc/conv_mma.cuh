@@ -1,24 +1,29 @@
-// The bf16 3^3 conv on the tensor cores, behind K1-dx (pgemm.cu
+// The bf16 3^3 conv on the tensor cores, behind K1 bf16 (pgemm.cu
+// conv3x3x3_stats_bf16, with the GroupNorm moments), K1-dx (pgemm.cu
 // conv3x3x3_bf16) and K6 in bf16 (conv3d.cu conv3d_bf16): NDHWC x (B, D,
 // H, W, Cin), DHWIO w (3, 3, 3, Cin, Cout), stride 1 or 2, dilation 1 or
 // 2, lax's low-side pads (pd, ph, pw), optional fp32 bias and ReLU; bf16
 // operands, fp32 accumulation, y (B, Do, Ho, Wo, Cout) rounded once to
-// bf16.
+// bf16; with STATS also each block's Σy and Σy² of the rounded y.
 //
 // Replaces (nas_3d_unet_tpu/):
-//   ops/pallas/conv3d.py:201 conv3d (body _conv3d_kernel :51, pallas_call
-//     :172) in bf16: K6, every stride, dilation and epilogue it takes;
+//   ops/pallas/pgemm.py:174 conv_pgemm (body _kernel :74, pallas_call :252)
+//     in bf16 with its moments epilogue, stride 1, pad = dilation: K1;
 //   ops/pallas/pgemm.py:174 conv_pgemm as the dx of ops/packed.py:491-504
 //     runs it (with_stats=False, on dy with the flip-transposed kernel,
-//     stride 1, pad = dilation): K1-dx.
+//     stride 1, pad = dilation): K1-dx;
+//   ops/pallas/conv3d.py:201 conv3d (body _conv3d_kernel :51, pallas_call
+//     :172) in bf16: K6, every stride, dilation and epilogue it takes.
 //
 // What bounds it on the H100: at the train step's shapes (chip_smoke.py's
-// K1DX_TRAIN, P_K6) the bytes, 0.47 ms (K1-dx) and 0.74 ms (K6) per step at
-// 3.35 TB/s, against 0.41 and 0.56 ms of flops at the tensor cores' 989
-// TFLOP/s; the narrow levels (16 and 32 channels, ~79 % of the flops) give
-// a block little arithmetic per staged byte.  The FMA tile this replaces
-// (igemm.cuh) ran ~12 TFLOP/s, under the 67 TFLOP/s fp32 ceiling, and read
-// each input voxel 27 times through a bounds test per element.
+// K1_TRAIN, K1DX_TRAIN, P_K6) the bytes, 0.61 ms (K1), 0.47 ms (K1-dx) and
+// 0.74 ms (K6) per step at 3.35 TB/s, against 0.45, 0.41 and 0.56 ms of
+// flops at the tensor cores' 989 TFLOP/s; the narrow levels (16 and 32
+// channels, ~79 % of the flops) give a block little arithmetic per staged
+// byte, and K1's stem (Cin 4) fills 4 of each MMA's 16 K columns.  The FMA
+// tile this replaces (igemm.cuh) ran ~11-12 TFLOP/s, under the 67 TFLOP/s
+// fp32 ceiling, and read each input voxel 27 times through a bounds test
+// per element.
 //
 // What the design does about it (set by the E2 probe, probes.cu: short-K
 // MMAs over an input staged once beat a folded K; 128-row tiles beat 32):
@@ -41,9 +46,13 @@
 //     flight under this one's MMAs) where both fit in half the SM's shared
 //     memory, so two blocks stay resident; otherwise one stage, and the
 //     second resident block overlaps the copies.
-//   - Epilogue: fp32 bias and ReLU where asked, one rounding to bf16,
-//     stores masked at the volume's ragged edge and at Cout.  No atomics:
-//     a fixed summation order, the same bits on every launch.
+//   - Epilogue, one accumulator column at a time: fp32 bias and ReLU where
+//     asked, one rounding to bf16, stores masked at the volume's ragged
+//     edge and at Cout; with STATS the moments of the rounded values of
+//     the stored rows and columns only, summed in the store loop (so only
+//     four sums live beside the accumulators) and reduced in the fixed
+//     order of moments.cuh into per-block partials.  No atomics: the same
+//     bits on every launch.
 // Simple first: no wgmma or TMA (later work).
 #pragma once
 
@@ -52,6 +61,7 @@
 #include <stdint.h>
 
 #include "mma.cuh"
+#include "moments.cuh"
 
 namespace {
 namespace cmma {
@@ -135,11 +145,13 @@ inline Plan make_plan(int cin, int cout, int stride, int dil) {
 
 // --- the kernel ------------------------------------------------------------
 
-template <int BN>
+// STATS: also the moments of the rounded y, per block, into partial (B,
+// gridDim.x, 2, Cout) (moments.cuh); otherwise partial is unused.
+template <int BN, bool STATS>
 __global__ void __launch_bounds__(kThreads, BN == 128 ? 1 : 2)
 conv_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
                 const float* __restrict__ bias, bf16* __restrict__ y,
-                const Geom g) {
+                float* __restrict__ partial, const Geom g) {
   using T = Tile<BN>;
   using nas3d::cp_async16_zfill;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -277,7 +289,10 @@ conv_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   }
 
   // epilogue: accumulator (mi, ni) holds rows lane/4 and lane/4 + 8 of its
-  // 16-row tile at columns 2*(lane%4) and +1 of its 8-column tile
+  // 16-row tile at columns 2*(lane%4) and +1 of its 8-column tile.  This
+  // thread's four rows: their output voxel in batch item b, or -1 past the
+  // volume's ragged edge (neither stored nor summed)
+  int vox[T::MI][2];
 #pragma unroll
   for (int mi = 0; mi < T::MI; ++mi)
 #pragma unroll
@@ -285,54 +300,100 @@ conv_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
       const int r = wm0 + mi * 16 + (lane >> 2) + hr * 8;
       const int od = od0 + r / (kBH * kBW), oh = oh0 + (r / kBW) % kBH;
       const int ow = ow0 + r % kBW;
-      if (od >= g.Do || oh >= g.Ho || ow >= g.Wo) continue;
-      bf16* yrow =
-          y + ((((size_t)b * g.Do + od) * g.Ho + oh) * g.Wo + ow) * g.Cout;
+      vox[mi][hr] = od < g.Do && oh < g.Ho && ow < g.Wo
+                        ? (od * g.Ho + oh) * g.Wo + ow : -1;
+    }
+  bf16* const yb = y + (size_t)b * g.Do * g.Ho * g.Wo * g.Cout;
+  // the stages are free once every warp has passed the loop's last
+  // __syncthreads: the moments' warp rows go there
+  float* const red = reinterpret_cast<float*>(smem);
 #pragma unroll
-      for (int ni = 0; ni < T::NI; ++ni) {
-        const int n = n0 + wn0 + ni * 8 + 2 * (lane & 3);
+  for (int ni = 0; ni < T::NI; ++ni) {
+    const int n = n0 + wn0 + ni * 8 + 2 * (lane & 3);
+    float b0 = 0.f, b1 = 0.f;
+    if (bias != nullptr) {
+      if (n < g.Cout) b0 = __ldg(bias + n);
+      if (n + 1 < g.Cout) b1 = __ldg(bias + n + 1);
+    }
+    float mom[4] = {0.f, 0.f, 0.f, 0.f};   // STATS: Σy, Σy² at n, n + 1
+#pragma unroll
+    for (int mi = 0; mi < T::MI; ++mi)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        if (vox[mi][hr] < 0) continue;
         float v0 = acc[mi][ni][2 * hr], v1 = acc[mi][ni][2 * hr + 1];
         if (bias != nullptr) {
-          if (n < g.Cout) v0 += __ldg(bias + n);
-          if (n + 1 < g.Cout) v1 += __ldg(bias + n + 1);
+          v0 += b0;
+          v1 += b1;
         }
         if (g.relu) {
           v0 = fmaxf(v0, 0.f);
           v1 = fmaxf(v1, 0.f);
         }
+        const __nv_bfloat162 r = __floats2bfloat162_rn(v0, v1);
+        bf16* yrow = yb + (size_t)vox[mi][hr] * g.Cout;
         if (n + 1 < g.Cout && (g.Cout & 1) == 0) {
-          *reinterpret_cast<__nv_bfloat162*>(yrow + n) =
-              __floats2bfloat162_rn(v0, v1);
+          *reinterpret_cast<__nv_bfloat162*>(yrow + n) = r;
         } else {
-          if (n < g.Cout) yrow[n] = __float2bfloat16_rn(v0);
-          if (n + 1 < g.Cout) yrow[n + 1] = __float2bfloat16_rn(v1);
+          if (n < g.Cout) yrow[n] = __low2bfloat16(r);
+          if (n + 1 < g.Cout) yrow[n + 1] = __high2bfloat16(r);
+        }
+        if constexpr (STATS) {
+          const float f0 = __low2float(r), f1 = __high2float(r);
+          if (n < g.Cout) {
+            mom[0] += f0;
+            mom[2] += f0 * f0;
+          }
+          if (n + 1 < g.Cout) {
+            mom[1] += f1;
+            mom[3] += f1 * f1;
+          }
         }
       }
-    }
+    if constexpr (STATS)
+      nas3d::moments_warp_put<BN>(red, warp / T::WN, wn0 + ni * 8, mom);
+  }
+  if constexpr (STATS) {
+    __syncthreads();
+    nas3d::moments_block_put<BN, T::WM>(
+        red, partial, (size_t)b * gridDim.x + blockIdx.x, n0, g.Cout);
+  }
 }
 
-template <int BN>
+// Blocks along blockIdx.x: the output bricks of one batch item (the row
+// count of K1's moments partials, conv3d.cu conv_mma_blocks)
+inline int grid_bricks(const Plan& p, int Do, int Ho, int Wo) {
+  return ((Do + p.bd - 1) / p.bd) * ((Ho + kBH - 1) / kBH) *
+         ((Wo + kBW - 1) / kBW);
+}
+
+template <int BN, bool STATS>
 int launch_bn(const bf16* x, const bf16* w, const float* bias, bf16* y,
-              const Geom& g, int B, size_t smem, cudaStream_t st) {
+              float* partial, const Geom& g, int B, int nblk, size_t smem,
+              cudaStream_t st) {
   const cudaError_t e = cudaFuncSetAttribute(
-      reinterpret_cast<const void*>(conv_mma_kernel<BN>),
+      reinterpret_cast<const void*>(conv_mma_kernel<BN, STATS>),
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  const int nbd = (g.Do + Tile<BN>::BD - 1) / Tile<BN>::BD;
-  const dim3 grid(nbd * g.nbh * g.nbw, (g.Cout + BN - 1) / BN, B);
-  conv_mma_kernel<BN><<<grid, kThreads, smem, st>>>(x, w, bias, y, g);
+  const dim3 grid(nblk, (g.Cout + BN - 1) / BN, B);
+  conv_mma_kernel<BN, STATS><<<grid, kThreads, smem, st>>>(x, w, bias, y,
+                                                           partial, g);
   return (int)cudaGetLastError();
 }
 
 // Launch: x (B, D, H, W, Cin), w (3, 3, 3, Cin, Cout), bias (Cout,) fp32
-// or null, y (B, ceil(D/stride), ceil(H/stride), ceil(W/stride), Cout); all
-// contiguous on the device of `st`.  Returns the launch's cudaError_t.
-inline int launch_conv_mma(const bf16* x, const bf16* w, const float* bias,
-                           bf16* y, int B, int D, int H, int W, int Cin,
-                           int Cout, int stride, int dil, int pd, int ph,
-                           int pw, int relu, cudaStream_t st) {
+// or null, y (B, ceil(D/stride), ceil(H/stride), ceil(W/stride), Cout);
+// STATS: partial (B, grid_bricks, 2, Cout) fp32 gets each block's moments
+// (otherwise unused, may be null); all contiguous on the device of `st`.
+// Returns the launch's cudaError_t.
+template <bool STATS>
+int launch_conv_mma(const bf16* x, const bf16* w, const float* bias, bf16* y,
+                    float* partial, int B, int D, int H, int W, int Cin,
+                    int Cout, int stride, int dil, int pd, int ph, int pw,
+                    int relu, cudaStream_t st) {
   if (B < 1 || D < 1 || H < 1 || W < 1 || Cin < 1 || Cout < 1 ||
-      stride < 1 || stride > 2 || dil < 1 || dil > 2)
+      stride < 1 || stride > 2 || dil < 1 || dil > 2 ||
+      (STATS && partial == nullptr))
     return (int)cudaErrorInvalidValue;
   Geom g{};
   g.D = D, g.H = H, g.W = W, g.Cin = Cin, g.Cout = Cout;
@@ -347,11 +408,20 @@ inline int launch_conv_mma(const bf16* x, const bf16* w, const float* bias,
   g.vec_w = Cout % 8 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
   g.relu = relu;
   if (p.smem > (size_t)kSmemMax) return (int)cudaErrorInvalidValue;
+  const int nblk = grid_bricks(p, g.Do, g.Ho, g.Wo);
   switch (p.bn) {
-    case 16: return launch_bn<16>(x, w, bias, y, g, B, p.smem, st);
-    case 32: return launch_bn<32>(x, w, bias, y, g, B, p.smem, st);
-    case 64: return launch_bn<64>(x, w, bias, y, g, B, p.smem, st);
-    default: return launch_bn<128>(x, w, bias, y, g, B, p.smem, st);
+    case 16:
+      return launch_bn<16, STATS>(x, w, bias, y, partial, g, B, nblk, p.smem,
+                                  st);
+    case 32:
+      return launch_bn<32, STATS>(x, w, bias, y, partial, g, B, nblk, p.smem,
+                                  st);
+    case 64:
+      return launch_bn<64, STATS>(x, w, bias, y, partial, g, B, nblk, p.smem,
+                                  st);
+    default:
+      return launch_bn<128, STATS>(x, w, bias, y, partial, g, B, nblk,
+                                   p.smem, st);
   }
 }
 

@@ -1,8 +1,14 @@
 // The implicit-GEMM kernel template behind the package's conv and GEMM
-// kernels on the FMA units (pgemm.cu: K1, K1-dx fp32, K2; conv3d.cu: K6
-// fp32, K7, K4), fp32 or bf16 elements with fp32 accumulation.  The bf16
-// 3^3 convs without moments (K1-dx, K6) run on the tensor cores instead
-// (conv_mma.cuh).
+// kernels on the FMA units, fp32 or bf16 elements with fp32 accumulation:
+// in fp32 (serving) K1, K1-dx and K2 (pgemm.cu) and K6, K7 and K4
+// (conv3d.cu); in bf16 (training) K7 and K4 only.  The other bf16 kernels
+// run on the tensor cores: the 3^3 convs K1, K1-dx and K6 on conv_mma.cuh,
+// K2 on gemm_mma.cuh.
+//
+// Replaces (nas_3d_unet_tpu/ops/pallas/): pgemm.py:174 conv_pgemm (K1,
+// with and without its moments: K1-dx) and :311 gemm_stats (K2) in fp32;
+// conv3d.py:201 conv3d (K6) in fp32, :279 pointwise_conv (K7) and :356
+// conv_transpose2x (K4) in both types.
 //
 // What bounds them on the H100: in fp32 the tensor cores (bf16/TF32) are
 // off limits and the ceiling is the 67 TFLOP/s of fp32 FMA against 3.35
@@ -11,9 +17,10 @@
 // fp32).  The GEMMs (K2, K7, K4) straddle the balance: a voxel row does
 // 2*K*N flops for (K+N)*4 bytes, 6 flop/B at 48->16 up to 38 at 192->128.
 // In bf16 the bound is the tensor cores' 989 TFLOP/s and half the bytes;
-// the bf16 users left on this template (K1 with its moments, K2, K7, K4)
-// still widen bf16 to fp32 and run the same FMA tiling, so they are far
-// from that bound: bf16 here halves the bytes moved, not the FMA count.
+// the bf16 users left on this template (K7, K4: bytes-bound GEMMs) still
+// widen bf16 to fp32 and run the same FMA tiling, so they are far from
+// that bound: bf16 here halves the bytes moved, not the FMA count
+// (gemm_mma.cuh's tensor-core tile is their next home).
 //
 // What the design does about it: one implicit-GEMM kernel for all,
 //   Y[m, n] = sum_k A[m, k] * Wt[k, n],  k = tap * Cin + ci,
@@ -33,9 +40,9 @@
 // K2's code is not burdened by K6's: the gather (stride 1 with pad = dil,
 // or any stride with lax's low-side pads), the store (rows, or the 2^3
 // output block of each voxel for K4), the moments, and a bias/ReLU step.
-// Simple first: no cp.async/TMA, no tensor cores (conv_mma.cuh has them
-// for the bf16 convs without moments; K1's moments epilogue on its MMA
-// accumulators is next).
+// Simple first: no cp.async/TMA, no tensor cores (conv_mma.cuh and
+// gemm_mma.cuh have them for bf16; the fp32 path is held to TF32-off
+// numbers, so it stays on the FMA units).
 #pragma once
 
 #include <cuda_runtime.h>

@@ -1,8 +1,8 @@
 // The tensor-core building blocks shared by the bf16 MMA kernels
-// (conv_mma.cuh, probes.cu): cp.async 16-byte copies into shared memory,
-// ldmatrix, and mma.sync m16n8k16 with bf16 operands and fp32
-// accumulators (sm_80 and later; Hopper runs them at a fraction of its
-// wgmma rate).
+// (conv_mma.cuh, gemm_mma.cuh, probes.cu): cp.async 16-byte copies into
+// shared memory, ldmatrix, and mma.sync m16n8k16 with bf16 operands and
+// fp32 accumulators (sm_80 and later; Hopper runs them at a fraction of
+// its wgmma rate).
 #pragma once
 
 #include <cuda_bf16.h>

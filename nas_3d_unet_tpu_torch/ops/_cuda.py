@@ -53,6 +53,10 @@ def lib() -> ctypes.CDLL:
             getattr(lib_, fn).restype = I
         lib_.conv_mma_plan.argtypes = [I] * 4 + [ctypes.POINTER(I)]
         lib_.conv_mma_plan.restype = I
+        lib_.conv_mma_blocks.argtypes = [I] * 6
+        lib_.conv_mma_blocks.restype = I
+        lib_.gemm_mma_plan.argtypes = [I, I, ctypes.POINTER(I)]
+        lib_.gemm_mma_plan.restype = I
         for fn, (n_ptr, n_int) in _SIGNATURES.items():
             getattr(lib_, fn).argtypes = [P] * n_ptr + [I] * n_int + [P]
             getattr(lib_, fn).restype = I

@@ -1,11 +1,13 @@
-"""The plan of the bf16 tensor-core conv behind K1-dx and K6 in bf16
+"""The plan of the bf16 tensor-core conv behind K1, K1-dx and K6 in bf16
 (`csrc/conv_mma.cuh`), and that kernel's algorithm in plain PyTorch.
 
-The kernel (launched by `pgemm.conv3x3x3` and `conv3d.conv3d` on bf16 CUDA
-tensors) gives each block a brick of output voxels and a slice of output
-channels, stages the brick's input halo once per 16-channel chunk for all
-27 taps, and sums one K = 16 product per tap read at each output voxel's
-shifted halo position.  Its host side picks the tile from the shapes:
+The kernel (launched by `pgemm.conv3x3x3_stats`, `pgemm.conv3x3x3` and
+`conv3d.conv3d` on bf16 CUDA tensors) gives each block a brick of output
+voxels and a slice of output channels, stages the brick's input halo once
+per 16-channel chunk for all 27 taps, and sums one K = 16 product per tap
+read at each output voxel's shifted halo position; for K1 its epilogue
+also sums the moments of the rounded y per block.  Its host side picks the
+tile from the shapes:
 
   `plan(cin, cout, stride, dilation)`  the block's output channels BN, its
       output brick (BD, 8, 8), the halo brick, the 16-channel chunks, the
@@ -13,12 +15,18 @@ shifted halo position.  Its host side picks the tile from the shapes:
       function `conv_mma_plan` returns the same numbers (chip_smoke.py holds
       the two equal on the card).
   `bricks(out_shape, p)`  each block's output corner, in block order.
-  `shifted_gemm_conv(x, w, b, stride, dilation, pads, relu)`  the kernel's
-      algorithm on the CPU in fp32: per brick and chunk the zero-filled halo
-      brick, per tap the (BM, 16) @ (16, Cout) product of the rows at the
-      shifted halo positions, then bias, ReLU, one rounding and the masked
-      store.  No path runs it; the tests hold it against the twins and the
-      JAX functions, which checks the kernel's indexing where no card is.
+  `shifted_gemm_conv(x, w, b, stride, dilation, pads, relu, stats)`  the
+      kernel's algorithm on the CPU in fp32: per brick and chunk the
+      zero-filled halo brick, per tap the (BM, 16) @ (16, Cout) product of
+      the rows at the shifted halo positions, then bias, ReLU, one rounding
+      and the masked store; with `stats` also the per-block moments
+      partials (`block_moments`) in block order.  No path runs it; the
+      tests hold it against the twins and the JAX functions, which checks
+      the kernel's indexing where no card is.
+  `block_moments(y, keep, mi)`  the moments epilogue of `csrc/moments.cuh`
+      (shared with the tensor-core GEMM, `ops/gemm_mma.py`): one block's
+      column sums of y and y² over the rows it keeps, in the kernel's fixed
+      order.
 """
 
 from __future__ import annotations
@@ -95,14 +103,41 @@ def bricks(out_shape, p: Plan):
                (i // n[2]) % n[1] * p.brick[1], i % n[2] * p.brick[2])
 
 
+def block_moments(y: torch.Tensor, keep: torch.Tensor,
+                  mi: int) -> torch.Tensor:
+    """(2, C) fp32 (Σy, Σy²) of one block's rows y (BM, C) (the rounded
+    values, as fp32) where `keep` (BM,), in `csrc/moments.cuh`'s order.
+    Row r = ((wm·mi + i)·2 + hr)·8 + g belongs to warp wm (along M), MMA
+    tile i < mi, half hr and row group g = lane / 4: each thread sums its
+    rows in (i, hr) order, the eight row groups are summed by the xor-4,
+    -8, -16 butterfly, then the warps in order."""
+    bm, c = y.shape
+    v = torch.where(keep[:, None], y.float(), 0.0)
+    out = []
+    for t in (v, v * v):        # y² of a bf16 y is exact in fp32
+        t = t.view(bm // (mi * 16), mi * 2, 8, c)
+        acc = torch.zeros((t.shape[0], 8, c))
+        for j in range(mi * 2):                       # this thread's rows
+            acc = acc + t[:, j]
+        for _ in range(3):                            # xor 4, 8, 16
+            acc = acc[:, 0::2] + acc[:, 1::2]
+        total = torch.zeros(c)
+        for wm in range(acc.shape[0]):                # the warps, in order
+            total = total + acc[wm, 0]
+        out.append(total)
+    return torch.stack(out)
+
+
 def shifted_gemm_conv(x: torch.Tensor, w: torch.Tensor,
                       b: torch.Tensor | None = None, stride: int = 1,
-                      dilation: int = 1, pads=None,
-                      relu: bool = False) -> torch.Tensor:
+                      dilation: int = 1, pads=None, relu: bool = False,
+                      stats: bool = False):
     """The kernel's algorithm: x (B, D, H, W, Cin), w (3, 3, 3, Cin, Cout),
     b (Cout,) or None, `pads` the low-side pads (D, H, W) (default: the
     dilation, the stride-1 SAME pad) → y (B, ⌈D/s⌉, ⌈H/s⌉, ⌈W/s⌉, Cout)
-    in x's dtype, summed in fp32 chunk by chunk, tap by tap."""
+    in x's dtype, summed in fp32 chunk by chunk, tap by tap.  `stats`:
+    (y, partial), partial (B, bricks, 2, Cout) fp32 each block's moments
+    of its rounded y inside the volume, in block order."""
     bsz, *vol, cin = x.shape
     cout = w.shape[4]
     p = plan(cin, cout, stride, dilation)
@@ -117,8 +152,10 @@ def shifted_gemm_conv(x: torch.Tensor, w: torch.Tensor,
     toff = [dilation * ((kd * hh + kh) * hw + kw)
             for kd, kh, kw in itertools.product(range(3), repeat=3)]
     y = torch.zeros((bsz, *out, cout))
+    corners = list(bricks(out, p))
+    partial = torch.zeros((bsz, len(corners), 2, cout))
     for n in range(bsz):
-        for corner in bricks(out, p):
+        for i, corner in enumerate(corners):
             i0 = [o * stride - pd for o, pd in zip(corner, pads)]
             # the in-volume part of the halo: [lo, hi) of x, from lo - i0
             lo = [max(i, 0) for i in i0]
@@ -143,5 +180,9 @@ def shifted_gemm_conv(x: torch.Tensor, w: torch.Tensor,
                 acc = acc.relu()
             od, oh, ow = (rd + corner[0], rh + corner[1], rw + corner[2])
             keep = (od < out[0]) & (oh < out[1]) & (ow < out[2])
+            acc = acc.to(x.dtype).float()                 # one rounding
             y[n, od[keep], oh[keep], ow[keep]] = acc[keep]
-    return y.to(x.dtype)
+            if stats:
+                partial[n, i] = block_moments(acc, keep, 2)
+    y = y.to(x.dtype)
+    return (y, partial) if stats else y

@@ -3,19 +3,26 @@
 (`ops/packed.py` `_pg_stats_fn`, `_gemm_stats_fn`).
 
 Kernels (`csrc/pgemm.cu`), each in fp32 or bf16 with fp32 accumulation,
-each with its plain PyTorch twin:
+each with its plain PyTorch twin.  fp32 (serving) runs the FMA tile
+(`csrc/igemm.cuh`); bf16 (training) runs on the tensor cores:
 
   K1 `conv3x3x3_stats(x, w, dilation)`: stride-1 3³ SAME conv on NDHWC with
-     a DHWIO kernel plus the moments (replaces `conv_pgemm`);
+     a DHWIO kernel plus the moments (replaces `conv_pgemm`); bf16 on the
+     tensor-core conv with its moments epilogue (`csrc/conv_mma.cuh`, plan
+     and algorithm mirrored by `ops/conv_mma.py`);
   K1-dx `conv3x3x3(x, w, dilation)`: the same conv without the moments,
      which K1's backward runs for dx (`conv_pgemm(..., with_stats=False)`);
-     in bf16 on the tensor cores (`csrc/conv_mma.cuh`, `ops/conv_mma.py`);
+     bf16 on the same tensor-core conv;
   K2 `gemm_stats(x3, w)`: `y = x3 @ w` over voxel rows, the 1³ conv, plus
-     the moments (replaces `gemm_stats`).
+     the moments (replaces `gemm_stats`); bf16 on the tensor-core GEMM
+     (`csrc/gemm_mma.cuh`, mirrored by `ops/gemm_mma.py`).
 
 K1 and K2 return `(y, s1, s2)`: y in the input's dtype, `s1 = Σy` and
 `s2 = Σy²` per (batch, channel) over all voxels in fp32, taken of the
-rounded y.  The JAX kernels work on the W-packed layout and return packed
+rounded y.  Each kernel writes per-block partial sums in a fixed order
+(`(B, blocks, 2, C)`, sized from the library's own plan of the launch), and
+one more kernel folds them in double: no atomics, the same bits on every
+launch.  The JAX kernels work on the W-packed layout and return packed
 moments `(B, r·C)`; these take logical tensors and return the moments
 already folded to `(B, C)`.
 
@@ -31,10 +38,13 @@ Gradients (autograd Functions, as the reference's custom VJPs):
 
 Dispatch: a CPU tensor takes the twin (the Functions then run the twin
 forward and the twin conv for dx); a CUDA tensor launches the kernel or
-raises.  There is no fallback from one to the other.
+raises (a bf16 shape the tensor-core kernels refuse raises too: it does not
+go back to the FMA tile).  There is no fallback from one to the other.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 import torch.nn.functional as F
@@ -71,6 +81,19 @@ def _check_conv(name: str, x: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"{name}: dilation {dilation}")
 
 
+def _k1_blocks(t: str, cin: int, cout: int, dilation: int, d: int, h: int,
+               wd: int) -> int:
+    """Blocks per batch item of K1's kernel, which write one row of moments
+    partials each: the tensor-core conv's bricks (bf16) or the FMA tile's
+    row blocks (fp32), as the library computes them."""
+    if t == "bf16":
+        n = _cuda.lib().conv_mma_blocks(cin, cout, dilation, d, h, wd)
+        if n < 1:
+            raise ValueError(f"conv3x3x3_stats: no plan for {(cin, cout)}")
+        return n
+    return -(-(d * h * wd) // _cuda.lib().pgemm_row_block(cout))
+
+
 def _k1(x: torch.Tensor, w: torch.Tensor, dilation: int, with_stats: bool):
     """One K1 (with_stats) or K1-dx launch, or its twin on the CPU."""
     name = "conv3x3x3_stats" if with_stats else "conv3x3x3"
@@ -85,8 +108,8 @@ def _k1(x: torch.Tensor, w: torch.Tensor, dilation: int, with_stats: bool):
         raise ValueError(f"{name}: volume {(d, h, wd)} too large")
     y = torch.empty((b, d, h, wd, cout), dtype=x.dtype, device=x.device)
     if with_stats:
-        nblk = -(-(d * h * wd) // _cuda.lib().pgemm_row_block(cout))
-        partial = torch.empty((b, nblk, 2, cout), dtype=torch.float32,
+        partial = torch.empty((b, _k1_blocks(t, cin, cout, dilation, d, h, wd),
+                               2, cout), dtype=torch.float32,
                               device=x.device)
         s1 = torch.empty((b, cout), dtype=torch.float32, device=x.device)
         s2 = torch.empty_like(s1)
@@ -162,7 +185,14 @@ def _k2(x3: torch.Tensor, w: torch.Tensor):
     t = _cuda.check("gemm_stats", x3, w)
     b, v, k = x3.shape
     n = w.shape[1]
-    nblk = -(-v // _cuda.lib().pgemm_row_block(n))
+    if t == "bf16":     # the tensor-core GEMM's rows per block
+        plan = (ctypes.c_int * 4)()
+        if _cuda.lib().gemm_mma_plan(k, n, plan):
+            raise ValueError(f"gemm_stats: no plan for {(k, n)}")
+        rows = plan[1]
+    else:
+        rows = _cuda.lib().pgemm_row_block(n)
+    nblk = -(-v // rows)
     y = torch.empty((b, v, n), dtype=x3.dtype, device=x3.device)
     partial = torch.empty((b, nblk, 2, n), dtype=torch.float32,
                           device=x3.device)

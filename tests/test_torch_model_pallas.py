@@ -13,9 +13,11 @@ affines, inputs from a numpy seed.
   * One fp32 train step (loss, every parameter after AdamW) and every
     gradient leaf against JAX's `make_train_step` / `jax.grad` on the
     `packed=False, use_pallas=False` net, rtol 1e-4 / atol 1e-5 as
-    test_torch_train.py, at its base 4: at base 8 the gradients of a few
-    conv kernels of either port path (default or `use_pallas`) sit up to
-    8e-5 from JAX's.  `jax.grad` through the `use_pallas` net itself
+    test_torch_train.py, at its base 4: at base 8 one ReLU mask is
+    decided by fp32 rounding and the gradients of a few conv kernels sit
+    up to 8e-5 from JAX's fp32 ones (test_torch_grad_base8.py holds both
+    port paths at base 8 against JAX in float64).  `jax.grad` through the
+    `use_pallas` net itself
     fails in interpret mode: the interpret callbacks carry effects, which
     `nn.remat` (around every cell) cannot partial-evaluate.  That net's
     convs and GroupNorms are the kernels' own plain references
