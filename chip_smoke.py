@@ -48,8 +48,16 @@ Phases, each printed as JSON lines:
      fp32 at batch 2 and in bf16 at batch 1, plus off the path a
      dilation-2 and a bias+ReLU case, the ragged volume at stride 1 and
      2, Cin 4 -> Cout 12 at stride 1 and at stride 2 with dilation 2, and
-     stride 2 with dilation 2; K7 pointwise_conv (and one bias+ReLU
-     case); K4 conv_transpose2x (and one ReLU case);
+     stride 2 with dilation 2; K7 pointwise_conv (bf16 on the tensor
+     cores; also off the path at the ragged volume, K 12 -> N 7 (the
+     scalar copies), and bias+ReLU with a bias of scale 0.5 and one of
+     scale 37, whose bf16 rounding matters); K4 conv_transpose2x (bf16 on
+     the tensor cores, depth-to-space store; also off the path at the
+     ragged volume at 16 -> 16, 16 -> 24 (N = 192 > 128) with ReLU and
+     12 -> 5 (scalar), and 64 -> 64 with ReLU); K7's and K4's records
+     also hold their device ms (`device_ms`: the calls queued behind a
+     spin kernel, so the host's time is hidden; the call's `ms` holds
+     both), summed per unit in the line "pallas_device_split";
      K3's apply (fp32 and bf16) and dx (bf16); K5b masked by y > 0 (K3's
      backward sums, bf16); K5a at the configuration's own geometries.
   8. pallas_slice: phase 4 with `DerivedNet(use_pallas=True)` (edge convs
@@ -69,13 +77,14 @@ Phases, each printed as JSON lines:
      probes' entry points (`main()`), with the launch counts read.
  11. sass: the kernels K1, K1-dx and K6 in bf16 launch (read from a
      `torch.profiler` trace) are the tensor-core conv's
-     (`conv_mma_kernel`), K2 bf16's the tensor-core GEMM's
-     (`gemm_mma_kernel`), each instantiation of both with HMMA in its
-     SASS; K1 and K2 in fp32 and the fp32 convs launch the FMA template
-     (`gemm_moments_kernel`), none of whose instantiations has any; the
-     conv's tile plan and brick count equal `ops/conv_mma.py`'s mirror at
-     every K1, K1-dx and K6 geometry checked, the GEMM's plan
-     `ops/gemm_mma.py`'s at every K2 geometry.
+     (`conv_mma_kernel`), K2's, K7's and K4's in bf16 the tensor-core
+     GEMM's (`gemm_mma_kernel`), each instantiation of both with HMMA in
+     its SASS; K1, K2, K7, K4 in fp32 and the fp32 convs launch the FMA
+     template (`gemm_moments_kernel`), none of whose instantiations has
+     any and none of which is bf16; the conv's tile plan and brick count
+     equal `ops/conv_mma.py`'s mirror at every K1, K1-dx and K6 geometry
+     checked, the GEMM's plan `ops/gemm_mma.py`'s at every K2, K7 and K4
+     geometry.
 Then the nvidia-smi line, the kernels summary line and, last,
 `{"ok": true, "device": {...}}`.  In the kernels line a serving kernel's
 `ms`, `plain_ms`, `library_ms` and `bound_ms` are one flagship forward's
@@ -117,7 +126,7 @@ SRC_CONV = "nas_3d_unet_tpu_torch/csrc/conv3d.cu"
 SRC_GN = "nas_3d_unet_tpu_torch/csrc/groupnorm.cu"
 SRC_PROBES = "nas_3d_unet_tpu_torch/csrc/probes.cu"
 SRC_MMA = "nas_3d_unet_tpu_torch/csrc/conv_mma.cuh"   # in pgemm.cu, conv3d.cu
-SRC_GMMA = "nas_3d_unet_tpu_torch/csrc/gemm_mma.cuh"  # in pgemm.cu
+SRC_GMMA = "nas_3d_unet_tpu_torch/csrc/gemm_mma.cuh"  # in pgemm.cu, conv3d.cu
 PG_VARIANTS = ("nodot", "c6", "full", "mt4", "fold1536")
 SOURCES = {"moments": SRC_STATS, "weighted_sums": SRC_STATS,
            "weighted_sums_masked": SRC_STATS, "group_norm_apply": SRC_GN,
@@ -126,7 +135,8 @@ SOURCES = {"moments": SRC_STATS, "weighted_sums": SRC_STATS,
            "copy_rows": SRC_PROBES,
            **{f"pg_{v}": SRC_PROBES for v in PG_VARIANTS},
            "conv3x3x3_bf16": SRC_MMA, "conv3d_bf16": SRC_MMA,
-           "conv3x3x3_stats_bf16": SRC_MMA, "gemm_stats_bf16": SRC_GMMA}
+           "conv3x3x3_stats_bf16": SRC_MMA, "gemm_stats_bf16": SRC_GMMA,
+           "pointwise_conv_bf16": SRC_GMMA, "conv_transpose2x_bf16": SRC_GMMA}
 # the rest: SRC_PGEMM (by kernel name, else by its name without the dtype)
 REPLACES = {
     "conv3x3x3_stats": "nas_3d_unet_tpu/ops/pallas/pgemm.py:174",  # conv_pgemm
@@ -208,6 +218,15 @@ P_K6_EXTRA = [(32, 32, RAGGED, 1, 1, 0), (32, 32, RAGGED, 2, 1, 0),
 # K7: (C, volume edge, launches); K4: (C, input edge, launches)
 P_K7 = [(32, 64, 3), (64, 32, 3), (128, 16, 1), (16, 128, 2)]
 P_K4 = [(64, 16, 1), (32, 32, 1), (16, 64, 1)]
+# off the path.  K7: (Cin, Cout, volume, bias scale or None: with a bias,
+# also ReLU), the ragged volume, K 12 -> N 7 (scalar copies) and biases
+# whose bf16 rounding matters (scale 37: a bf16 ulp of 0.25 against y of
+# scale 1).  K4: (Cin, Cout, input volume, ReLU), the ragged volume, Cout
+# 24 (N = 192: two column blocks), Cin 12 -> Cout 5 (scalar copies)
+P_K7_EXTRA = [(32, 32, RAGGED, None), (12, 7, RAGGED, None),
+              (32, 32, 64, 0.5), (32, 32, 32, 37.0)]
+P_K4_EXTRA = [(16, 16, RAGGED, False), (16, 24, RAGGED, True),
+              (12, 5, RAGGED, False), (64, 64, 16, True)]
 # K3: (C, volume edge, GroupNorms): the 33 edge ops' and the 13 of the stem
 # and the 1³ projections (on K1/K2/cuDNN moments); each is one apply
 # forward, one masked K5b and one dx backward
@@ -311,6 +330,29 @@ def _timings(kernel, twin, library, args):
             "plain_ms": cuda_ms(twin, *args, iters=5, warmup=1),
             "library_ms": (cuda_ms(library, *args, iters=5, warmup=1)
                            if library else None)}
+
+
+def device_ms(fn, args, iters=20, spin_cycles=20_000_000):
+    """ms of device time per call of `fn` (all the kernels it launches):
+    the calls are queued behind a spin kernel (`torch.cuda._sleep`, ~10 ms
+    at the H100's clock) that outlasts their launch on the host, so the
+    events around them time the device alone, where the call's `ms` also
+    holds the host's time.  Raises if the device caught up with the host
+    (the spin too short to hide it)."""
+    fn(*args)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(spin_cycles)
+    start.record()
+    for _ in range(iters):
+        fn(*args)
+    end.record()
+    ahead = not start.query()       # still spinning: the host was ahead
+    torch.cuda.synchronize()
+    if not ahead:
+        raise AssertionError("device_ms: the host did not stay ahead")
+    return start.elapsed_time(end) / iters
 
 
 def _conv_library(x, w, dilation=1):
@@ -523,16 +565,18 @@ def check_conv3d(dev, gen, cin, cout, v, stride, dil, batch, dtype,
     return rec
 
 
-def check_pointwise(dev, gen, c, v, batch, dtype, bias_relu=False):
-    """K7 against its twin at one geometry (C -> C, as the flagship's)."""
+def check_pointwise(dev, gen, cin, cout, v, batch, dtype, bias_scale=None):
+    """K7 against its twin at one geometry; with a bias (of `bias_scale`)
+    also the ReLU."""
     from nas_3d_unet_tpu_torch.ops import conv3d
 
-    x = torch.randn((batch, v, v, v, c), generator=gen, device=dev).to(dtype)
-    w = (torch.randn((c, c), generator=gen, device=dev)
-         * c ** -0.5).to(dtype)
-    b = (torch.randn((c,), generator=gen, device=dev) * 0.5
-         if bias_relu else None)
-    args = (x, w, b, bias_relu)
+    x = torch.randn((batch, *_volume(v), cin), generator=gen,
+                    device=dev).to(dtype)
+    w = (torch.randn((cin, cout), generator=gen, device=dev)
+         * cin ** -0.5).to(dtype)
+    b = (torch.randn((cout,), generator=gen, device=dev) * bias_scale
+         if bias_scale else None)
+    args = (x, w, b, b is not None)
 
     def library(x, w, *_):
         return torch.matmul(x, w)
@@ -543,23 +587,27 @@ def check_pointwise(dev, gen, c, v, batch, dtype, bias_relu=False):
         rep = _repeatable(conv3d.pointwise_conv, args, yk)
         times = _timings(conv3d.pointwise_conv, conv3d.pointwise_conv_twin,
                          library, args)
+        times["device_ms"] = device_ms(conv3d.pointwise_conv, args)
     torch.cuda.synchronize()
-    rows = batch * v ** 3
-    rec = {"c": c, "volume": v, "batch": batch, "bias_relu": bias_relu,
-           "bitwise_repeatable": rep, **_y_check(yk, yt), **times}
+    rows = batch * math.prod(_volume(v))
+    rec = {"cin": cin, "cout": cout, "volume": v, "batch": batch,
+           "bias_scale": bias_scale, "bitwise_repeatable": rep,
+           **_y_check(yk, yt), **times}
     rec["bound_ms"], rec["bound_by"] = bound_ms(
-        (2 * rows * c + c * c) * x.element_size(), 2.0 * rows * c * c, dtype)
+        (rows * (cin + cout) + cin * cout) * x.element_size(),
+        2.0 * rows * cin * cout, dtype)
     rec["ok"] = rec["y_ok"] and rep
     return rec
 
 
-def check_transpose(dev, gen, c, v, batch, dtype, relu=False):
-    """K4 against its twin at one geometry (C -> C, input edge v)."""
+def check_transpose(dev, gen, cin, cout, v, batch, dtype, relu=False):
+    """K4 against its twin at one geometry (input volume v)."""
     from nas_3d_unet_tpu_torch.ops import conv3d
 
-    x = torch.randn((batch, v, v, v, c), generator=gen, device=dev).to(dtype)
-    w = (torch.randn((2, 2, 2, c, c), generator=gen, device=dev)
-         * c ** -0.5).to(dtype)
+    x = torch.randn((batch, *_volume(v), cin), generator=gen,
+                    device=dev).to(dtype)
+    w = (torch.randn((2, 2, 2, cin, cout), generator=gen, device=dev)
+         * cin ** -0.5).to(dtype)
     args = (x, w, relu)
 
     def library(x, w, _relu):
@@ -572,13 +620,15 @@ def check_transpose(dev, gen, c, v, batch, dtype, relu=False):
         rep = _repeatable(conv3d.conv_transpose2x, args, yk)
         times = _timings(conv3d.conv_transpose2x,
                          conv3d.conv_transpose2x_twin, library, args)
+        times["device_ms"] = device_ms(conv3d.conv_transpose2x, args)
     torch.cuda.synchronize()
-    rows = batch * v ** 3
-    rec = {"c": c, "volume": v, "batch": batch, "relu": relu,
-           "bitwise_repeatable": rep, **_y_check(yk, yt), **times}
+    rows = batch * math.prod(_volume(v))
+    rec = {"cin": cin, "cout": cout, "volume": v, "batch": batch,
+           "relu": relu, "bitwise_repeatable": rep, **_y_check(yk, yt),
+           **times}
     rec["bound_ms"], rec["bound_by"] = bound_ms(
-        (rows * 9 * c + 8 * c * c) * x.element_size(),
-        2.0 * rows * c * 8 * c, dtype)
+        (rows * (cin + 8 * cout) + 8 * cin * cout) * x.element_size(),
+        2.0 * rows * cin * 8 * cout, dtype)
     rec["ok"] = rec["y_ok"] and rep
     return rec
 
@@ -648,6 +698,7 @@ class Summary:
             lambda: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
                      "bound_ms": 0.0, "bound_by": collections.Counter(),
                      "max_abs_err": 0.0})
+        self.device = collections.Counter()     # device_ms, per unit
 
     def add(self, name, rec, per_unit):
         row = self.rows[name]
@@ -660,11 +711,20 @@ class Summary:
         row["bound_by"][rec["bound_by"]] += per_unit * rec["bound_ms"]
         row["max_abs_err"] = max(row["max_abs_err"],
                                  rec.get("y_max_abs", rec.get("max_abs_err")))
+        if "device_ms" in rec:
+            self.device[name] += per_unit * rec["device_ms"]
 
     def entry(self, name):
         row = dict(self.rows[name])
         row["bound_by"] = row["bound_by"].most_common(1)[0][0]
         return row
+
+    def split(self, name):
+        """A kernel's call ms (host and device) beside its device ms, and
+        the bound and library ms, per unit."""
+        row = self.rows[name]
+        return {"ms": row["ms"], "device_ms": self.device[name],
+                "bound_ms": row["bound_ms"], "library_ms": row["library_ms"]}
 
 
 def _run_check(phase, kernel, fn, summary, per_unit, *args):
@@ -725,16 +785,20 @@ def phase_pallas_kernels(dev, gen, summary):
                    dev, gen, *P_K6_BIAS_RELU, batch, dtype, True)
         for c, v, n in P_K7:
             _run_check("pallas_kernel", f"pointwise_conv_{t}",
-                       check_pointwise, summary, per * n, dev, gen, c, v,
+                       check_pointwise, summary, per * n, dev, gen, c, c, v,
                        batch, dtype)
-        _run_check("pallas_kernel", f"pointwise_conv_{t}", check_pointwise,
-                   summary, 0, dev, gen, *P_K7[0][:2], batch, dtype, True)
+        for cin, cout, v, scale in P_K7_EXTRA:
+            _run_check("pallas_kernel", f"pointwise_conv_{t}",
+                       check_pointwise, summary, 0, dev, gen, cin, cout, v,
+                       batch, dtype, scale)
         for c, v, n in P_K4:
             _run_check("pallas_kernel", f"conv_transpose2x_{t}",
-                       check_transpose, summary, per * n, dev, gen, c, v,
+                       check_transpose, summary, per * n, dev, gen, c, c, v,
                        batch, dtype)
-        _run_check("pallas_kernel", f"conv_transpose2x_{t}", check_transpose,
-                   summary, 0, dev, gen, *P_K4[0][:2], batch, dtype, True)
+        for cin, cout, v, relu in P_K4_EXTRA:
+            _run_check("pallas_kernel", f"conv_transpose2x_{t}",
+                       check_transpose, summary, 0, dev, gen, cin, cout, v,
+                       batch, dtype, relu)
         for c, v, n in P_K3:
             _run_check("pallas_kernel", f"group_norm_apply_{t}", check_gn,
                        summary, per * n, dev, gen, "group_norm_apply", c, v,
@@ -747,6 +811,10 @@ def phase_pallas_kernels(dev, gen, summary):
                          ("weighted_sums_masked", check_stats)):
             _run_check("pallas_kernel", f"{name}_bf16", fn, summary, 2 * n,
                        dev, gen, name, c, v, MICRO, bf16)
+    emit({"phase": "pallas_device_split", **{
+        n: summary.split(n) for n in
+        [f"{k}_{t}" for k in ("pointwise_conv", "conv_transpose2x")
+         for t in ("f32", "bf16")]}})
 
 
 # the kernels that run in a forward; the rest run in the backward
@@ -1307,8 +1375,8 @@ def kernels_launched(fn, *args):
 
 
 # (kernel, device kernel it must launch, call): the tensor-core conv behind
-# K1, K1-dx and K6 in bf16, the tensor-core GEMM behind K2 bf16, the FMA
-# template behind K1, K2 and the convs in fp32
+# K1, K1-dx and K6 in bf16, the tensor-core GEMM behind K2, K7 and K4 in
+# bf16, the FMA template behind K1, K2 and the convs in fp32
 MMA, GMMA, FMA = "conv_mma_kernel", "gemm_mma_kernel", "gemm_moments_kernel"
 
 
@@ -1320,9 +1388,20 @@ def _sass_calls(dev, gen):
 
     x, w = rand(1, 16, 16, 16, 32), rand(3, 3, 3, 32, 32) * 0.06
     x3, w2 = x.view(1, -1, 32), rand(32, 16) * 0.2
+    w4 = rand(2, 2, 2, 32, 16) * 0.2
     xf, wf, x3f, w2f = x.float(), w.float(), x3.float(), w2.float()
     bias = torch.randn((32,), generator=gen, device=dev)
-    return [("conv3x3x3_bf16", MMA, pgemm.conv3x3x3, (x, w, 1)),
+    return [("pointwise_conv_bf16", GMMA, conv3d.pointwise_conv,
+             (x, w2, None, False)),
+            ("pointwise_conv_bf16", GMMA, conv3d.pointwise_conv,
+             (x, w2, bias[:16], True)),
+            ("conv_transpose2x_bf16", GMMA, conv3d.conv_transpose2x,
+             (x, w4, True)),
+            ("pointwise_conv_f32", FMA, conv3d.pointwise_conv,
+             (xf, w2f, bias[:16], True)),
+            ("conv_transpose2x_f32", FMA, conv3d.conv_transpose2x,
+             (xf, w4.float(), False)),
+("conv3x3x3_bf16", MMA, pgemm.conv3x3x3, (x, w, 1)),
             ("conv3d_bf16", MMA, conv3d.conv3d, (x, w, None, 1, 1, False)),
             ("conv3d_bf16", MMA, conv3d.conv3d, (x, w, bias, 2, 2, True)),
             ("conv3x3x3_stats_bf16", MMA, pgemm.conv3x3x3_stats, (x, w, 1)),
@@ -1338,8 +1417,9 @@ def plans_agree():
     mirrors: the conv's (`conv_mma_plan`, and `conv_mma_blocks`, which
     sizes K1's moments partials) against `ops/conv_mma.py` at every K1,
     K1-dx and K6 geometry checked, the GEMM's (`gemm_mma_plan`) against
-    `ops/gemm_mma.py` at every K2 geometry: {geometry: (library, mirror)}
-    where they differ."""
+    `ops/gemm_mma.py` at every K2 (moments), K7 and K4 (depth-to-space, N
+    = 8·Cout) geometry: {geometry: (library, mirror)} where they
+    differ."""
     import ctypes
 
     from nas_3d_unet_tpu_torch.ops import _cuda, conv_mma, gemm_mma
@@ -1363,29 +1443,36 @@ def plans_agree():
         want = len(list(conv_mma.bricks(vol, conv_mma.plan(ci, co, 1, d))))
         if got != want:
             bad[str(("blocks", ci, co, d, vol))] = (got, want)
-    for k, n, _, _ in K2_TRAIN + K2_EXTRA:
+    gemms = {(k, n, 1, 0) for k, n, _, _ in K2_TRAIN + K2_EXTRA}
+    gemms |= {(c, c, 0, 0) for c, _, _ in P_K7}
+    gemms |= {(ci, co, 0, 0) for ci, co, _, _ in P_K7_EXTRA}
+    gemms |= {(c, 8 * c, 0, 1) for c, _, _ in P_K4}
+    gemms |= {(ci, 8 * co, 0, 1) for ci, co, _, _ in P_K4_EXTRA}
+    for g in sorted(gemms):
         out = (ctypes.c_int * 4)()
-        if lib.gemm_mma_plan(k, n, out):
-            raise AssertionError(f"gemm_mma_plan refused {(k, n)}")
-        p = gemm_mma.plan(k, n)
+        if lib.gemm_mma_plan(*g, out):
+            raise AssertionError(f"gemm_mma_plan refused {g}")
+        p = gemm_mma.plan(g[0], g[1], bool(g[2]), bool(g[3]))
         mirror = [p.bn, p.rows, p.nchunks, p.smem]
         if list(out) != mirror:
-            bad[str(("gemm", k, n))] = (list(out), mirror)
+            bad[str(("gemm", *g))] = (list(out), mirror)
     return bad
 
 
 def phase_sass(dev, gen, functions):
-    """The bf16 convs (K1, K1-dx, K6) and K2 bf16 on the tensor cores: the
-    kernels their wrappers launch are conv_mma_kernel or gemm_mma_kernel
-    instantiations, each with HMMA in its SASS; K1, K2 and the convs in
-    fp32 launch the FMA template (gemm_moments_kernel), with none in any
-    instantiation.  And the kernels' plans are the ones `ops/conv_mma.py`
-    and `ops/gemm_mma.py` mirror."""
+    """The bf16 convs (K1, K1-dx, K6) and GEMMs (K2, K7, K4) on the tensor
+    cores: the kernels their wrappers launch are conv_mma_kernel or
+    gemm_mma_kernel instantiations, each with HMMA in its SASS; K1, K2,
+    K7, K4 and the convs in fp32 launch the FMA template
+    (gemm_moments_kernel), with none in any instantiation, and no
+    instantiation of it is bf16.  And the kernels' plans are the ones
+    `ops/conv_mma.py` and `ops/gemm_mma.py` mirror."""
     hmma = {kind: {fn: n for fn, n in functions if kind in fn}
             for kind in (MMA, GMMA, FMA)}
+    fma_bf16 = [fn for fn in hmma[FMA] if "nv_bfloat16" in fn]
     ok = all(hmma[MMA].values()) and all(hmma[GMMA].values()) \
         and bool(hmma[MMA]) and bool(hmma[GMMA]) \
-        and not any(hmma[FMA].values())
+        and not any(hmma[FMA].values()) and not fma_bf16
     launched = {}
     with torch.no_grad():
         for name, want, fn, args in _sass_calls(dev, gen):
@@ -1396,11 +1483,13 @@ def phase_sass(dev, gen, functions):
     plans_differ = plans_agree()
     emit({"phase": "sass", "conv_mma_hmma": hmma[MMA],
           "gemm_mma_hmma": hmma[GMMA], "gemm_moments_hmma": hmma[FMA],
+          "gemm_moments_bf16": fma_bf16,
           "launched": launched, "plans_differ": plans_differ,
           "ok": ok and not plans_differ})
     if not ok:
-        raise AssertionError("the bf16 convs and K2 bf16 are not all on the "
-                             "tensor cores, or an FMA kernel has HMMA")
+        raise AssertionError("the bf16 convs and GEMMs are not all on the "
+                             "tensor cores, or an FMA kernel has HMMA or "
+                             "is bf16")
     if plans_differ:
         raise AssertionError(f"tensor-core plans differ: {plans_differ}")
 

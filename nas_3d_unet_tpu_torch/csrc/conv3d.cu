@@ -1,7 +1,8 @@
 // The use_pallas configuration's conv kernels, fp32 or bf16 elements with
 // fp32 accumulation, rounded once.  In fp32 they instantiate the FMA
-// implicit-GEMM template (its bound and design: igemm.cuh); K6 in bf16 is
-// the tensor-core conv (conv_mma.cuh), K7 and K4 in bf16 the template.
+// implicit-GEMM template (its bound and design: igemm.cuh); in bf16 they
+// run on the tensor cores: K6 on the conv tile (conv_mma.cuh), K7 and K4
+// on the voxel-row GEMM tile (gemm_mma.cuh).
 //
 // Replaces (nas_3d_unet_tpu/ops/pallas/conv3d.py):
 //   K6 conv3d_{f32,bf16}           <- conv3d (:201, _conv3d_pallas_fwd
@@ -14,20 +15,26 @@
 //      test.  bf16: conv_mma.cuh at every stride, dilation and epilogue.
 //   K7 pointwise_conv_{f32,bf16}   <- pointwise_conv (:279,
 //      _pointwise_fwd :300, body :251): the K2 GEMM without the moments,
-//      optional bias and ReLU.
+//      optional bias and ReLU.  Bytes-bound: 2*K*N flops per (K + N) * 2
+//      bytes of a voxel row in bf16 (8 to 64 flop/B at the path's 16-128
+//      channels), far below the card's ~295.
 //   K4 conv_transpose2x_{f32,bf16} <- conv_transpose2x (:356,
 //      _transpose2x_fwd :373, body :338): (voxels, Cin) @ (Cin, 8*Cout)
 //      whose store writes the depth-to-space layout directly, so the 8x
 //      larger output is written once and never permuted; optional ReLU.
-//      The caller passes the flipped, flattened kernel.
+//      Bytes-bound: (Cin + 8*Cout) * 2 bytes a voxel in bf16, most of them
+//      the output.  fp32: the caller passes the flipped, flattened kernel;
+//      bf16: gemm_mma.cuh reads the DHWIO kernel with lax's flip itself.
 // The TPU kernels fuse bias and ReLU into the matmul's epilogue; so do
-// these, compiled in only for a call that asks for either (the template's
-// EPI flag; conv_mma.cuh's epilogue reads the flags at run time).
+// these: the template compiles its EPI step in only for a call that asks
+// for either; conv_mma.cuh's and gemm_mma.cuh's epilogues read the flags
+// at run time.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "conv_mma.cuh"
+#include "gemm_mma.cuh"
 #include "igemm.cuh"
 
 namespace {
@@ -99,8 +106,18 @@ int conv_mma_plan(int cin, int cout, int stride, int dil, int* out) {
                          stream);                                             \
   }
 NAS3D_POINTWISE(pointwise_conv_f32, float)
-NAS3D_POINTWISE(pointwise_conv_bf16, __nv_bfloat16)
 #undef NAS3D_POINTWISE
+
+// K7 in bf16, on the tensor cores: the bias comes rounded to bf16 (the
+// reference adds its bias row in w's dtype).
+int pointwise_conv_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w,
+                        const float* bias, __nv_bfloat16* y, int rows, int K,
+                        int N, int relu, void* stream) {
+  gmma::Geom g{};
+  g.V = rows, g.K = K, g.N = N, g.relu = relu;
+  return gmma::launch<false, true, false>(x, w, bias, y, nullptr, g, 1,
+                                          (cudaStream_t)stream);
+}
 
 // K4: x (B, D, H, W, Cin), w (Cin, 8*Cout) with column (kd*4 + kh*2 + kw)*
 // Cout + co the tap that lands at output offset (kd, kh, kw), y (B, 2D, 2H,
@@ -112,7 +129,18 @@ NAS3D_POINTWISE(pointwise_conv_bf16, __nv_bfloat16)
                             relu, ConvGeom{D, H, W}, stream);                 \
   }
 NAS3D_TRANSPOSE2X(conv_transpose2x_f32, float)
-NAS3D_TRANSPOSE2X(conv_transpose2x_bf16, __nv_bfloat16)
 #undef NAS3D_TRANSPOSE2X
+
+// K4 in bf16, on the tensor cores: w (2, 2, 2, Cin, Cout) DHWIO as the
+// caller holds it (gemm_mma.cuh stages it with lax's flip).
+int conv_transpose2x_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w,
+                          __nv_bfloat16* y, int B, int D, int H, int W,
+                          int Cin, int Cout, int relu, void* stream) {
+  gmma::Geom g{};
+  g.V = D * H * W, g.K = Cin, g.N = 8 * Cout, g.relu = relu;
+  g.H = H, g.W = W, g.cout = Cout;
+  return gmma::launch<false, true, true>(x, w, nullptr, y, nullptr, g, B,
+                                         (cudaStream_t)stream);
+}
 
 }  // extern "C"

@@ -1,44 +1,73 @@
-// The bf16 voxel-row GEMM on the tensor cores, behind K2 bf16 (pgemm.cu
-// gemm_stats_bf16): y (B, V, N) = x (B, V, K) @ w (K, N), bf16 operands,
-// fp32 accumulation, y rounded once to bf16, with each 128-row tile's Σy
-// and Σy² of the rounded y (the GroupNorm moments).
+// The bf16 voxel-row GEMM on the tensor cores, behind three kernels:
+//   K2 bf16 (pgemm.cu gemm_stats_bf16): y (B, V, N) = x (B, V, K) @ w (K,
+//      N), with each 128-row tile's Σy and Σy² of the rounded y (the
+//      GroupNorm moments; flag STATS);
+//   K7 bf16 (conv3d.cu pointwise_conv_bf16): the same product with a
+//      bias/ReLU epilogue (flag EPI);
+//   K4 bf16 (conv3d.cu conv_transpose2x_bf16): x (B, D, H, W, Cin) @ the
+//      DHWIO kernel read as (Cin, 8 Cout), ReLU, stored depth-to-space
+//      into (B, 2D, 2H, 2W, Cout) (flags EPI and D2S).
+// bf16 operands, fp32 accumulation, y rounded once to bf16.
 //
-// Replaces (nas_3d_unet_tpu/): ops/pallas/pgemm.py:311 gemm_stats (body
-// _gemm_kernel :287, pallas_call :330) in bf16: the 1^3 conv with its
-// moments epilogue.
+// Replaces (nas_3d_unet_tpu/ops/pallas/): pgemm.py:311 gemm_stats (body
+// _gemm_kernel :287, pallas_call :330), conv3d.py:279 pointwise_conv (body
+// _pointwise_kernel :251, pallas_call :314) and conv3d.py:356
+// conv_transpose2x (body _transpose2x_kernel :338, pallas_call :394), each
+// in bf16.
 //
-// What bounds it on the H100: the bytes.  A voxel row does 2*K*N flops for
-// (K + N) * 2 bytes, 16 to 43 flop/B at the train step's shapes
-// (chip_smoke.py's K2_TRAIN, K 48-384, N 16-128) against the card's ~295
-// flop/B balance: 0.72 ms of bytes per step at 3.35 TB/s.  The FMA tile
-// this replaces (igemm.cuh) sat at 5.6x that, staging 8-deep K slices
-// through registers with 4-byte loads.
+// What bounds them on the H100: the bytes.  A voxel row does 2*K*N flops
+// for (K + N) * 2 bytes (K4: (Cin + 8*Cout) * 2), 8 to 64 flop/B at the
+// train step's shapes (K 16-384, N 16-128; K4 N = 8*Cout up to 512)
+// against the card's ~295 flop/B balance.  The FMA tile these replace
+// (igemm.cuh) staged 8-deep K slices through registers with 2- and 4-byte
+// loads and stored y as scalars: 6.7x (K7) and 14x (K4) their bounds
+// (measured on the H100 at the train step's shapes).
 //
 // What the design does about it: keep bytes in flight.
 //   - V is cut into tiles of 128 rows; a block owns BN columns, BN = N
-//     rounded up to 16/32/64/128 (every K2 shape has N <= 128: one block
-//     covers N, and x is read once); 8 warps, each 32 rows (16 at BN = 16)
-//     x BN / WN columns of mma.sync m16n8k16 accumulators.
+//     rounded up to 16/32/64/128, so at N <= 128 (K2, K7) one block covers
+//     N and x is read once; 8 warps, each 32 rows (16 at BN = 16) x BN /
+//     WN columns of mma.sync m16n8k16 accumulators.  K4's N = 8*Cout runs
+//     ceil(N / 128) column blocks (grid.y; 2 and 4 at 32 -> 32 and 64 ->
+//     64); each re-reads x, at most 2 MB at those shapes (32^3 x 32 and
+//     16^3 x 64 voxels), from the 50 MB L2, so no N loop in the block.
 //   - w is staged once per block; x in K chunks of 32 through a ring of
 //     four stages, by zero-filling 16-byte cp.async copies (rows past V or
 //     K, columns past K or N read as zeros; a K or N not a multiple of 8,
 //     or a misaligned base, takes scalar copies with the same padding).
-//     Rows of 80 bytes (x) and (BN + 8) * 2 (w) put ldmatrix's 8 rows in
-//     distinct banks.  A comes from ldmatrix, B from ldmatrix.trans.
+//     K4 stages the DHWIO kernel as it is: column (kd*4 + kh*2 + kw)*Cout +
+//     co is tap w[1-kd, 1-kh, 1-kw, :, co], lax's flip, so the caller
+//     builds no flipped copy.  Rows of 80 bytes (x) and (BN + 8) * 2 (w)
+//     put ldmatrix's 8 rows in distinct banks.  A comes from ldmatrix, B
+//     from ldmatrix.trans.
 //   - The grid holds as many blocks as stay resident; each walks over its
 //     tiles, its copies three chunks ahead across tile boundaries, so the
 //     next tile's x is in flight during this tile's epilogue (measured on
 //     the H100 against one tile per block with x double-buffered: 0.159
 //     against 0.235 ms at 48 -> 16 over 128^3).
-//   - The epilogue rounds y once, stages the bf16 tile in shared memory
-//     and stores it as 16-byte row vectors (or scalars where N is not a
-//     multiple of 8), and sums the moments of the rounded values of rows
-//     < V and columns < N in its store loop, reduced in the fixed order of
-//     moments.cuh into one partial row per tile.  No atomics: the same
-//     bits on every launch, whatever the grid.
+//   - The epilogue adds the bias and clamps (EPI: the bias an fp32 vector,
+//     bias and ReLU read at run time) on the fp32 accumulator, rounds y
+//     once, stages the bf16 tile in shared memory and stores it as 16-byte
+//     vectors (or scalars where N, or K4's Cout, is not a multiple of 8).
+//     Rows store as rows; D2S stores row (d, h, w)'s columns at (2d + kd,
+//     2h + kh, 2w + kw, co): 8 columns of one tap are 8 contiguous
+//     channels, and the kw = 0 and 1 taps of one (kd, kh) sit side by side
+//     (2*Cout contiguous elements).  Each row's output corner is computed
+//     once per tile into shared memory, each thread's column offset (the
+//     same in all its rows) once per tile, in the store.
+//   - STATS sums the moments of the rounded values of rows < V and columns
+//     < N in the store loop, reduced in the fixed order of moments.cuh
+//     into one partial row per tile.  No atomics: the same bits on every
+//     launch, whatever the grid.
+//   - The host side queries the resident blocks and sets the shared-memory
+//     attribute once per instantiation, device and K chunk count, so a
+//     launch is the launch alone.
 // Simple first: no wgmma or TMA (later work).  ops/gemm_mma.py mirrors the
 // plan and the algorithm in plain PyTorch.
 #pragma once
+
+#include <atomic>
+#include <climits>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -77,18 +106,19 @@ struct Plan {
   size_t smem;    // bytes of shared memory per block
 };
 
-inline Plan make_plan(int k, int n) {
+inline Plan make_plan(int k, int n, bool stats, bool d2s) {
   Plan p;
   p.bn = n <= 16 ? 16 : n <= 32 ? 32 : n <= 64 ? 64 : 128;
   p.nchunks = (k + kKC - 1) / kKC;
   const int wm = 8 / (p.bn >= 32 ? 2 : 1);
-  // w (all chunks), the x stages, the epilogue's y tile and the moments'
-  // warp rows, side by side: the next tile's copies land during this
-  // tile's epilogue
+  // w (all chunks), the x stages and the epilogue's y tile side by side
+  // (the next tile's copies land during this tile's epilogue), then STATS'
+  // moments warp rows and D2S's row corners
   p.smem = ((size_t)p.nchunks * kKC * (p.bn + 8) +
             (size_t)kStages * kBM * kLdX + (size_t)kBM * (p.bn + 8)) *
                sizeof(bf16) +
-           (size_t)wm * 2 * p.bn * sizeof(float);
+           (stats ? (size_t)wm * 2 * p.bn * sizeof(float) : 0) +
+           (d2s ? (size_t)kBM * sizeof(int) : 0);
   return p;
 }
 
@@ -96,6 +126,8 @@ struct Geom {
   int V, K, N;
   int nchunks, ntiles;        // K chunks; 128-row tiles of V
   int vec_x, vec_w, vec_y;    // 16-byte copies for x, w; 16-byte y stores
+  int relu;                   // EPI
+  int H, W, cout;             // D2S: V = D*H*W input voxels, N = 8*cout
 };
 
 // --- the kernel ------------------------------------------------------------
@@ -103,12 +135,13 @@ struct Geom {
 // Block (x, y, z) takes the tiles x, x + gridDim.x, ... of batch item z,
 // columns [y * BN, y * BN + BN); its (tile, chunk) steps run through one
 // ring of kStages x stages, so copies run kStages - 1 steps ahead across
-// tile boundaries.  partial (B, ntiles, 2, N): one row per tile.
-template <int BN>
+// tile boundaries.  STATS: partial (B, ntiles, 2, N), one row per tile.
+// EPI: bias (N,) fp32 or null, added before the ReLU (g.relu).
+template <int BN, bool STATS, bool EPI, bool D2S>
 __global__ void __launch_bounds__(kThreads, 2)
 gemm_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                bf16* __restrict__ y, float* __restrict__ partial,
-                const Geom g) {
+                const float* __restrict__ bias, bf16* __restrict__ y,
+                float* __restrict__ partial, const Geom g) {
   using T = Tile<BN>;
   using nas3d::cp_async16_zfill;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -116,6 +149,7 @@ gemm_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   bf16* const xs0 = ws + g.nchunks * kKC * T::LDW;
   bf16* const ytile = xs0 + kStages * kBM * kLdX;
   float* const red = reinterpret_cast<float*>(ytile + kBM * T::LDW);
+  int* const corner = reinterpret_cast<int*>(ytile + kBM * T::LDW);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp / T::WN;
   const int wm0 = wm * (kBM / T::WM);
@@ -127,14 +161,23 @@ gemm_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
       (g.ntiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x *
       g.nchunks;
 
-  // w rows [0, 32 * nchunks) x columns [n0, n0 + BN), zero past K and N
+  // w rows [0, 32 * nchunks) x columns [n0, n0 + BN), zero past K and N.
+  // D2S: column n = tap * cout + co is w[7 - tap][k][co] of the DHWIO
+  // kernel (taps (kd, kh, kw) flattened, flipped on all three axes)
+  auto w_at = [&](int k, int n) -> size_t {
+    if constexpr (D2S) {
+      const int tap = n / g.cout;
+      return ((size_t)(7 - tap) * g.K + k) * g.cout + (n - tap * g.cout);
+    } else {
+      return (size_t)k * g.N + n;
+    }
+  };
   if (g.vec_w) {
     constexpr int VPR = BN / 8;
     for (int i = tid; i < g.nchunks * kKC * VPR; i += kThreads) {
       const int k = i / VPR, j = i - k * VPR, n = n0 + j * 8;
       const bool ok = k < g.K && n < g.N;
-      cp_async16_zfill(ws + k * T::LDW + j * 8,
-                       ok ? w + (size_t)k * g.N + n : w, ok);
+      cp_async16_zfill(ws + k * T::LDW + j * 8, ok ? w + w_at(k, n) : w, ok);
     }
   } else {
     const unsigned short* wu = reinterpret_cast<const unsigned short*>(w);
@@ -142,8 +185,7 @@ gemm_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
     for (int i = tid; i < g.nchunks * kKC * BN; i += kThreads) {
       const int k = i / BN, j = i - k * BN, n = n0 + j;
       wsu[k * T::LDW + j] =
-          k < g.K && n < g.N ? __ldg(wu + (size_t)k * g.N + n)
-                             : (unsigned short)0;
+          k < g.K && n < g.N ? __ldg(wu + w_at(k, n)) : (unsigned short)0;
     }
   }
   // step s: x rows of tile blockIdx.x + (s / nchunks) * gridDim.x, K chunk
@@ -219,40 +261,90 @@ gemm_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
     // epilogue of tile t: accumulator (mi, ni) holds rows lane/4 and
     // lane/4 + 8 of its 16-row tile at columns 2*(lane%4) and +1 of its
     // 8-column tile.  The rounded tile goes to shared memory (rows of
-    // LDW), the moments' warp rows beside it
+    // LDW), the moments' warp rows or the rows' output corners beside it
     const int t = blockIdx.x + s / g.nchunks * gridDim.x;
     const int m0 = t * kBM;
 #pragma unroll
     for (int ni = 0; ni < T::NI; ++ni) {
       const int col = wn0 + ni * 8 + 2 * (lane & 3);   // column in the tile
       const bool ok0 = n0 + col < g.N, ok1 = n0 + col + 1 < g.N;
+      float b0 = 0.f, b1 = 0.f;
+      if constexpr (EPI) {
+        if (bias != nullptr) {
+          if (ok0) b0 = __ldg(bias + n0 + col);
+          if (ok1) b1 = __ldg(bias + n0 + col + 1);
+        }
+      }
       float mom[4] = {0.f, 0.f, 0.f, 0.f};           // Σy, Σy² at col, +1
 #pragma unroll
       for (int mi = 0; mi < T::MI; ++mi)
 #pragma unroll
         for (int hr = 0; hr < 2; ++hr) {
           const int r = wm0 + mi * 16 + (lane >> 2) + hr * 8;
-          const __nv_bfloat162 v = __floats2bfloat162_rn(
-              acc[mi][ni][2 * hr], acc[mi][ni][2 * hr + 1]);
-          *reinterpret_cast<__nv_bfloat162*>(ytile + r * T::LDW + col) = v;
-          if (m0 + r >= g.V) continue;
-          const float f0 = __low2float(v), f1 = __high2float(v);
-          if (ok0) {
-            mom[0] += f0;
-            mom[2] += f0 * f0;
+          float v0 = acc[mi][ni][2 * hr], v1 = acc[mi][ni][2 * hr + 1];
+          if constexpr (EPI) {
+            if (bias != nullptr) {
+              v0 += b0;
+              v1 += b1;
+            }
+            if (g.relu) {
+              v0 = fmaxf(v0, 0.f);
+              v1 = fmaxf(v1, 0.f);
+            }
           }
-          if (ok1) {
-            mom[1] += f1;
-            mom[3] += f1 * f1;
+          const __nv_bfloat162 v = __floats2bfloat162_rn(v0, v1);
+          *reinterpret_cast<__nv_bfloat162*>(ytile + r * T::LDW + col) = v;
+          if constexpr (STATS) {
+            if (m0 + r >= g.V) continue;
+            const float f0 = __low2float(v), f1 = __high2float(v);
+            if (ok0) {
+              mom[0] += f0;
+              mom[2] += f0 * f0;
+            }
+            if (ok1) {
+              mom[1] += f1;
+              mom[3] += f1 * f1;
+            }
           }
         }
-      nas3d::moments_warp_put<BN>(red, wm, wn0 + ni * 8, mom);
+      if constexpr (STATS)
+        nas3d::moments_warp_put<BN>(red, wm, wn0 + ni * 8, mom);
+    }
+    if constexpr (D2S) {   // row r = voxel (d, h, w): corner (2d, 2h, 2w)
+      if (tid < kBM && m0 + tid < g.V) {
+        const int m = m0 + tid, hw = g.H * g.W;
+        const int d = m / hw, rem = m - d * hw, h = rem / g.W;
+        corner[tid] =
+            ((2 * d * 2 * g.H + 2 * h) * 2 * g.W + 2 * (rem - h * g.W)) *
+            g.cout;
+      }
     }
     __syncthreads();
-    nas3d::moments_block_put<BN, T::WM>(red, partial,
-                                        (size_t)b * g.ntiles + t, n0, g.N);
-    // the tile's rows < V, columns < N, to y
-    if (g.vec_y) {
+    if constexpr (STATS)
+      nas3d::moments_block_put<BN, T::WM>(red, partial,
+                                          (size_t)b * g.ntiles + t, n0, g.N);
+    if constexpr (D2S) {
+      // the tile's rows < V, columns < N, each at its corner + the
+      // thread's column offset (yb: batch item b's 8*V*cout outputs).
+      // The thread's column is the same in every row it stores (kThreads
+      // is a multiple of the vectors or scalars per row); tap (kd, kh, kw)
+      // lands kd planes, kh rows and kw voxels past the corner
+      const int jcol = g.vec_y ? tid % (BN / 8) * 8 : tid % BN;
+      const int n = n0 + jcol, tap = n / g.cout;
+      const bool col_ok = n < g.N;
+      const int coloff = (((tap >> 2) * 2 * g.H + ((tap >> 1) & 1)) * 2 *
+                          g.W + (tap & 1)) * g.cout + (n - tap * g.cout);
+      if (g.vec_y) {
+        for (int r = tid / (BN / 8); r < kBM; r += kThreads / (BN / 8))
+          if (m0 + r < g.V && col_ok)
+            *reinterpret_cast<uint4*>(yb + corner[r] + coloff) =
+                *reinterpret_cast<const uint4*>(ytile + r * T::LDW + jcol);
+      } else {
+        for (int r = tid / BN; r < kBM; r += kThreads / BN)
+          if (m0 + r < g.V && col_ok)
+            yb[corner[r] + coloff] = ytile[r * T::LDW + jcol];
+      }
+    } else if (g.vec_y) {  // the tile's rows < V, columns < N, to y
       constexpr int VPR = BN / 8;
       for (int i = tid; i < kBM * VPR; i += kThreads) {
         const int r = i / VPR, j = (i - r * VPR) * 8;
@@ -270,51 +362,91 @@ gemm_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   }
 }
 
-// As many blocks as stay resident on the card (each walks over tiles), at
-// most one per tile
-template <int BN>
-int launch_bn(const bf16* x, const bf16* w, bf16* y, float* partial,
-              const Geom& g, int B, size_t smem, cudaStream_t st) {
-  const void* fn = reinterpret_cast<const void*>(gemm_mma_kernel<BN>);
-  cudaError_t e = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  int dev = 0, sms = 0, per_sm = 0;
-  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+// --- the launch (host) -----------------------------------------------------
+
+constexpr int kMaxDevices = 16;
+constexpr int kMaxChunks = 64;
+
+// The blocks of one instantiation that stay resident on the card at
+// `nchunks` K chunks, into *out.  The first query on a device also sets
+// the instantiation's shared-memory limit there to the most a block may
+// have (so no later launch needs it raised); the count is kept per device
+// and chunk count, so later launches ask the runtime nothing.
+template <int BN, bool STATS, bool EPI, bool D2S>
+int resident_blocks(int nchunks, size_t smem, int* out) {
+  static std::atomic<int> known[kMaxDevices][kMaxChunks + 1];  // 0: unknown
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  const bool keep = dev < kMaxDevices && nchunks <= kMaxChunks;
+  if (keep && (*out = known[dev][nchunks].load(std::memory_order_relaxed)))
+    return 0;
+  const void* fn =
+      reinterpret_cast<const void*>(gemm_mma_kernel<BN, STATS, EPI, D2S>);
+  int sms = 0, per_sm = 0;
+  e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           kSmemMax);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads,
                                                       smem);
   if (e != cudaSuccess) return (int)e;
+  *out = (per_sm > 0 ? per_sm : 1) * sms;
+  if (keep) known[dev][nchunks].store(*out, std::memory_order_relaxed);
+  return 0;
+}
+
+// As many blocks as stay resident on the card (each walks over tiles), at
+// most one per tile
+template <int BN, bool STATS, bool EPI, bool D2S>
+int launch_bn(const bf16* x, const bf16* w, const float* bias, bf16* y,
+              float* partial, const Geom& g, int B, size_t smem,
+              cudaStream_t st) {
+  int resident = 0;
+  const int e = resident_blocks<BN, STATS, EPI, D2S>(g.nchunks, smem,
+                                                     &resident);
+  if (e != 0) return e;
   const int ny = (g.N + BN - 1) / BN;
-  const int resident = (per_sm > 0 ? per_sm : 1) * sms;
   const int nx = (resident + ny * B - 1) / (ny * B);
   const dim3 grid(nx < g.ntiles ? nx : g.ntiles, ny, B);
-  gemm_mma_kernel<BN><<<grid, kThreads, smem, st>>>(x, w, y, partial, g);
+  gemm_mma_kernel<BN, STATS, EPI, D2S>
+      <<<grid, kThreads, smem, st>>>(x, w, bias, y, partial, g);
   return (int)cudaGetLastError();
 }
 
-// Launch: x (B, V, K), w (K, N), y (B, V, N) bf16; partial (B, ceil(V /
-// 128), 2, N) fp32 gets each tile's moments; all contiguous on the device
-// of `st` (the current device).  Returns the launch's cudaError_t.
-inline int launch_gemm_mma(const bf16* x, const bf16* w, bf16* y,
-                           float* partial, int B, int V, int K, int N,
-                           cudaStream_t st) {
-  if (B < 1 || V < 1 || K < 1 || N < 1 || partial == nullptr)
+// The launch of one variant: g holds the shapes (V, K, N; EPI's relu;
+// D2S's H, W, cout), the plan's side (chunks, tiles, vector copies) is
+// filled in here.  STATS needs partial (B, ceil(V / 128), 2, N); D2S needs
+// 8 * V * cout < 2^31 (offsets within a batch item are ints).  All
+// tensors contiguous on the device of `st` (the current device).  Returns
+// the launch's cudaError_t.  Each source instantiates only what it calls.
+template <bool STATS, bool EPI, bool D2S>
+int launch(const bf16* x, const bf16* w, const float* bias, bf16* y,
+           float* partial, Geom g, int B, cudaStream_t st) {
+  if (B < 1 || g.V < 1 || g.K < 1 || g.N < 1 ||
+      (STATS && partial == nullptr) ||
+      (D2S && (g.cout < 1 || g.N != 8 * g.cout ||
+               (long long)g.V * g.N > INT_MAX)))
     return (int)cudaErrorInvalidValue;
-  const Plan p = make_plan(K, N);
+  const Plan p = make_plan(g.K, g.N, STATS, D2S);
   if (p.smem > (size_t)kSmemMax) return (int)cudaErrorInvalidValue;
-  Geom g{};
-  g.V = V, g.K = K, g.N = N, g.nchunks = p.nchunks;
-  g.ntiles = (V + kBM - 1) / kBM;
-  g.vec_x = K % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  g.vec_w = N % 8 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
-  g.vec_y = N % 8 == 0 && reinterpret_cast<uintptr_t>(y) % 16 == 0;
+  g.nchunks = p.nchunks;
+  g.ntiles = (g.V + kBM - 1) / kBM;
+  // D2S: 8 columns are one tap's channels only where Cout % 8 == 0
+  const int nvec = D2S ? g.cout : g.N;
+  g.vec_x = g.K % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  g.vec_w = nvec % 8 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  g.vec_y = nvec % 8 == 0 && reinterpret_cast<uintptr_t>(y) % 16 == 0;
   switch (p.bn) {
-    case 16: return launch_bn<16>(x, w, y, partial, g, B, p.smem, st);
-    case 32: return launch_bn<32>(x, w, y, partial, g, B, p.smem, st);
-    case 64: return launch_bn<64>(x, w, y, partial, g, B, p.smem, st);
-    default: return launch_bn<128>(x, w, y, partial, g, B, p.smem, st);
+    case 16: return launch_bn<16, STATS, EPI, D2S>(x, w, bias, y, partial, g,
+                                                   B, p.smem, st);
+    case 32: return launch_bn<32, STATS, EPI, D2S>(x, w, bias, y, partial, g,
+                                                   B, p.smem, st);
+    case 64: return launch_bn<64, STATS, EPI, D2S>(x, w, bias, y, partial, g,
+                                                   B, p.smem, st);
+    default: return launch_bn<128, STATS, EPI, D2S>(x, w, bias, y, partial,
+                                                    g, B, p.smem, st);
   }
 }
 

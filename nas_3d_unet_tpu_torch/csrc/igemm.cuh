@@ -1,14 +1,14 @@
-// The implicit-GEMM kernel template behind the package's conv and GEMM
-// kernels on the FMA units, fp32 or bf16 elements with fp32 accumulation:
-// in fp32 (serving) K1, K1-dx and K2 (pgemm.cu) and K6, K7 and K4
-// (conv3d.cu); in bf16 (training) K7 and K4 only.  The other bf16 kernels
-// run on the tensor cores: the 3^3 convs K1, K1-dx and K6 on conv_mma.cuh,
-// K2 on gemm_mma.cuh.
+// The implicit-GEMM kernel template behind the package's fp32 conv and
+// GEMM kernels on the FMA units: K1, K1-dx and K2 (pgemm.cu) and K6, K7
+// and K4 (conv3d.cu).  Every bf16 kernel runs on the tensor cores: the 3^3
+// convs K1, K1-dx and K6 on conv_mma.cuh, the GEMMs K2, K7 and K4 on
+// gemm_mma.cuh.  The template still compiles for bf16 elements (fp32
+// accumulation), but no kernel instantiates it so.
 //
-// Replaces (nas_3d_unet_tpu/ops/pallas/): pgemm.py:174 conv_pgemm (K1,
-// with and without its moments: K1-dx) and :311 gemm_stats (K2) in fp32;
-// conv3d.py:201 conv3d (K6) in fp32, :279 pointwise_conv (K7) and :356
-// conv_transpose2x (K4) in both types.
+// Replaces (nas_3d_unet_tpu/ops/pallas/), in fp32: pgemm.py:174
+// conv_pgemm (K1, with and without its moments: K1-dx) and :311
+// gemm_stats (K2); conv3d.py:201 conv3d (K6), :279 pointwise_conv (K7)
+// and :356 conv_transpose2x (K4).
 //
 // What bounds them on the H100: in fp32 the tensor cores (bf16/TF32) are
 // off limits and the ceiling is the 67 TFLOP/s of fp32 FMA against 3.35
@@ -16,11 +16,6 @@
 // 3^3 conv does 54*Cin flops per output value (16->16: 216 flop/B in
 // fp32).  The GEMMs (K2, K7, K4) straddle the balance: a voxel row does
 // 2*K*N flops for (K+N)*4 bytes, 6 flop/B at 48->16 up to 38 at 192->128.
-// In bf16 the bound is the tensor cores' 989 TFLOP/s and half the bytes;
-// the bf16 users left on this template (K7, K4: bytes-bound GEMMs) still
-// widen bf16 to fp32 and run the same FMA tiling, so they are far from
-// that bound: bf16 here halves the bytes moved, not the FMA count
-// (gemm_mma.cuh's tensor-core tile is their next home).
 //
 // What the design does about it: one implicit-GEMM kernel for all,
 //   Y[m, n] = sum_k A[m, k] * Wt[k, n],  k = tap * Cin + ci,

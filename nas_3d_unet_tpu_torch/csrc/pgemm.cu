@@ -94,13 +94,14 @@ int conv_mma_blocks(int cin, int cout, int dil, int D, int H, int W) {
   return cmma::grid_bricks(cmma::make_plan(cin, cout, 1, dil), D, H, W);
 }
 
-// The tensor-core GEMM's plan for (K, N) into out[4]: BN, the rows per
-// block (the caller of K2 bf16 sizes `partial` as (B, ceil(V / rows), 2,
-// N)), the K chunks, the bytes of shared memory (ops/gemm_mma.py:plan
+// The tensor-core GEMM's plan for (K, N), with or without the moments
+// (stats) and the depth-to-space store (d2s), into out[4]: BN, the rows
+// per block (the caller of K2 bf16 sizes `partial` as (B, ceil(V / rows),
+// 2, N)), the K chunks, the bytes of shared memory (ops/gemm_mma.py:plan
 // mirrors it).
-int gemm_mma_plan(int k, int n, int* out) {
+int gemm_mma_plan(int k, int n, int stats, int d2s, int* out) {
   if (k < 1 || n < 1) return (int)cudaErrorInvalidValue;
-  const gmma::Plan p = gmma::make_plan(k, n);
+  const gmma::Plan p = gmma::make_plan(k, n, stats != 0, d2s != 0);
   out[0] = p.bn;
   out[1] = gmma::kBM;
   out[2] = p.nchunks;
@@ -163,7 +164,10 @@ int gemm_stats_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w,
                     __nv_bfloat16* y, float* partial, float* s1, float* s2,
                     int B, int V, int K, int N, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const int err = gmma::launch_gemm_mma(x, w, y, partial, B, V, K, N, st);
+  gmma::Geom g{};
+  g.V = V, g.K = K, g.N = N;
+  const int err = gmma::launch<true, false, false>(x, w, nullptr, y, partial,
+                                                   g, B, st);
   return reduce_moments(err, partial, s1, s2, B,
                         (V + gmma::kBM - 1) / gmma::kBM, N, st);
 }

@@ -1,22 +1,25 @@
 """The `use_pallas` convs: the counterpart of
 `nas_3d_unet_tpu/ops/pallas/conv3d.py`.
 
-Kernels (`csrc/conv3d.cu`: on the FMA implicit-GEMM template of K1 and
-K2, `csrc/igemm.cuh`, except K6 in bf16, which runs on the tensor cores,
-`csrc/conv_mma.cuh`, planned as `ops/conv_mma.py` mirrors), fp32 or bf16
-with fp32 accumulation, rounded once to the input's dtype, each with its
-plain PyTorch twin beside it:
+Kernels (`csrc/conv3d.cu`: in fp32 on the FMA implicit-GEMM template of
+K1 and K2, `csrc/igemm.cuh`; in bf16 on the tensor cores, K6 on the conv
+tile `csrc/conv_mma.cuh` (planned as `ops/conv_mma.py` mirrors), K7 and
+K4 on K2's GEMM tile `csrc/gemm_mma.cuh` (`ops/gemm_mma.py`)), fp32 or
+bf16 with fp32 accumulation, rounded once to the input's dtype, each with
+its plain PyTorch twin beside it:
 
   K6 `conv3d(x, w, b, stride, dilation, relu)`: 3³ SAME conv, stride 1 or
      2, dilation 1 or 2, lax's pads (the odd one high, `_same_pad`),
      optional bias and ReLU in the epilogue (replaces `conv3d`);
   K7 `pointwise_conv(x, w, b, relu)`: the 1³ conv, (voxels, Cin) @ (Cin,
-     Cout), optional bias and ReLU (replaces `pointwise_conv`);
+     Cout), optional bias (rounded to w's dtype first, as the reference's
+     kernel concatenates it into w) and ReLU (replaces `pointwise_conv`);
   K4 `conv_transpose2x(x, w, relu)`: the kernel-2 stride-2 transpose conv
      as (voxels, Cin) @ (Cin, 8·Cout) whose store writes the depth-to-space
      layout; lax puts the spatially flipped tap at each output offset
-     (`_transpose2x_fwd`), so the flip happens before flattening (replaces
-     `conv_transpose2x`).
+     (`_transpose2x_fwd`): the fp32 kernel takes the flipped, flattened
+     kernel, the bf16 one reads the DHWIO kernel with the flip itself
+     (replaces `conv_transpose2x`).
 
 Layouts are the JAX package's: NDHWC activations, DHWIO kernels (K7:
 (Cin, Cout)).
@@ -202,11 +205,12 @@ def pointwise_conv_twin(x: torch.Tensor, w: torch.Tensor,
                         b: torch.Tensor | None = None,
                         relu: bool = False) -> torch.Tensor:
     """Plain PyTorch K7: a matmul over voxel rows (in fp32 with a bias, so
-    that y rounds once)."""
+    that y rounds once; the bias rounded to w's dtype first, as the
+    reference's kernel adds it as a row of w)."""
     if b is None:
         y = x @ w
         return y.relu() if relu else y
-    return _epilogue(x.float() @ w.float(), b, relu, x.dtype)
+    return _epilogue(x.float() @ w.float(), b.to(w.dtype), relu, x.dtype)
 
 
 def _k7(x, w, b, relu):
@@ -216,6 +220,8 @@ def _k7(x, w, b, relu):
     cin, cout = w.shape
     rows = x.numel() // cin
     y = torch.empty((*x.shape[:-1], cout), dtype=x.dtype, device=x.device)
+    if b is not None:       # the reference's bias row is in w's dtype
+        b = b.to(w.dtype)
     _cuda.run(f"pointwise_conv_{t}", x.device, x.data_ptr(), w.data_ptr(),
               _cuda.ptr(_bias(b, x)), y.data_ptr(), rows, cin, cout, int(relu))
     return y
@@ -278,10 +284,12 @@ def _k4(x, w, relu):
     t = _cuda.check("conv_transpose2x", x, w)
     bsz, d, h, wd, cin = x.shape
     cout = w.shape[4]
-    # (Cin, 8·Cout): column (kd·4 + kh·2 + kw)·Cout + co is the flipped tap
-    # that lands at output offset (kd, kh, kw) (`conv3d.py:383-385`)
-    wmat = w.flip(0, 1, 2).permute(3, 0, 1, 2, 4).reshape(cin, 8 * cout)
-    wmat = wmat.contiguous()
+    wmat = w            # bf16: the kernel reads the DHWIO taps, flipped
+    if t == "f32":
+        # (Cin, 8·Cout): column (kd·4 + kh·2 + kw)·Cout + co is the flipped
+        # tap that lands at output offset (kd, kh, kw) (`conv3d.py:383-385`)
+        wmat = w.flip(0, 1, 2).permute(3, 0, 1, 2, 4).reshape(cin, 8 * cout)
+        wmat = wmat.contiguous()
     y = torch.empty((bsz, 2 * d, 2 * h, 2 * wd, cout), dtype=x.dtype,
                     device=x.device)
     _cuda.run(f"conv_transpose2x_{t}", x.device, x.data_ptr(),

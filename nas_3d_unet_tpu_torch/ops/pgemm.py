@@ -187,7 +187,7 @@ def _k2(x3: torch.Tensor, w: torch.Tensor):
     n = w.shape[1]
     if t == "bf16":     # the tensor-core GEMM's rows per block
         plan = (ctypes.c_int * 4)()
-        if _cuda.lib().gemm_mma_plan(k, n, plan):
+        if _cuda.lib().gemm_mma_plan(k, n, 1, 0, plan):
             raise ValueError(f"gemm_stats: no plan for {(k, n)}")
         rows = plan[1]
     else:

@@ -48,11 +48,15 @@ CLASSES = [   # (class, kernel-name pattern), first match wins
     # conv_mma_kernel<BN, STATS> (csrc/conv_mma.cuh): the bf16 3³ convs on
     # the tensor cores, K1 with its moments, K1-dx and K6 without (only
     # the default path runs K1-dx and only use_pallas K6);
-    # gemm_mma_kernel<BN> (csrc/gemm_mma.cuh): K2 in bf16
+    # gemm_mma_kernel<BN, STATS, EPI, D2S> (csrc/gemm_mma.cuh): K2 in bf16
+    # (STATS), K7 (EPI) and K4 (EPI, D2S)
     ("K1 bf16 conv3x3x3_stats (tensor cores)",
      r"conv_mma_kernel<\d+, true"),
     ("K1-dx / K6 bf16 conv (tensor cores)", r"conv_mma_kernel<"),
-    ("K2 bf16 gemm_stats (tensor cores)", r"gemm_mma_kernel<"),
+    ("K2 bf16 gemm_stats (tensor cores)", r"gemm_mma_kernel<\d+, true"),
+    ("K4 bf16 conv_transpose2x (tensor cores)",
+     r"gemm_mma_kernel<\d+, false, true, true"),
+    ("K7 bf16 pointwise_conv (tensor cores)", r"gemm_mma_kernel<"),
     # gemm_moments_kernel<BN, LAYOUT, T, STATS, EPI> (csrc/igemm.cuh):
     # K1-dx and K6 at stride 1 in fp32 are one kernel (the conv without
     # moments)
@@ -61,8 +65,8 @@ CLASSES = [   # (class, kernel-name pattern), first match wins
     ("K1 fp32 conv3x3x3_stats", r"gemm_moments_kernel<\d+, 1, [\w:]+, true"),
     ("K6 stride-2 conv3d", r"gemm_moments_kernel<\d+, 2,"),
     ("K2 fp32 gemm_stats", r"gemm_moments_kernel<\d+, 0, [\w:]+, true"),
-    ("K7 pointwise_conv", r"gemm_moments_kernel<\d+, 0, [\w:]+, false"),
-    ("K4 conv_transpose2x", r"gemm_moments_kernel<\d+, 3,"),
+    ("K7 fp32 pointwise_conv", r"gemm_moments_kernel<\d+, 0, [\w:]+, false"),
+    ("K4 fp32 conv_transpose2x", r"gemm_moments_kernel<\d+, 3,"),
     ("K1/K2 moments reduce", r"moments_reduce_kernel"),
     ("K3 apply", r"apply_kernel<"),
     ("K3 dx", r"dx_kernel<"),

@@ -159,6 +159,28 @@ def test_bf16_convs_round_once_like_pallas():
         assert _bf16_ulps(g.float(), np.asarray(wnt, np.float32)).max() <= 1
 
 
+@pytest.mark.parametrize("relu", [False, True])
+def test_pointwise_conv_bf16_rounds_its_bias_like_pallas(relu):
+    """bf16 K7 with an fp32 bias of scale 37 (a bf16 ulp of 0.25 there):
+    the reference's kernel concatenates the bias into w as a bf16 row
+    (`conv3d.py:311`) before its fp32 add, so the port rounds it to w's
+    dtype too.  Bit-equal in bf16: y is the same fp32 sum of 8 products
+    plus the same bias, rounded once."""
+    bf = lambda a: np.array(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32))
+    x = bf(_rand((1, 4, 4, 4, 8), 60))
+    w = bf(_rand((8, 8), 61, 8 ** -0.5))
+    b = _rand((8,), 63, 37.0)     # both signs: ReLU keeps some of y
+    j16 = lambda a: jnp.asarray(a, jnp.bfloat16)
+    with pltpu.force_tpu_interpret_mode():
+        want = pointwise_conv(j16(x), j16(w), jnp.asarray(b), relu=relu)
+    got = conv3d.pointwise_conv(torch.from_numpy(x).bfloat16(),
+                                torch.from_numpy(w).bfloat16(),
+                                torch.from_numpy(b), relu=relu)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(want, np.float32))
+
+
 def test_conv_wrappers_refuse_bad_shapes_and_devices():
     x = torch.zeros(1, 4, 4, 4, 3)
     with pytest.raises(ValueError):
