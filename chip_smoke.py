@@ -10,8 +10,11 @@ Phases, each printed as JSON lines:
      nvcc per source, in parallel, sm_90a) and times it.
   3. kernels: the serving kernels in fp32 against their plain PyTorch twins
      at every geometry the flagship net gives them (batch 2): K1
-     conv3x3x3_stats (plus a dilation-2 case), K2 gemm_stats and K5a
-     moments.
+     conv3x3x3_stats (the FMA conv tile with its moments epilogue; plus a
+     dilation-2 case, and off the path K1_EXTRA's ragged and odd-channel
+     rows), K2 gemm_stats and K5a moments; and K1-dx conv3x3x3 in fp32 (on
+     no path: serving runs no backward) at K1DX_TRAIN's and K1DX_EXTRA's
+     geometries, batch 2.
   4. slice: the flagship derived net (default_genotype(3), base 16, depth
      3, fp32, random weights from --seed through the flax bridge) serves
      synthetic 160x192x152x4 patients through SlidingWindowPredictor +
@@ -45,7 +48,8 @@ Phases, each printed as JSON lines:
      from the modules) x 5.
   7. pallas_kernels: the `use_pallas` configuration's kernels against their
      twins at every geometry it gives them: K6 conv3d (stride 1 and 2) in
-     fp32 at batch 2 and in bf16 at batch 1, plus off the path a
+     fp32 at batch 2 (the FMA conv tile) and in bf16 at batch 1 (the
+     tensor-core conv), plus off the path a
      dilation-2 and a bias+ReLU case, the ragged volume at stride 1 and
      2, Cin 4 -> Cout 12 at stride 1 and at stride 2 with dilation 2, and
      stride 2 with dilation 2; K7 pointwise_conv (bf16 on the tensor
@@ -79,12 +83,14 @@ Phases, each printed as JSON lines:
      `torch.profiler` trace) are the tensor-core conv's
      (`conv_mma_kernel`), K2's, K7's and K4's in bf16 the tensor-core
      GEMM's (`gemm_mma_kernel`), each instantiation of both with HMMA in
-     its SASS; K1, K2, K7, K4 in fp32 and the fp32 convs launch the FMA
+     its SASS; K1, K1-dx and K6 (stride 1 and 2) in fp32 launch the FMA
+     conv tile (`conv_fma_kernel`), every instantiation of which has FFMA
+     and no HMMA in its SASS; K2, K7 and K4 in fp32 launch the FMA
      template (`gemm_moments_kernel`), none of whose instantiations has
-     any and none of which is bf16; the conv's tile plan and brick count
-     equal `ops/conv_mma.py`'s mirror at every K1, K1-dx and K6 geometry
-     checked, the GEMM's plan `ops/gemm_mma.py`'s at every K2, K7 and K4
-     geometry.
+     HMMA and none of which is bf16; the conv tiles' plans and brick
+     counts equal `ops/conv_mma.py`'s and `ops/conv_fma.py`'s mirrors at
+     every K1, K1-dx and K6 geometry checked, the GEMM's plan
+     `ops/gemm_mma.py`'s at every K2, K7 and K4 geometry.
 Then the nvidia-smi line, the kernels summary line and, last,
 `{"ok": true, "device": {...}}`.  In the kernels line a serving kernel's
 `ms`, `plain_ms`, `library_ms` and `bound_ms` are one flagship forward's
@@ -127,6 +133,7 @@ SRC_GN = "nas_3d_unet_tpu_torch/csrc/groupnorm.cu"
 SRC_PROBES = "nas_3d_unet_tpu_torch/csrc/probes.cu"
 SRC_MMA = "nas_3d_unet_tpu_torch/csrc/conv_mma.cuh"   # in pgemm.cu, conv3d.cu
 SRC_GMMA = "nas_3d_unet_tpu_torch/csrc/gemm_mma.cuh"  # in pgemm.cu, conv3d.cu
+SRC_FMA = "nas_3d_unet_tpu_torch/csrc/conv_fma.cuh"   # in pgemm.cu, conv3d.cu
 PG_VARIANTS = ("nodot", "c6", "full", "mt4", "fold1536")
 SOURCES = {"moments": SRC_STATS, "weighted_sums": SRC_STATS,
            "weighted_sums_masked": SRC_STATS, "group_norm_apply": SRC_GN,
@@ -136,7 +143,9 @@ SOURCES = {"moments": SRC_STATS, "weighted_sums": SRC_STATS,
            **{f"pg_{v}": SRC_PROBES for v in PG_VARIANTS},
            "conv3x3x3_bf16": SRC_MMA, "conv3d_bf16": SRC_MMA,
            "conv3x3x3_stats_bf16": SRC_MMA, "gemm_stats_bf16": SRC_GMMA,
-           "pointwise_conv_bf16": SRC_GMMA, "conv_transpose2x_bf16": SRC_GMMA}
+           "pointwise_conv_bf16": SRC_GMMA, "conv_transpose2x_bf16": SRC_GMMA,
+           "conv3x3x3_f32": SRC_FMA, "conv3d_f32": SRC_FMA,
+           "conv3x3x3_stats_f32": SRC_FMA}
 # the rest: SRC_PGEMM (by kernel name, else by its name without the dtype)
 REPLACES = {
     "conv3x3x3_stats": "nas_3d_unet_tpu/ops/pallas/pgemm.py:174",  # conv_pgemm
@@ -736,11 +745,15 @@ def _run_check(phase, kernel, fn, summary, per_unit, *args):
 
 
 def phase_kernels(dev, gen, summary):
-    """Serving kernels, fp32, batch 2; per_unit = launches per forward."""
+    """Serving kernels, fp32, batch 2; per_unit = launches per forward (0
+    off the path, and for K1-dx, which serving never runs)."""
     f32 = torch.float32
-    for cin, cout, v, dil, n in K1_GEOMS:
+    for cin, cout, v, dil, n in K1_GEOMS + K1_EXTRA:
         _run_check("kernel", "conv3x3x3_stats_f32", check_conv, summary, n,
                    dev, gen, cin, cout, v, dil, BATCH, f32, True)
+    for cin, cout, v, dil, _ in K1DX_TRAIN + K1DX_EXTRA:
+        _run_check("kernel", "conv3x3x3_f32", check_conv, summary, 0,
+                   dev, gen, cin, cout, v, dil, BATCH, f32, False)
     for k, nn, v, n in K2_GEOMS:
         _run_check("kernel", "gemm_stats_f32", check_gemm, summary, n,
                    dev, gen, k, nn, v, BATCH, f32)
@@ -1297,9 +1310,10 @@ def check_pg(variant, ops):
 
 
 def sass_functions(so):
-    """[(function, HMMA instructions)] for every kernel function in the
-    built library's SASS (`cuobjdump -sass`), mangled names (the two
-    sources' instantiations of one template each appear)."""
+    """[(function, HMMA instructions, FFMA instructions)] for every kernel
+    function in the built library's SASS (`cuobjdump -sass`), mangled
+    names (the two sources' instantiations of one template each
+    appear)."""
     from nas_3d_unet_tpu_torch import _build
 
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
@@ -1308,16 +1322,18 @@ def sass_functions(so):
     out = []
     for ln in sass.splitlines():
         if "Function :" in ln:
-            out.append([ln.split("Function :", 1)[1].strip(), 0])
+            out.append([ln.split("Function :", 1)[1].strip(), 0, 0])
         elif out and "HMMA" in ln:
             out[-1][1] += 1
+        elif out and "FFMA" in ln:
+            out[-1][2] += 1
     return [tuple(f) for f in out]
 
 
 def sass_hmma(functions):
     """HMMA instructions in each E2 kernel's SASS, by variant."""
     counts = {}
-    for fn, n in functions:
+    for fn, n, _ in functions:
         v = next((v for v in PG_VARIANTS if f"pg_{v}_kernel" in fn), None)
         if v:
             counts[v] = n
@@ -1376,8 +1392,10 @@ def kernels_launched(fn, *args):
 
 # (kernel, device kernel it must launch, call): the tensor-core conv behind
 # K1, K1-dx and K6 in bf16, the tensor-core GEMM behind K2, K7 and K4 in
-# bf16, the FMA template behind K1, K2 and the convs in fp32
-MMA, GMMA, FMA = "conv_mma_kernel", "gemm_mma_kernel", "gemm_moments_kernel"
+# bf16, the FMA conv tile behind K1, K1-dx and K6 in fp32, the FMA template
+# behind K2, K7 and K4 in fp32
+MMA, GMMA = "conv_mma_kernel", "gemm_mma_kernel"
+CFMA, FMA = "conv_fma_kernel", "gemm_moments_kernel"
 
 
 def _sass_calls(dev, gen):
@@ -1401,28 +1419,33 @@ def _sass_calls(dev, gen):
              (xf, w2f, bias[:16], True)),
             ("conv_transpose2x_f32", FMA, conv3d.conv_transpose2x,
              (xf, w4.float(), False)),
-("conv3x3x3_bf16", MMA, pgemm.conv3x3x3, (x, w, 1)),
+            ("conv3x3x3_bf16", MMA, pgemm.conv3x3x3, (x, w, 1)),
             ("conv3d_bf16", MMA, conv3d.conv3d, (x, w, None, 1, 1, False)),
             ("conv3d_bf16", MMA, conv3d.conv3d, (x, w, bias, 2, 2, True)),
             ("conv3x3x3_stats_bf16", MMA, pgemm.conv3x3x3_stats, (x, w, 1)),
             ("gemm_stats_bf16", GMMA, pgemm.gemm_stats, (x3, w2)),
-            ("conv3x3x3_stats_f32", FMA, pgemm.conv3x3x3_stats, (xf, wf, 1)),
+            ("conv3x3x3_stats_f32", CFMA, pgemm.conv3x3x3_stats,
+             (xf, wf, 1)),
             ("gemm_stats_f32", FMA, pgemm.gemm_stats, (x3f, w2f)),
-            ("conv3x3x3_f32", FMA, pgemm.conv3x3x3, (xf, wf, 1)),
-            ("conv3d_f32", FMA, conv3d.conv3d, (xf, wf, None, 2, 1, False))]
+            ("conv3x3x3_f32", CFMA, pgemm.conv3x3x3, (xf, wf, 1)),
+            ("conv3d_f32", CFMA, conv3d.conv3d,
+             (xf, wf, bias, 1, 1, True)),
+            ("conv3d_f32", CFMA, conv3d.conv3d, (xf, wf, None, 2, 1, False))]
 
 
 def plans_agree():
-    """The tensor-core kernels' plans from the library against their
-    mirrors: the conv's (`conv_mma_plan`, and `conv_mma_blocks`, which
-    sizes K1's moments partials) against `ops/conv_mma.py` at every K1,
-    K1-dx and K6 geometry checked, the GEMM's (`gemm_mma_plan`) against
+    """The hand-written tiles' plans from the library against their
+    mirrors: the tensor-core conv's (`conv_mma_plan`, and `conv_mma_blocks`,
+    which sizes K1's moments partials) against `ops/conv_mma.py` and the
+    FMA conv tile's (`conv_fma_plan`, `conv_fma_blocks`) against
+    `ops/conv_fma.py` at every K1, K1-dx and K6 geometry checked (both
+    dtypes run the same geometries), the GEMM's (`gemm_mma_plan`) against
     `ops/gemm_mma.py` at every K2 (moments), K7 and K4 (depth-to-space, N
     = 8·Cout) geometry: {geometry: (library, mirror)} where they
     differ."""
     import ctypes
 
-    from nas_3d_unet_tpu_torch.ops import _cuda, conv_mma, gemm_mma
+    from nas_3d_unet_tpu_torch.ops import _cuda, conv_fma, conv_mma, gemm_mma
 
     lib = _cuda.lib()
     geoms = {(ci, co, 1, d) for ci, co, _, d, _ in K1DX_TRAIN + K1DX_EXTRA}
@@ -1437,12 +1460,19 @@ def plans_agree():
         mirror = [p.bn, p.brick[0], p.nbuf, p.smem, math.prod(p.halo)]
         if list(out) != mirror:
             bad[str(g)] = (list(out), mirror)
+        if lib.conv_fma_plan(*g, out):
+            raise AssertionError(f"conv_fma_plan refused {g}")
+        p = conv_fma.plan(*g)
+        mirror = [p.bn, p.brick[0], conv_fma.KC, p.nbuf, p.smem]
+        if list(out) != mirror:
+            bad[str(("fma", *g))] = (list(out), mirror)
     for ci, co, v, d, _ in K1_TRAIN + K1_EXTRA:
         vol = _volume(v)
-        got = lib.conv_mma_blocks(ci, co, d, *vol)
-        want = len(list(conv_mma.bricks(vol, conv_mma.plan(ci, co, 1, d))))
-        if got != want:
-            bad[str(("blocks", ci, co, d, vol))] = (got, want)
+        for name, tile in (("conv_mma", conv_mma), ("conv_fma", conv_fma)):
+            got = getattr(lib, f"{name}_blocks")(ci, co, d, *vol)
+            want = len(list(conv_mma.bricks(vol, tile.plan(ci, co, 1, d))))
+            if got != want:
+                bad[str((name, "blocks", ci, co, d, vol))] = (got, want)
     gemms = {(k, n, 1, 0) for k, n, _, _ in K2_TRAIN + K2_EXTRA}
     gemms |= {(c, c, 0, 0) for c, _, _ in P_K7}
     gemms |= {(ci, co, 0, 0) for ci, co, _, _ in P_K7_EXTRA}
@@ -1462,16 +1492,21 @@ def plans_agree():
 def phase_sass(dev, gen, functions):
     """The bf16 convs (K1, K1-dx, K6) and GEMMs (K2, K7, K4) on the tensor
     cores: the kernels their wrappers launch are conv_mma_kernel or
-    gemm_mma_kernel instantiations, each with HMMA in its SASS; K1, K2,
-    K7, K4 and the convs in fp32 launch the FMA template
-    (gemm_moments_kernel), with none in any instantiation, and no
-    instantiation of it is bf16.  And the kernels' plans are the ones
-    `ops/conv_mma.py` and `ops/gemm_mma.py` mirror."""
-    hmma = {kind: {fn: n for fn, n in functions if kind in fn}
-            for kind in (MMA, GMMA, FMA)}
+    gemm_mma_kernel instantiations, each with HMMA in its SASS; the fp32
+    convs on the FMA conv tile: they launch conv_fma_kernel (and not the
+    FMA template), every instantiation of which has FFMA and no HMMA; K2,
+    K7, K4 in fp32 launch the FMA template (gemm_moments_kernel), with no
+    HMMA in any instantiation, and no instantiation of it is bf16.  And
+    the kernels' plans are the ones `ops/conv_mma.py`, `ops/conv_fma.py`
+    and `ops/gemm_mma.py` mirror."""
+    hmma = {kind: {fn: n for fn, n, _ in functions if kind in fn}
+            for kind in (MMA, GMMA, CFMA, FMA)}
+    ffma = {fn: n for fn, _, n in functions if CFMA in fn}
     fma_bf16 = [fn for fn in hmma[FMA] if "nv_bfloat16" in fn]
     ok = all(hmma[MMA].values()) and all(hmma[GMMA].values()) \
         and bool(hmma[MMA]) and bool(hmma[GMMA]) \
+        and bool(ffma) and all(ffma.values()) \
+        and not any(hmma[CFMA].values()) \
         and not any(hmma[FMA].values()) and not fma_bf16
     launched = {}
     with torch.no_grad():
@@ -1482,16 +1517,18 @@ def phase_sass(dev, gen, functions):
             ok = ok and bool(mains) and all(want in n for n in mains)
     plans_differ = plans_agree()
     emit({"phase": "sass", "conv_mma_hmma": hmma[MMA],
-          "gemm_mma_hmma": hmma[GMMA], "gemm_moments_hmma": hmma[FMA],
+          "gemm_mma_hmma": hmma[GMMA], "conv_fma_hmma": hmma[CFMA],
+          "conv_fma_ffma": ffma, "gemm_moments_hmma": hmma[FMA],
           "gemm_moments_bf16": fma_bf16,
           "launched": launched, "plans_differ": plans_differ,
           "ok": ok and not plans_differ})
     if not ok:
         raise AssertionError("the bf16 convs and GEMMs are not all on the "
-                             "tensor cores, or an FMA kernel has HMMA or "
+                             "tensor cores, the fp32 convs not all on the "
+                             "FMA conv tile, or an FMA kernel has HMMA or "
                              "is bf16")
     if plans_differ:
-        raise AssertionError(f"tensor-core plans differ: {plans_differ}")
+        raise AssertionError(f"tile plans differ: {plans_differ}")
 
 
 def phase_probes(dev, seed, summary, functions):
@@ -1565,7 +1602,8 @@ def main() -> int:
     emit({"phase": "build", "seconds": build_s,
           "sources": [SRC_PGEMM, SRC_CONV, SRC_STATS, SRC_GN, SRC_PROBES],
           "flags": " ".join(_build.NVCC_FLAGS), "ptxas": ptxas,
-          "ptxas_tensor_core_kernels": ptxas_report(log, (MMA, GMMA))})
+          "ptxas_tensor_core_kernels": ptxas_report(log, (MMA, GMMA)),
+          "ptxas_conv_fma": ptxas_report(log, (CFMA,))})
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)

@@ -1,18 +1,16 @@
 // The use_pallas configuration's conv kernels, fp32 or bf16 elements with
-// fp32 accumulation, rounded once.  In fp32 they instantiate the FMA
-// implicit-GEMM template (its bound and design: igemm.cuh); in bf16 they
-// run on the tensor cores: K6 on the conv tile (conv_mma.cuh), K7 and K4
-// on the voxel-row GEMM tile (gemm_mma.cuh).
+// fp32 accumulation, rounded once.  In fp32 they run on the FMA units: K6
+// on the conv tile (its bound and design: conv_fma.cuh), K7 and K4 on the
+// implicit-GEMM template (igemm.cuh); in bf16 they run on the tensor
+// cores: K6 on the conv tile (conv_mma.cuh), K7 and K4 on the voxel-row
+// GEMM tile (gemm_mma.cuh).
 //
 // Replaces (nas_3d_unet_tpu/ops/pallas/conv3d.py):
 //   K6 conv3d_{f32,bf16}           <- conv3d (:201, _conv3d_pallas_fwd
 //      :139, body _conv3d_kernel :51): 3^3 SAME conv, stride 1 or 2,
 //      dilation 1 or 2, lax's pads (the odd one high), optional bias and
-//      ReLU.  fp32: at stride 1 without either it is K1-dx's fp32 kernel
-//      (pad = dil on both sides); otherwise the general gather, whose
-//      stride and low pads ride in the row coordinates each thread
-//      computes once, so the per-load work is the same add and bounds
-//      test.  bf16: conv_mma.cuh at every stride, dilation and epilogue.
+//      ReLU: conv_fma.cuh (fp32) or conv_mma.cuh (bf16) at every stride,
+//      dilation and epilogue.
 //   K7 pointwise_conv_{f32,bf16}   <- pointwise_conv (:279,
 //      _pointwise_fwd :300, body :251): the K2 GEMM without the moments,
 //      optional bias and ReLU.  Bytes-bound: 2*K*N flops per (K + N) * 2
@@ -27,12 +25,13 @@
 //      bf16: gemm_mma.cuh reads the DHWIO kernel with lax's flip itself.
 // The TPU kernels fuse bias and ReLU into the matmul's epilogue; so do
 // these: the template compiles its EPI step in only for a call that asks
-// for either; conv_mma.cuh's and gemm_mma.cuh's epilogues read the flags
+// for either; the conv tiles' and gemm_mma.cuh's epilogues read the flags
 // at run time.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "conv_fma.cuh"
 #include "conv_mma.cuh"
 #include "gemm_mma.cuh"
 #include "igemm.cuh"
@@ -62,16 +61,16 @@ extern "C" {
 int conv3d_f32(const float* x, const float* w, const float* bias, float* y,
                int B, int D, int H, int W, int Cin, int Cout, int stride,
                int dil, int pd, int ph, int pw, int relu, void* stream) {
-  if (stride == 1 && bias == nullptr && !relu) {
-    const ConvGeom g{D, H, W, Cin, dil};
-    return launch<kConvS1>(x, w, bias, y, B, D * H * W, 27 * Cin, Cout, 0, g,
-                           stream);
-  }
-  const int Do = (D + stride - 1) / stride, Ho = (H + stride - 1) / stride;
-  const int Wo = (W + stride - 1) / stride;
-  const ConvGeom g{D, H, W, Cin, dil, stride, pd, ph, pw, Ho, Wo};
-  return launch<kConv>(x, w, bias, y, B, Do * Ho * Wo, 27 * Cin, Cout, relu,
-                       g, stream);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (stride == 1)
+    return cfma::launch_conv_fma<1, false>(x, w, bias, y, nullptr, B, D, H, W,
+                                           Cin, Cout, dil, pd, ph, pw, relu,
+                                           st);
+  if (stride == 2)
+    return cfma::launch_conv_fma<2, false>(x, w, bias, y, nullptr, B, D, H, W,
+                                           Cin, Cout, dil, pd, ph, pw, relu,
+                                           st);
+  return (int)cudaErrorInvalidValue;
 }
 
 int conv3d_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w,
@@ -95,6 +94,22 @@ int conv_mma_plan(int cin, int cout, int stride, int dil, int* out) {
   out[2] = p.nbuf;
   out[3] = (int)p.smem;
   out[4] = p.hd * p.hh * p.hw;
+  return 0;
+}
+
+// The FMA conv tile's plan for (Cin, Cout, stride, dil) into out[5]: BN,
+// the output brick's depth, the input channels per chunk, the
+// shared-memory stages, the bytes of shared memory (ops/conv_fma.py:plan
+// mirrors it).
+int conv_fma_plan(int cin, int cout, int stride, int dil, int* out) {
+  if (cin < 1 || cout < 1 || stride < 1 || stride > 2 || dil < 1 || dil > 2)
+    return (int)cudaErrorInvalidValue;
+  const cfma::Plan p = cfma::make_plan(cin, cout, stride, dil);
+  out[0] = p.bn;
+  out[1] = p.bd;
+  out[2] = cfma::kKC;
+  out[3] = p.nbuf;
+  out[4] = (int)p.smem;
   return 0;
 }
 

@@ -1,43 +1,36 @@
-// The implicit-GEMM kernel template behind the package's fp32 conv and
-// GEMM kernels on the FMA units: K1, K1-dx and K2 (pgemm.cu) and K6, K7
-// and K4 (conv3d.cu).  Every bf16 kernel runs on the tensor cores: the 3^3
-// convs K1, K1-dx and K6 on conv_mma.cuh, the GEMMs K2, K7 and K4 on
-// gemm_mma.cuh.  The template still compiles for bf16 elements (fp32
-// accumulation), but no kernel instantiates it so.
+// The implicit-GEMM kernel template behind the package's fp32 GEMM kernels
+// on the FMA units: K2 (pgemm.cu), K7 and K4 (conv3d.cu).  The fp32 3^3
+// convs (K1, K1-dx, K6) run on the FMA conv tile, conv_fma.cuh; every bf16
+// kernel runs on the tensor cores (conv_mma.cuh, gemm_mma.cuh).  The
+// template still compiles for bf16 elements (fp32 accumulation), but no
+// kernel instantiates it so.
 //
-// Replaces (nas_3d_unet_tpu/ops/pallas/), in fp32: pgemm.py:174
-// conv_pgemm (K1, with and without its moments: K1-dx) and :311
-// gemm_stats (K2); conv3d.py:201 conv3d (K6), :279 pointwise_conv (K7)
-// and :356 conv_transpose2x (K4).
+// Replaces (nas_3d_unet_tpu/ops/pallas/), in fp32: pgemm.py:311
+// gemm_stats (K2); conv3d.py:279 pointwise_conv (K7) and :356
+// conv_transpose2x (K4).
 //
 // What bounds them on the H100: in fp32 the tensor cores (bf16/TF32) are
 // off limits and the ceiling is the 67 TFLOP/s of fp32 FMA against 3.35
-// TB/s (balance ~20 flop/B).  The 3^3 convs (K1, K6) are compute-bound: a
-// 3^3 conv does 54*Cin flops per output value (16->16: 216 flop/B in
-// fp32).  The GEMMs (K2, K7, K4) straddle the balance: a voxel row does
-// 2*K*N flops for (K+N)*4 bytes, 6 flop/B at 48->16 up to 38 at 192->128.
+// TB/s (balance ~20 flop/B).  The GEMMs straddle the balance: a voxel row
+// does 2*K*N flops for (K+N)*4 bytes, 6 flop/B at 48->16 up to 38 at
+// 192->128.
 //
-// What the design does about it: one implicit-GEMM kernel for all,
-//   Y[m, n] = sum_k A[m, k] * Wt[k, n],  k = tap * Cin + ci,
-// where A is gathered on the fly from NDHWC x (the 3^3 convs, zero outside
-// the volume) or read directly (the GEMMs), and Wt is the DHWIO kernel
-// read as (27*Cin, Cout).  Flattening (tap, ci) into one K axis keeps the
-// 4-channel stem as dense as the 128-channel bottleneck.  A block computes
-// a BM x BN tile of Y with 256 threads, each holding an 8x4 register tile
-// (8x2 at BN=16), from 8-deep K slices double-buffered in shared memory:
-// the next slice's global loads are in flight in registers while the
-// current one is multiplied.  BN follows N (16/32/64) so narrow layers
-// waste no columns.  The epilogue rounds y once to the element type and
-// stores it, then reduces the tile's column sums in a fixed order into
-// per-block partials (the moments; the caller sums the partials in a
-// fixed order, so they are the same bits run to run, no atomics).  What
-// varies by caller is compiled in or out by template flags, so K1's and
-// K2's code is not burdened by K6's: the gather (stride 1 with pad = dil,
-// or any stride with lax's low-side pads), the store (rows, or the 2^3
-// output block of each voxel for K4), the moments, and a bias/ReLU step.
-// Simple first: no cp.async/TMA, no tensor cores (conv_mma.cuh and
-// gemm_mma.cuh have them for bf16; the fp32 path is held to TF32-off
-// numbers, so it stays on the FMA units).
+// What the design does about it: one GEMM kernel for all three,
+//   Y[m, n] = sum_k X[m, k] * W[k, n]
+// over the voxel rows of x.  A block computes a BM x BN tile of Y with 256
+// threads, each holding an 8x4 register tile (8x2 at BN=16), from 8-deep K
+// slices double-buffered in shared memory: the next slice's global loads
+// are in flight in registers while the current one is multiplied.  BN
+// follows N (16/32/64) so narrow layers waste no columns.  The epilogue
+// rounds y once to the element type and stores it, then reduces the tile's
+// column sums in a fixed order into per-block partials (the moments; the
+// caller sums the partials in a fixed order, so they are the same bits run
+// to run, no atomics).  What varies by caller is compiled in or out by
+// template flags, so K2's code is not burdened by K4's: the store (rows, or
+// the 2^3 output block of each voxel for K4), the moments, and a bias/ReLU
+// step.  Simple first: no cp.async/TMA, no tensor cores (gemm_mma.cuh has
+// them for bf16; the fp32 path is held to TF32-off numbers, so it stays on
+// the FMA units).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -56,25 +49,14 @@ constexpr int kThreads = 256;
 constexpr int kBK = 8;   // K slice staged per iteration
 constexpr int kTM = 8;   // rows of Y per thread
 
-// How A is read and Y written (the template's LAYOUT):
-constexpr int kGemm = 0;     // A = x[b] as (rows, K); Y stored as rows
-constexpr int kConvS1 = 1;   // A gathered, stride 1, pad = dil (K1; fp32
-                             // K1-dx and K6)
-constexpr int kConv = 2;     // A gathered, g's stride and low pads (fp32 K6)
-constexpr int kGemmD2S = 3;  // A as rows; Y stored depth-to-space (K4)
+// How Y is written (the template's LAYOUT); A = x[b] as (rows, K) in both
+constexpr int kGemm = 0;     // Y stored as rows
+constexpr int kGemmD2S = 1;  // Y stored depth-to-space (K4)
 
-// kConvS1/kConv: input volume (D, H, W) x Cin and dilation; kConv also
-//   the stride, the low-side pads and the output plane (Ho, Wo): rows are
-//   (Do, Ho, Wo) output voxels.
-// kGemmD2S: (D, H, W) is the input volume whose voxels are the rows.
+// kGemmD2S: the input volume (D, H, W) whose voxels are the rows
 struct ConvGeom {
-  int D, H, W, Cin, dil;
-  int stride, pd, ph, pw, Ho, Wo;
+  int D, H, W;
 };
-
-// kConv: offset added to each row coordinate so that o * stride - pad +
-// tap * dil (>= -2) stays non-negative in its 10-bit field.
-constexpr int kCoordBias = 2;
 
 // columns of Y per thread: 2 at BN=16 keeps the block at 256 rows (8 A
 // values staged per thread, not 16), which holds registers under the
@@ -91,8 +73,6 @@ inline int pick_bn(int n) {
   return 16;
 }
 
-// kConvS1/kConv: rows = output voxels of one batch item, K = 27*Cin, A
-//   gathered from x with SAME zero padding.
 // kGemm: rows = V voxel rows of one batch item, A = x[b] as (V, K).
 // kGemmD2S: N = 8*Cout; column n = (kd*4 + kh*2 + kw)*Cout + co of row
 //   (d, h, w) is stored at (2d+kd, 2h+kh, 2w+kw, co) of the (2D, 2H, 2W,
@@ -113,7 +93,6 @@ gemm_moments_kernel(const T* __restrict__ x, const T* __restrict__ w,
                     const float* __restrict__ bias, T* __restrict__ y,
                     float* __restrict__ partial, int rows, int K, int N,
                     int relu, ConvGeom g) {
-  constexpr bool CONV = LAYOUT == kConvS1 || LAYOUT == kConv;
   constexpr int TN = tile_n(BN);
   constexpr int BM = row_block(BN);
   constexpr int TX = BN / TN;               // threads along N
@@ -135,81 +114,25 @@ gemm_moments_kernel(const T* __restrict__ x, const T* __restrict__ w,
   const int kk = tid % kBK;                 // this thread's K lane when staging
   const int r_base = tid / kBK;
 
-  const T* xb = x + (size_t)b * (LAYOUT == kConv
-                                     ? (size_t)g.D * g.H * g.W * g.Cin
-                                     : (size_t)rows * (CONV ? g.Cin : K));
+  const T* xb = x + (size_t)b * rows * K;
 
-  // staged rows: kConvS1 packs the output voxel (d, h, w) into 10-bit
-  // fields, kConv its input corner (o * stride + kCoordBias per axis),
-  // the GEMMs keep m; -1 marks a row past the end (the ragged tail), which
+  // staged rows, or -1 for a row past the end (the ragged tail), which
   // stages zeros
   int rc[LR];
 #pragma unroll
   for (int i = 0; i < LR; ++i) {
     const int m = m0 + r_base + RSTEP * i;
-    if (m >= rows) {
-      rc[i] = -1;
-    } else if constexpr (LAYOUT == kConvS1) {
-      const int hw = g.H * g.W;
-      const int d = m / hw;
-      const int rem = m - d * hw;
-      const int h = rem / g.W;
-      rc[i] = (d << 20) | (h << 10) | (rem - h * g.W);
-    } else if constexpr (LAYOUT == kConv) {
-      const int hw = g.Ho * g.Wo;
-      const int d = m / hw;
-      const int rem = m - d * hw;
-      const int h = rem / g.Wo;
-      const int ww = rem - h * g.Wo;
-      rc[i] = ((d * g.stride + kCoordBias) << 20) |
-              ((h * g.stride + kCoordBias) << 10) |
-              (ww * g.stride + kCoordBias);
-    } else {
-      rc[i] = m;
-    }
+    rc[i] = m >= rows ? -1 : m;
   }
 
   float a_reg[LR], b_reg[LB];
   // global -> registers for the K slice starting at k0
   auto load = [&](int k0) {
     const int k = k0 + kk;
-    if constexpr (CONV) {
-      int od = 0, oh = 0, ow = 0, ci = 0;
-      const bool kval = k < K;
-      if (kval) {
-        const int tap = k / g.Cin;
-        ci = k - tap * g.Cin;
-        if constexpr (LAYOUT == kConvS1) {
-          od = (tap / 9 - 1) * g.dil;
-          oh = ((tap / 3) % 3 - 1) * g.dil;
-          ow = (tap % 3 - 1) * g.dil;
-        } else {
-          od = (tap / 9) * g.dil - g.pd - kCoordBias;
-          oh = ((tap / 3) % 3) * g.dil - g.ph - kCoordBias;
-          ow = (tap % 3) * g.dil - g.pw - kCoordBias;
-        }
-      }
 #pragma unroll
-      for (int i = 0; i < LR; ++i) {
-        float v = 0.f;
-        const int p = rc[i];
-        if (kval && p >= 0) {
-          const int d = (p >> 20) + od;
-          const int h = ((p >> 10) & 1023) + oh;
-          const int ww = (p & 1023) + ow;
-          if (d >= 0 && d < g.D && h >= 0 && h < g.H && ww >= 0 && ww < g.W)
-            v = load_f32(xb + (((size_t)d * g.H + h) * g.W + ww) * g.Cin +
-                         ci);
-        }
-        a_reg[i] = v;
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < LR; ++i) {
-        const int p = rc[i];
-        a_reg[i] = (k < K && p >= 0) ? load_f32(xb + (size_t)p * K + k)
-                                     : 0.f;
-      }
+    for (int i = 0; i < LR; ++i) {
+      const int p = rc[i];
+      a_reg[i] = (k < K && p >= 0) ? load_f32(xb + (size_t)p * K + k) : 0.f;
     }
 #pragma unroll
     for (int i = 0; i < LB; ++i) {

@@ -1,6 +1,7 @@
 // The tensor-core building blocks shared by the bf16 MMA kernels
 // (conv_mma.cuh, gemm_mma.cuh, probes.cu): cp.async 16-byte copies into
-// shared memory, ldmatrix, and mma.sync m16n8k16 with bf16 operands and
+// shared memory (and the 4-byte ones the fp32 conv tile, conv_fma.cuh,
+// also takes), ldmatrix, and mma.sync m16n8k16 with bf16 operands and
 // fp32 accumulators (sm_80 and later; Hopper runs them at a fraction of
 // its wgmma rate).
 #pragma once
@@ -28,6 +29,15 @@ __device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_u32(dst)),
                "l"(src), "r"(full ? 16 : 0));
+}
+
+// 4 bytes from src, or 4 zero bytes where !full (src must still be valid);
+// for rows that 16-byte copies cannot take (conv_fma.cuh)
+__device__ __forceinline__ void cp_async4_zfill(void* dst, const void* src,
+                                                bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(full ? 4 : 0));
 }
 
 __device__ __forceinline__ void cp_async_commit() {

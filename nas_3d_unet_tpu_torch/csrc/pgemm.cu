@@ -1,8 +1,9 @@
 // K1, K1-dx and K2: the stride-1 ConvNormAct convs with their GroupNorm
-// moments, and K1's dx.  fp32 (serving) instantiates the FMA implicit-GEMM
-// template (its bound and design: igemm.cuh); bf16 (training) runs on the
-// tensor cores: the 3^3 convs on conv_mma.cuh, the 1^3 GEMM on
-// gemm_mma.cuh, each with the moments epilogue of moments.cuh.
+// moments, and K1's dx.  fp32 (serving) runs the 3^3 convs on the FMA conv
+// tile (conv_fma.cuh) and the 1^3 GEMM on the FMA implicit-GEMM template
+// (igemm.cuh); bf16 (training) runs on the tensor cores: the 3^3 convs on
+// conv_mma.cuh, the 1^3 GEMM on gemm_mma.cuh.  Each has a moments
+// epilogue (the tensor-core kernels share moments.cuh's).
 //
 // Replaces (nas_3d_unet_tpu/ops/pallas/pgemm.py):
 //   K1 conv3x3x3_stats_{f32,bf16} <- conv_pgemm (:174, body _kernel :74)
@@ -11,9 +12,7 @@
 //   K1-dx conv3x3x3_{f32,bf16}    <- the same conv_pgemm with
 //      with_stats=False, as _pg_stats_fn's backward runs it for dx
 //      (ops/packed.py:491-504): the conv of dy with the flip-transposed
-//      kernel.  fp32: the template with the epilogue and the moments
-//      reduce compiled out; bf16: the tensor-core conv at stride 1, pad =
-//      dilation.
+//      kernel; the conv tiles at stride 1, pad = dilation, no moments.
 //   K2 gemm_stats_{f32,bf16}      <- gemm_stats (:311, body _gemm_kernel
 //      :287): y = x @ W over voxel rows (the 1^3 conv), same epilogue.
 // The moments are per-(batch, channel) sums of y and y^2, which GroupNorm
@@ -30,6 +29,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "conv_fma.cuh"
 #include "conv_mma.cuh"
 #include "gemm_mma.cuh"
 #include "igemm.cuh"
@@ -65,26 +65,22 @@ int reduce_moments(int err, const float* partial, float* s1, float* s2,
   return (int)cudaGetLastError();
 }
 
-// The FMA template.  STATS: also sum the per-block partials into s1/s2;
-// otherwise partial, s1 and s2 are unused (may be null)
-template <int LAYOUT, bool STATS, typename T>
-int launch(const T* x, const T* w, T* y, float* partial, float* s1, float* s2,
-           int B, int rows, int K, int N, ConvGeom g, cudaStream_t st) {
-  const int err = launch_gemm<LAYOUT, STATS, false>(
-      x, w, nullptr, y, partial, B, rows, K, N, 0, g, st);
-  if (!STATS) return err;
-  const int nblk = (rows + row_block(pick_bn(N)) - 1) / row_block(pick_bn(N));
-  return reduce_moments(err, partial, s1, s2, B, nblk, N, st);
-}
-
 }  // namespace
 
 extern "C" {
 
 // Rows of Y per block of the fp32 FMA template for an output width n; the
-// caller of K1/K2 fp32 sizes `partial` as (B, ceil(rows /
-// pgemm_row_block(n)), 2, n) fp32.
+// caller of K2 fp32 sizes `partial` as (B, ceil(rows / pgemm_row_block(n)),
+// 2, n) fp32.
 int pgemm_row_block(int n) { return row_block(pick_bn(n)); }
+
+// Blocks per batch item of the FMA conv tile at stride 1 (K1 fp32) for a
+// (D, H, W) volume: the caller sizes `partial` as (B, blocks, 2, Cout).
+int conv_fma_blocks(int cin, int cout, int dil, int D, int H, int W) {
+  if (cin < 1 || cout < 1 || dil < 1 || dil > 2 || D < 1 || H < 1 || W < 1)
+    return -(int)cudaErrorInvalidValue;
+  return cfma::grid_bricks(cfma::make_plan(cin, cout, 1, dil), D, H, W);
+}
 
 // Blocks per batch item of the tensor-core conv at stride 1 (K1 bf16) for
 // a (D, H, W) volume: the caller sizes `partial` as (B, blocks, 2, Cout).
@@ -116,9 +112,12 @@ int conv3x3x3_stats_f32(const float* x, const float* w, float* y,
                         float* partial, float* s1, float* s2, int B, int D,
                         int H, int W, int Cin, int Cout, int dil,
                         void* stream) {
-  const ConvGeom g{D, H, W, Cin, dil};
-  return launch<kConvS1, true>(x, w, y, partial, s1, s2, B, D * H * W,
-                               27 * Cin, Cout, g, (cudaStream_t)stream);
+  cudaStream_t st = (cudaStream_t)stream;
+  const int err = cfma::launch_conv_fma<1, true>(
+      x, w, nullptr, y, partial, B, D, H, W, Cin, Cout, dil, dil, dil, dil,
+      0, st);
+  return reduce_moments(err, partial, s1, s2, B,
+                        conv_fma_blocks(Cin, Cout, dil, D, H, W), Cout, st);
 }
 
 int conv3x3x3_stats_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w,
@@ -137,9 +136,9 @@ int conv3x3x3_stats_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w,
 int conv3x3x3_f32(const float* x, const float* w, float* y, float* partial,
                   float* s1, float* s2, int B, int D, int H, int W, int Cin,
                   int Cout, int dil, void* stream) {
-  const ConvGeom g{D, H, W, Cin, dil};
-  return launch<kConvS1, false>(x, w, y, partial, s1, s2, B, D * H * W,
-                                27 * Cin, Cout, g, (cudaStream_t)stream);
+  return cfma::launch_conv_fma<1, false>(x, w, nullptr, y, nullptr, B, D, H,
+                                         W, Cin, Cout, dil, dil, dil, dil, 0,
+                                         (cudaStream_t)stream);
 }
 
 int conv3x3x3_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w,
@@ -156,8 +155,12 @@ int conv3x3x3_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w,
 int gemm_stats_f32(const float* x, const float* w, float* y, float* partial,
                    float* s1, float* s2, int B, int V, int K, int N,
                    void* stream) {
-  return launch<kGemm, true>(x, w, y, partial, s1, s2, B, V, K, N,
-                             ConvGeom{}, (cudaStream_t)stream);
+  cudaStream_t st = (cudaStream_t)stream;
+  const int err = launch_gemm<kGemm, true, false>(
+      x, w, nullptr, y, partial, B, V, K, N, 0, ConvGeom{}, st);
+  return reduce_moments(err, partial, s1, s2, B,
+                        (V + pgemm_row_block(N) - 1) / pgemm_row_block(N), N,
+                        st);
 }
 
 int gemm_stats_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w,

@@ -51,10 +51,12 @@ def lib() -> ctypes.CDLL:
                              ("stats_chunks", [I, I, I])):
             getattr(lib_, fn).argtypes = argtypes
             getattr(lib_, fn).restype = I
-        lib_.conv_mma_plan.argtypes = [I] * 4 + [ctypes.POINTER(I)]
-        lib_.conv_mma_plan.restype = I
-        lib_.conv_mma_blocks.argtypes = [I] * 6
-        lib_.conv_mma_blocks.restype = I
+        for tile in ("conv_mma", "conv_fma"):
+            getattr(lib_, f"{tile}_plan").argtypes = (
+                [I] * 4 + [ctypes.POINTER(I)])
+            getattr(lib_, f"{tile}_plan").restype = I
+            getattr(lib_, f"{tile}_blocks").argtypes = [I] * 6
+            getattr(lib_, f"{tile}_blocks").restype = I
         lib_.gemm_mma_plan.argtypes = [I] * 4 + [ctypes.POINTER(I)]
         lib_.gemm_mma_plan.restype = I
         for fn, (n_ptr, n_int) in _SIGNATURES.items():

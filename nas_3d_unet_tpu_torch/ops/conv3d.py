@@ -1,12 +1,13 @@
 """The `use_pallas` convs: the counterpart of
 `nas_3d_unet_tpu/ops/pallas/conv3d.py`.
 
-Kernels (`csrc/conv3d.cu`: in fp32 on the FMA implicit-GEMM template of
-K1 and K2, `csrc/igemm.cuh`; in bf16 on the tensor cores, K6 on the conv
-tile `csrc/conv_mma.cuh` (planned as `ops/conv_mma.py` mirrors), K7 and
-K4 on K2's GEMM tile `csrc/gemm_mma.cuh` (`ops/gemm_mma.py`)), fp32 or
-bf16 with fp32 accumulation, rounded once to the input's dtype, each with
-its plain PyTorch twin beside it:
+Kernels (`csrc/conv3d.cu`: in fp32 on the FMA units, K6 on K1's conv
+tile `csrc/conv_fma.cuh` (planned as `ops/conv_fma.py` mirrors), K7 and
+K4 on the implicit-GEMM template of K2, `csrc/igemm.cuh`; in bf16 on the
+tensor cores, K6 on the conv tile `csrc/conv_mma.cuh` (`ops/conv_mma.py`),
+K7 and K4 on K2's GEMM tile `csrc/gemm_mma.cuh` (`ops/gemm_mma.py`)),
+fp32 or bf16 with fp32 accumulation, rounded once to the input's dtype,
+each with its plain PyTorch twin beside it:
 
   K6 `conv3d(x, w, b, stride, dilation, relu)`: 3³ SAME conv, stride 1 or
      2, dilation 1 or 2, lax's pads (the odd one high, `_same_pad`),
@@ -41,8 +42,6 @@ import torch
 import torch.nn.functional as F
 
 from . import _cuda
-
-_MAX_EDGE = 1020        # the kernel packs each row coordinate in 10 bits
 
 
 def same_pad(in_size: int, kernel: int, stride: int,
@@ -134,12 +133,12 @@ def conv3d_twin(x: torch.Tensor, w: torch.Tensor,
 
 
 def _k6(x, w, b, stride, dilation, relu):
+    """One K6 launch (the conv tile of x's dtype: `csrc/conv_fma.cuh` in
+    fp32, `csrc/conv_mma.cuh` in bf16), or its twin on the CPU."""
     if _cuda.dispatch("conv3d", x, w):
         return conv3d_twin(x, w, b, stride, dilation, relu)
     t = _cuda.check("conv3d", x, w)
     bsz, d, h, wd, cin = x.shape
-    if max(d, h, wd) > _MAX_EDGE:
-        raise ValueError(f"conv3d: volume {(d, h, wd)} too large")
     cout = w.shape[4]
     out = [-(-s // stride) for s in (d, h, wd)]
     y = torch.empty((bsz, *out, cout), dtype=x.dtype, device=x.device)

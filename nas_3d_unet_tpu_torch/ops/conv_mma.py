@@ -22,7 +22,9 @@ tile from the shapes:
       and the masked store; with `stats` also the per-block moments
       partials (`block_moments`) in block order.  No path runs it; the
       tests hold it against the twins and the JAX functions, which checks
-      the kernel's indexing where no card is.
+      the kernel's indexing where no card is.  Its walk over bricks, chunks
+      and taps, `brick_conv`, is shared with the fp32 tile's mirror
+      (`ops/conv_fma.py`).
   `block_moments(y, keep, mi)`  the moments epilogue of `csrc/moments.cuh`
       (shared with the tensor-core GEMM, `ops/gemm_mma.py`): one block's
       column sums of y and y² over the rows it keeps, in the kernel's fixed
@@ -138,18 +140,33 @@ def shifted_gemm_conv(x: torch.Tensor, w: torch.Tensor,
     in x's dtype, summed in fp32 chunk by chunk, tap by tap.  `stats`:
     (y, partial), partial (B, bricks, 2, Cout) fp32 each block's moments
     of its rounded y inside the volume, in block order."""
+    p = plan(x.shape[4], w.shape[4], stride, dilation)
+    return brick_conv(x, w, b, stride, dilation, pads, relu, stats, p, KC,
+                      p.halo[2], lambda y, keep: block_moments(y, keep, 2))
+
+
+def brick_conv(x, w, b, stride, dilation, pads, relu, stats, p, kc, pitch,
+               moments):
+    """The brick-and-tap walk both conv tiles share (this one and
+    `ops/conv_fma.py`'s): per brick of `p` (`.brick`, `.halo`, `.rows`,
+    `.nchunks`) and chunk of `kc` input channels, the zero-filled halo with
+    W extent `pitch`; per tap the (rows, kc) @ (kc, Cout) product of the
+    rows at the shifted halo positions; then bias, ReLU, one rounding to
+    x's dtype and the masked store; with `stats` also each block's moments
+    partials, `moments(y, keep)`."""
     bsz, *vol, cin = x.shape
     cout = w.shape[4]
-    p = plan(cin, cout, stride, dilation)
     pads = (dilation,) * 3 if pads is None else tuple(pads)
     out = [-(-v // stride) for v in vol]
-    hd, hh, hw = p.halo
+    hd, hh, _ = p.halo
     xf = x.float()
     wf = w.float().reshape(TAPS, cin, cout)
     r = torch.arange(p.rows)
     rd, rh, rw = r // (BH * BW), (r // BW) % BH, r % BW
-    hb = (rd * stride * hh + rh * stride) * hw + rw * stride
-    toff = [dilation * ((kd * hh + kh) * hw + kw)
+    # the halo voxel of row r at tap (0, 0, 0); tap (kd, kh, kw) adds
+    # dilation · ((kd·HH + kh)·pitch + kw)
+    hb = (rd * stride * hh + rh * stride) * pitch + rw * stride
+    toff = [dilation * ((kd * hh + kh) * pitch + kw)
             for kd, kh, kw in itertools.product(range(3), repeat=3)]
     y = torch.zeros((bsz, *out, cout))
     corners = list(bricks(out, p))
@@ -162,15 +179,15 @@ def shifted_gemm_conv(x: torch.Tensor, w: torch.Tensor,
             hi = [min(i + e, v) for i, e, v in zip(i0, p.halo, vol)]
             acc = torch.zeros((p.rows, cout))
             for c in range(p.nchunks):
-                c0, c1 = c * KC, min(c * KC + KC, cin)
-                halo = torch.zeros((hd, hh, hw, KC))
+                c0, c1 = c * kc, min(c * kc + kc, cin)
+                halo = torch.zeros((hd, hh, pitch, kc))
                 if all(h > l for l, h in zip(lo, hi)):
                     halo[lo[0] - i0[0]:hi[0] - i0[0],
                          lo[1] - i0[1]:hi[1] - i0[1],
                          lo[2] - i0[2]:hi[2] - i0[2], :c1 - c0] = xf[
                         n, lo[0]:hi[0], lo[1]:hi[1], lo[2]:hi[2], c0:c1]
-                flat = halo.reshape(-1, KC)
-                wc = torch.zeros((TAPS, KC, cout))
+                flat = halo.reshape(-1, kc)
+                wc = torch.zeros((TAPS, kc, cout))
                 wc[:, :c1 - c0] = wf[:, c0:c1]
                 for t in range(TAPS):
                     acc += flat[hb + toff[t]] @ wc[t]
@@ -183,6 +200,6 @@ def shifted_gemm_conv(x: torch.Tensor, w: torch.Tensor,
             acc = acc.to(x.dtype).float()                 # one rounding
             y[n, od[keep], oh[keep], ow[keep]] = acc[keep]
             if stats:
-                partial[n, i] = block_moments(acc, keep, 2)
+                partial[n, i] = moments(acc, keep)
     y = y.to(x.dtype)
     return (y, partial) if stats else y

@@ -3,18 +3,20 @@
 (`ops/packed.py` `_pg_stats_fn`, `_gemm_stats_fn`).
 
 Kernels (`csrc/pgemm.cu`), each in fp32 or bf16 with fp32 accumulation,
-each with its plain PyTorch twin.  fp32 (serving) runs the FMA tile
-(`csrc/igemm.cuh`); bf16 (training) runs on the tensor cores:
+each with its plain PyTorch twin.  fp32 (serving) runs on the FMA units,
+bf16 (training) on the tensor cores:
 
   K1 `conv3x3x3_stats(x, w, dilation)`: stride-1 3³ SAME conv on NDHWC with
-     a DHWIO kernel plus the moments (replaces `conv_pgemm`); bf16 on the
-     tensor-core conv with its moments epilogue (`csrc/conv_mma.cuh`, plan
-     and algorithm mirrored by `ops/conv_mma.py`);
+     a DHWIO kernel plus the moments (replaces `conv_pgemm`); fp32 on the
+     FMA conv tile with its moments epilogue (`csrc/conv_fma.cuh`, plan and
+     algorithm mirrored by `ops/conv_fma.py`), bf16 on the tensor-core conv
+     with its moments epilogue (`csrc/conv_mma.cuh`, `ops/conv_mma.py`);
   K1-dx `conv3x3x3(x, w, dilation)`: the same conv without the moments,
      which K1's backward runs for dx (`conv_pgemm(..., with_stats=False)`);
-     bf16 on the same tensor-core conv;
+     on the same two conv tiles;
   K2 `gemm_stats(x3, w)`: `y = x3 @ w` over voxel rows, the 1³ conv, plus
-     the moments (replaces `gemm_stats`); bf16 on the tensor-core GEMM
+     the moments (replaces `gemm_stats`); fp32 on the FMA implicit-GEMM
+     template (`csrc/igemm.cuh`), bf16 on the tensor-core GEMM
      (`csrc/gemm_mma.cuh`, mirrored by `ops/gemm_mma.py`).
 
 K1 and K2 return `(y, s1, s2)`: y in the input's dtype, `s1 = Σy` and
@@ -38,8 +40,8 @@ Gradients (autograd Functions, as the reference's custom VJPs):
 
 Dispatch: a CPU tensor takes the twin (the Functions then run the twin
 forward and the twin conv for dx); a CUDA tensor launches the kernel or
-raises (a bf16 shape the tensor-core kernels refuse raises too: it does not
-go back to the FMA tile).  There is no fallback from one to the other.
+raises (a shape a conv tile refuses raises too: it goes to no other
+kernel).  There is no fallback from one to the other.
 """
 
 from __future__ import annotations
@@ -84,14 +86,13 @@ def _check_conv(name: str, x: torch.Tensor, w: torch.Tensor,
 def _k1_blocks(t: str, cin: int, cout: int, dilation: int, d: int, h: int,
                wd: int) -> int:
     """Blocks per batch item of K1's kernel, which write one row of moments
-    partials each: the tensor-core conv's bricks (bf16) or the FMA tile's
-    row blocks (fp32), as the library computes them."""
-    if t == "bf16":
-        n = _cuda.lib().conv_mma_blocks(cin, cout, dilation, d, h, wd)
-        if n < 1:
-            raise ValueError(f"conv3x3x3_stats: no plan for {(cin, cout)}")
-        return n
-    return -(-(d * h * wd) // _cuda.lib().pgemm_row_block(cout))
+    partials each: the bricks of the tensor-core conv (bf16) or of the FMA
+    conv tile (fp32), as the library computes them."""
+    tile = "conv_mma" if t == "bf16" else "conv_fma"
+    n = getattr(_cuda.lib(), f"{tile}_blocks")(cin, cout, dilation, d, h, wd)
+    if n < 1:
+        raise ValueError(f"conv3x3x3_stats: no plan for {(cin, cout)}")
+    return n
 
 
 def _k1(x: torch.Tensor, w: torch.Tensor, dilation: int, with_stats: bool):
@@ -104,8 +105,6 @@ def _k1(x: torch.Tensor, w: torch.Tensor, dilation: int, with_stats: bool):
     t = _cuda.check(name, x, w)
     b, d, h, wd, cin = x.shape
     cout = w.shape[4]
-    if max(d, h, wd) >= 1024:   # the kernel packs (d, h, w) in 10-bit fields
-        raise ValueError(f"{name}: volume {(d, h, wd)} too large")
     y = torch.empty((b, d, h, wd, cout), dtype=x.dtype, device=x.device)
     if with_stats:
         partial = torch.empty((b, _k1_blocks(t, cin, cout, dilation, d, h, wd),

@@ -57,16 +57,19 @@ CLASSES = [   # (class, kernel-name pattern), first match wins
     ("K4 bf16 conv_transpose2x (tensor cores)",
      r"gemm_mma_kernel<\d+, false, true, true"),
     ("K7 bf16 pointwise_conv (tensor cores)", r"gemm_mma_kernel<"),
-    # gemm_moments_kernel<BN, LAYOUT, T, STATS, EPI> (csrc/igemm.cuh):
-    # K1-dx and K6 at stride 1 in fp32 are one kernel (the conv without
-    # moments)
-    ("K1-dx / K6 stride-1 conv",
-     r"gemm_moments_kernel<\d+, 1, [\w:]+, false"),
-    ("K1 fp32 conv3x3x3_stats", r"gemm_moments_kernel<\d+, 1, [\w:]+, true"),
-    ("K6 stride-2 conv3d", r"gemm_moments_kernel<\d+, 2,"),
+    # conv_fma_kernel<BN, S, DIL, STATS> (csrc/conv_fma.cuh): the fp32 3³
+    # convs on the FMA units, K1 with its moments, K1-dx and K6 at stride
+    # 1 without (one kernel: one class), K6 at stride 2
+    ("K1 fp32 conv3x3x3_stats (FMA conv tile)",
+     r"conv_fma_kernel<\d+, 1, \d, true"),
+    ("K1-dx / K6 stride-1 fp32 conv (FMA conv tile)",
+     r"conv_fma_kernel<\d+, 1,"),
+    ("K6 stride-2 fp32 conv3d (FMA conv tile)", r"conv_fma_kernel<\d+, 2,"),
+    # gemm_moments_kernel<BN, LAYOUT, T, STATS, EPI> (csrc/igemm.cuh): the
+    # fp32 GEMMs
     ("K2 fp32 gemm_stats", r"gemm_moments_kernel<\d+, 0, [\w:]+, true"),
     ("K7 fp32 pointwise_conv", r"gemm_moments_kernel<\d+, 0, [\w:]+, false"),
-    ("K4 fp32 conv_transpose2x", r"gemm_moments_kernel<\d+, 3,"),
+    ("K4 fp32 conv_transpose2x", r"gemm_moments_kernel<\d+, 1,"),
     ("K1/K2 moments reduce", r"moments_reduce_kernel"),
     ("K3 apply", r"apply_kernel<"),
     ("K3 dx", r"dx_kernel<"),
