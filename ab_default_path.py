@@ -8,11 +8,15 @@ ROOT is the root of a checkout (it holds `chip_smoke.py` and
 `nas_3d_unet_tpu_torch/`); its kernels are built from its own sources and
 its own `chip_smoke.py` helpers make the net and the data.  Prints one
 JSON line:
-  k1_ms, k1dx_ms, k2_ms  K1, K1-dx and K2 summed over chip_smoke.py's
-                         geometries: fp32 per flagship forward (batch 2),
-                         bf16 per train step (two microbatches of 1);
-  digests                SHA-256 of K1's (y, Σy, Σy²), K1-dx's y and
-                         K2's (y, Σy, Σy²) at fixed seeds;
+  k1_ms, k1dx_ms, k2_ms, k7_ms
+                         K1, K1-dx, K2 and K7 (the use_pallas 1³ conv)
+                         summed over chip_smoke.py's geometries: fp32 per
+                         flagship forward (batch 2), bf16 per train step
+                         (two microbatches of 1);
+  digests                SHA-256 of K1's (y, Σy, Σy²), K1-dx's y, K2's (y,
+                         Σy, Σy²) and K2's y alone, and K7's y (at
+                         P_K7's geometries, and P_K7_EXTRA's with their
+                         bias and ReLU), at fixed seeds;
   s_per_patient          3 synthetic patients after one warm-up, as
                          chip_smoke.py's phase "slice" serves them;
   patches_per_s          5 bf16 train steps after 3 warm-up, as its
@@ -52,7 +56,7 @@ def main() -> int:
     import nas_3d_unet_tpu_torch as pkg
     from nas_3d_unet_tpu_torch import _build
     from nas_3d_unet_tpu_torch.infer.predict import predict_records
-    from nas_3d_unet_tpu_torch.ops import pgemm
+    from nas_3d_unet_tpu_torch.ops import conv3d, pgemm
     from nas_3d_unet_tpu_torch.train.loop import make_train_step
     from nas_3d_unet_tpu_torch.train.optim import make_optimizer
     from nas_3d_unet_tpu_torch.utils.precision import strict_fp32
@@ -71,10 +75,13 @@ def main() -> int:
         check=True, timeout=60).stdout.strip().splitlines()[0],
         "digests": {}}
     rand = lambda *s: torch.randn(s, generator=gen, device=dev)
+    gen7 = torch.Generator(device=dev)       # K7's own: the other digests'
+    gen7.manual_seed(1)                      # inputs stay as before
+    rand7 = lambda *s: torch.randn(s, generator=gen7, device=dev)
     with strict_fp32(), torch.no_grad():
         for dtype, batch, per in ((torch.float32, cs.BATCH, 1),
                                   (torch.bfloat16, cs.MICRO, 2)):
-            t1 = t1dx = t2 = 0.0
+            t1 = t1dx = t2 = t7 = 0.0
             for cin, cout, v, dil, n in cs.K1_GEOMS:
                 key = f"{cin}_{cout}_{v}_{dil}_{dtype}"
                 x = rand(batch, v, v, v, cin).to(dtype)
@@ -92,10 +99,25 @@ def main() -> int:
                 x = rand(batch, v ** 3, k).to(dtype)
                 w = (rand(k, nn) * k ** -0.5).to(dtype)
                 t2 += per * n * cuda_ms(pgemm.gemm_stats, x, w)
-                out["digests"][f"k2_{k}_{nn}_{v}_{dtype}"] = _digest(
-                    *pgemm.gemm_stats(x, w))
+                key = f"{k}_{nn}_{v}_{dtype}"
+                y, s1, s2 = pgemm.gemm_stats(x, w)
+                out["digests"]["k2_" + key] = _digest(y, s1, s2)
+                out["digests"]["k2y_" + key] = _digest(y)
+            for cin, cout, v, scale in (
+                    [(c, c, v, None) for c, v, _ in cs.P_K7]
+                    + cs.P_K7_EXTRA):
+                x = rand7(batch, *cs._volume(v), cin).to(dtype)
+                w = (rand7(cin, cout) * cin ** -0.5).to(dtype)
+                b = None if scale is None else rand7(cout) * scale
+                args = (x, w, b, b is not None)
+                n = next((n for c, vv, n in cs.P_K7
+                          if scale is None and (c, c, vv) == (cin, cout, v)),
+                         0)
+                t7 += per * n * cuda_ms(conv3d.pointwise_conv, *args)
+                out["digests"][f"k7_{cin}_{cout}_{v}_{scale}_{dtype}"] = \
+                    _digest(conv3d.pointwise_conv(*args))
             out[str(dtype).split(".")[1]] = {"k1_ms": t1, "k1dx_ms": t1dx,
-                                             "k2_ms": t2}
+                                             "k2_ms": t2, "k7_ms": t7}
     with strict_fp32():
         predictor = cs.flagship_predictor(dev, 0)
         recs = cs.synthetic_records(dev, 0, 4)

@@ -12,9 +12,11 @@ Phases, each printed as JSON lines:
      at every geometry the flagship net gives them (batch 2): K1
      conv3x3x3_stats (the FMA conv tile with its moments epilogue; plus a
      dilation-2 case, and off the path K1_EXTRA's ragged and odd-channel
-     rows), K2 gemm_stats and K5a moments; and K1-dx conv3x3x3 in fp32 (on
-     no path: serving runs no backward) at K1DX_TRAIN's and K1DX_EXTRA's
-     geometries, batch 2.
+     rows), K2 gemm_stats (the voxel-row FMA tile with its per-tile
+     moments; with `device_ms` and `host_ms`, and those of the matmul)
+     and K5a moments; and K1-dx conv3x3x3 in fp32 (on no path: serving
+     runs no backward) at K1DX_TRAIN's and K1DX_EXTRA's geometries, batch
+     2.
   4. slice: the flagship derived net (default_genotype(3), base 16, depth
      3, fp32, random weights from --seed through the flax bridge) serves
      synthetic 160x192x152x4 patients through SlidingWindowPredictor +
@@ -58,10 +60,13 @@ Phases, each printed as JSON lines:
      scale 37, whose bf16 rounding matters); K4 conv_transpose2x (bf16 on
      the tensor cores, depth-to-space store; also off the path at the
      ragged volume at 16 -> 16, 16 -> 24 (N = 192 > 128) with ReLU and
-     12 -> 5 (scalar), and 64 -> 64 with ReLU); K7's and K4's records
-     also hold their device ms (`device_ms`: the calls queued behind a
-     spin kernel, so the host's time is hidden; the call's `ms` holds
-     both), summed per unit in the line "pallas_device_split";
+     12 -> 5 (scalar), and 64 -> 64 with ReLU); K7 in fp32 runs the
+     voxel-row FMA tile, K4 in fp32 the FMA template; K7's and K4's
+     records, as K2's, also hold their device ms and host ms
+     (`device_ms`: the calls queued behind a spin kernel, so the device's
+     time and the host's are each timed alone; the call's `ms` holds
+     both), and their library call's, summed per unit with K2's in the
+     line "pallas_device_split";
      K3's apply (fp32 and bf16) and dx (bf16); K5b masked by y > 0 (K3's
      backward sums, bf16); K5a at the configuration's own geometries.
   8. pallas_slice: phase 4 with `DerivedNet(use_pallas=True)` (edge convs
@@ -85,12 +90,15 @@ Phases, each printed as JSON lines:
      GEMM's (`gemm_mma_kernel`), each instantiation of both with HMMA in
      its SASS; K1, K1-dx and K6 (stride 1 and 2) in fp32 launch the FMA
      conv tile (`conv_fma_kernel`), every instantiation of which has FFMA
-     and no HMMA in its SASS; K2, K7 and K4 in fp32 launch the FMA
-     template (`gemm_moments_kernel`), none of whose instantiations has
-     HMMA and none of which is bf16; the conv tiles' plans and brick
-     counts equal `ops/conv_mma.py`'s and `ops/conv_fma.py`'s mirrors at
-     every K1, K1-dx and K6 geometry checked, the GEMM's plan
-     `ops/gemm_mma.py`'s at every K2, K7 and K4 geometry.
+     and no HMMA in its SASS; K2 and K7 in fp32 launch the voxel-row FMA
+     tile (`gemm_fma_kernel`), every instantiation of which has FFMA and
+     no HMMA; K4 in fp32, alone, launches the FMA template
+     (`gemm_moments_kernel`), none of whose instantiations has HMMA and
+     none of which is bf16; the conv tiles' plans and brick counts equal
+     `ops/conv_mma.py`'s and `ops/conv_fma.py`'s mirrors at every K1,
+     K1-dx and K6 geometry checked, the GEMM tiles' plans
+     `ops/gemm_mma.py`'s at every K2, K7 and K4 geometry and
+     `ops/gemm_fma.py`'s at every K2 and K7 geometry.
 Then the nvidia-smi line, the kernels summary line and, last,
 `{"ok": true, "device": {...}}`.  In the kernels line a serving kernel's
 `ms`, `plain_ms`, `library_ms` and `bound_ms` are one flagship forward's
@@ -134,6 +142,7 @@ SRC_PROBES = "nas_3d_unet_tpu_torch/csrc/probes.cu"
 SRC_MMA = "nas_3d_unet_tpu_torch/csrc/conv_mma.cuh"   # in pgemm.cu, conv3d.cu
 SRC_GMMA = "nas_3d_unet_tpu_torch/csrc/gemm_mma.cuh"  # in pgemm.cu, conv3d.cu
 SRC_FMA = "nas_3d_unet_tpu_torch/csrc/conv_fma.cuh"   # in pgemm.cu, conv3d.cu
+SRC_GFMA = "nas_3d_unet_tpu_torch/csrc/gemm_fma.cuh"  # in pgemm.cu, conv3d.cu
 PG_VARIANTS = ("nodot", "c6", "full", "mt4", "fold1536")
 SOURCES = {"moments": SRC_STATS, "weighted_sums": SRC_STATS,
            "weighted_sums_masked": SRC_STATS, "group_norm_apply": SRC_GN,
@@ -145,7 +154,8 @@ SOURCES = {"moments": SRC_STATS, "weighted_sums": SRC_STATS,
            "conv3x3x3_stats_bf16": SRC_MMA, "gemm_stats_bf16": SRC_GMMA,
            "pointwise_conv_bf16": SRC_GMMA, "conv_transpose2x_bf16": SRC_GMMA,
            "conv3x3x3_f32": SRC_FMA, "conv3d_f32": SRC_FMA,
-           "conv3x3x3_stats_f32": SRC_FMA}
+           "conv3x3x3_stats_f32": SRC_FMA, "gemm_stats_f32": SRC_GFMA,
+           "pointwise_conv_f32": SRC_GFMA}
 # the rest: SRC_PGEMM (by kernel name, else by its name without the dtype)
 REPLACES = {
     "conv3x3x3_stats": "nas_3d_unet_tpu/ops/pallas/pgemm.py:174",  # conv_pgemm
@@ -342,26 +352,39 @@ def _timings(kernel, twin, library, args):
 
 
 def device_ms(fn, args, iters=20, spin_cycles=20_000_000):
-    """ms of device time per call of `fn` (all the kernels it launches):
+    """(device ms, host ms) per call of `fn` (all the kernels it launches):
     the calls are queued behind a spin kernel (`torch.cuda._sleep`, ~10 ms
     at the H100's clock) that outlasts their launch on the host, so the
     events around them time the device alone, where the call's `ms` also
-    holds the host's time.  Raises if the device caught up with the host
-    (the spin too short to hide it)."""
+    holds the host's time; the host's wall clock over the same queued loop
+    times the host alone (the launch path: wrapper, checks, allocation,
+    ctypes).  Raises if the device caught up with the host (the spin too
+    short to hide it)."""
     fn(*args)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     torch.cuda._sleep(spin_cycles)
     start.record()
+    t0 = time.perf_counter()
     for _ in range(iters):
         fn(*args)
+    host = (time.perf_counter() - t0) * 1e3 / iters
     end.record()
     ahead = not start.query()       # still spinning: the host was ahead
     torch.cuda.synchronize()
     if not ahead:
         raise AssertionError("device_ms: the host did not stay ahead")
-    return start.elapsed_time(end) / iters
+    return start.elapsed_time(end) / iters, host
+
+
+def split_ms(kernel, library, args):
+    """device_ms of the kernel's call and of its library call: their
+    device and host ms per call."""
+    out = dict(zip(("device_ms", "host_ms"), device_ms(kernel, args)))
+    out.update(zip(("library_device_ms", "library_host_ms"),
+                   device_ms(library, args)))
+    return out
 
 
 def _conv_library(x, w, dilation=1):
@@ -441,6 +464,7 @@ def check_gemm(dev, gen, k, n, v, batch, dtype):
     with torch.no_grad():
         rec.update(_timings(pgemm.gemm_stats, pgemm.gemm_stats_twin,
                             torch.matmul, args))
+        rec.update(split_ms(pgemm.gemm_stats, torch.matmul, args))
     rec["bound_ms"], rec["bound_by"] = bound_ms(
         (batch * rows * (k + n) + k * n) * x.element_size() + 8 * batch * n,
         2.0 * batch * rows * k * n, dtype)
@@ -596,7 +620,7 @@ def check_pointwise(dev, gen, cin, cout, v, batch, dtype, bias_scale=None):
         rep = _repeatable(conv3d.pointwise_conv, args, yk)
         times = _timings(conv3d.pointwise_conv, conv3d.pointwise_conv_twin,
                          library, args)
-        times["device_ms"] = device_ms(conv3d.pointwise_conv, args)
+        times.update(split_ms(conv3d.pointwise_conv, library, args))
     torch.cuda.synchronize()
     rows = batch * math.prod(_volume(v))
     rec = {"cin": cin, "cout": cout, "volume": v, "batch": batch,
@@ -629,7 +653,7 @@ def check_transpose(dev, gen, cin, cout, v, batch, dtype, relu=False):
         rep = _repeatable(conv3d.conv_transpose2x, args, yk)
         times = _timings(conv3d.conv_transpose2x,
                          conv3d.conv_transpose2x_twin, library, args)
-        times["device_ms"] = device_ms(conv3d.conv_transpose2x, args)
+        times.update(split_ms(conv3d.conv_transpose2x, library, args))
     torch.cuda.synchronize()
     rows = batch * math.prod(_volume(v))
     rec = {"cin": cin, "cout": cout, "volume": v, "batch": batch,
@@ -699,6 +723,9 @@ def check_gn(dev, gen, name, c, v, batch, dtype):
     return rec
 
 
+SPLIT_KEYS = ("device_ms", "host_ms", "library_device_ms", "library_host_ms")
+
+
 class Summary:
     """Per kernel name: launches-weighted sums of the phase records."""
 
@@ -707,7 +734,8 @@ class Summary:
             lambda: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
                      "bound_ms": 0.0, "bound_by": collections.Counter(),
                      "max_abs_err": 0.0})
-        self.device = collections.Counter()     # device_ms, per unit
+        # device_ms, host_ms and the library call's, per unit
+        self.split_rows = collections.defaultdict(collections.Counter)
 
     def add(self, name, rec, per_unit):
         row = self.rows[name]
@@ -720,8 +748,9 @@ class Summary:
         row["bound_by"][rec["bound_by"]] += per_unit * rec["bound_ms"]
         row["max_abs_err"] = max(row["max_abs_err"],
                                  rec.get("y_max_abs", rec.get("max_abs_err")))
-        if "device_ms" in rec:
-            self.device[name] += per_unit * rec["device_ms"]
+        for key in SPLIT_KEYS:
+            if key in rec:
+                self.split_rows[name][key] += per_unit * rec[key]
 
     def entry(self, name):
         row = dict(self.rows[name])
@@ -729,11 +758,13 @@ class Summary:
         return row
 
     def split(self, name):
-        """A kernel's call ms (host and device) beside its device ms, and
-        the bound and library ms, per unit."""
+        """A kernel's call ms (host and device) beside its device ms and
+        host ms, the bound, and the library call's ms, device ms and host
+        ms, per unit."""
         row = self.rows[name]
-        return {"ms": row["ms"], "device_ms": self.device[name],
-                "bound_ms": row["bound_ms"], "library_ms": row["library_ms"]}
+        return {"ms": row["ms"], "bound_ms": row["bound_ms"],
+                "library_ms": row["library_ms"],
+                **{k: self.split_rows[name][k] for k in SPLIT_KEYS}}
 
 
 def _run_check(phase, kernel, fn, summary, per_unit, *args):
@@ -826,7 +857,8 @@ def phase_pallas_kernels(dev, gen, summary):
                        dev, gen, name, c, v, MICRO, bf16)
     emit({"phase": "pallas_device_split", **{
         n: summary.split(n) for n in
-        [f"{k}_{t}" for k in ("pointwise_conv", "conv_transpose2x")
+        [f"{k}_{t}" for k in ("gemm_stats", "pointwise_conv",
+                              "conv_transpose2x")
          for t in ("f32", "bf16")]}})
 
 
@@ -1392,10 +1424,10 @@ def kernels_launched(fn, *args):
 
 # (kernel, device kernel it must launch, call): the tensor-core conv behind
 # K1, K1-dx and K6 in bf16, the tensor-core GEMM behind K2, K7 and K4 in
-# bf16, the FMA conv tile behind K1, K1-dx and K6 in fp32, the FMA template
-# behind K2, K7 and K4 in fp32
+# bf16, the FMA conv tile behind K1, K1-dx and K6 in fp32, the voxel-row
+# FMA tile behind K2 and K7 in fp32, the FMA template behind K4 in fp32
 MMA, GMMA = "conv_mma_kernel", "gemm_mma_kernel"
-CFMA, FMA = "conv_fma_kernel", "gemm_moments_kernel"
+CFMA, GFMA, FMA = "conv_fma_kernel", "gemm_fma_kernel", "gemm_moments_kernel"
 
 
 def _sass_calls(dev, gen):
@@ -1415,8 +1447,10 @@ def _sass_calls(dev, gen):
              (x, w2, bias[:16], True)),
             ("conv_transpose2x_bf16", GMMA, conv3d.conv_transpose2x,
              (x, w4, True)),
-            ("pointwise_conv_f32", FMA, conv3d.pointwise_conv,
+            ("pointwise_conv_f32", GFMA, conv3d.pointwise_conv,
              (xf, w2f, bias[:16], True)),
+            ("pointwise_conv_f32", GFMA, conv3d.pointwise_conv,
+             (xf, w2f, None, False)),
             ("conv_transpose2x_f32", FMA, conv3d.conv_transpose2x,
              (xf, w4.float(), False)),
             ("conv3x3x3_bf16", MMA, pgemm.conv3x3x3, (x, w, 1)),
@@ -1426,7 +1460,7 @@ def _sass_calls(dev, gen):
             ("gemm_stats_bf16", GMMA, pgemm.gemm_stats, (x3, w2)),
             ("conv3x3x3_stats_f32", CFMA, pgemm.conv3x3x3_stats,
              (xf, wf, 1)),
-            ("gemm_stats_f32", FMA, pgemm.gemm_stats, (x3f, w2f)),
+            ("gemm_stats_f32", GFMA, pgemm.gemm_stats, (x3f, w2f)),
             ("conv3x3x3_f32", CFMA, pgemm.conv3x3x3, (xf, wf, 1)),
             ("conv3d_f32", CFMA, conv3d.conv3d,
              (xf, wf, bias, 1, 1, True)),
@@ -1441,11 +1475,13 @@ def plans_agree():
     `ops/conv_fma.py` at every K1, K1-dx and K6 geometry checked (both
     dtypes run the same geometries), the GEMM's (`gemm_mma_plan`) against
     `ops/gemm_mma.py` at every K2 (moments), K7 and K4 (depth-to-space, N
-    = 8·Cout) geometry: {geometry: (library, mirror)} where they
-    differ."""
+    = 8·Cout) geometry, and the fp32 GEMM's (`gemm_fma_plan`) against
+    `ops/gemm_fma.py` at every K2 (moments) and K7 geometry: {geometry:
+    (library, mirror)} where they differ."""
     import ctypes
 
-    from nas_3d_unet_tpu_torch.ops import _cuda, conv_fma, conv_mma, gemm_mma
+    from nas_3d_unet_tpu_torch.ops import (_cuda, conv_fma, conv_mma,
+                                           gemm_fma, gemm_mma)
 
     lib = _cuda.lib()
     geoms = {(ci, co, 1, d) for ci, co, _, d, _ in K1DX_TRAIN + K1DX_EXTRA}
@@ -1486,6 +1522,14 @@ def plans_agree():
         mirror = [p.bn, p.rows, p.nchunks, p.smem]
         if list(out) != mirror:
             bad[str(("gemm", *g))] = (list(out), mirror)
+    for g in sorted({g[:3] for g in gemms if not g[3]}):
+        out = (ctypes.c_int * 5)()
+        if lib.gemm_fma_plan(*g, out):
+            raise AssertionError(f"gemm_fma_plan refused {g}")
+        p = gemm_fma.plan(g[0], g[1], bool(g[2]))
+        mirror = [p.bn, p.rows, p.nchunks, p.stages, p.smem]
+        if list(out) != mirror:
+            bad[str(("gemm_fma", *g))] = (list(out), mirror)
     return bad
 
 
@@ -1493,20 +1537,23 @@ def phase_sass(dev, gen, functions):
     """The bf16 convs (K1, K1-dx, K6) and GEMMs (K2, K7, K4) on the tensor
     cores: the kernels their wrappers launch are conv_mma_kernel or
     gemm_mma_kernel instantiations, each with HMMA in its SASS; the fp32
-    convs on the FMA conv tile: they launch conv_fma_kernel (and not the
-    FMA template), every instantiation of which has FFMA and no HMMA; K2,
-    K7, K4 in fp32 launch the FMA template (gemm_moments_kernel), with no
-    HMMA in any instantiation, and no instantiation of it is bf16.  And
-    the kernels' plans are the ones `ops/conv_mma.py`, `ops/conv_fma.py`
-    and `ops/gemm_mma.py` mirror."""
+    convs on the FMA conv tile: they launch conv_fma_kernel, every
+    instantiation of which has FFMA and no HMMA; K2 and K7 in fp32 on the
+    voxel-row FMA tile: they launch gemm_fma_kernel, every instantiation
+    of which has FFMA and no HMMA; K4 in fp32, the only caller left of the
+    FMA template, launches gemm_moments_kernel, no instantiation of which
+    has HMMA or is bf16.  And the kernels' plans are the ones
+    `ops/conv_mma.py`, `ops/conv_fma.py`, `ops/gemm_mma.py` and
+    `ops/gemm_fma.py` mirror."""
     hmma = {kind: {fn: n for fn, n, _ in functions if kind in fn}
-            for kind in (MMA, GMMA, CFMA, FMA)}
-    ffma = {fn: n for fn, _, n in functions if CFMA in fn}
+            for kind in (MMA, GMMA, CFMA, GFMA, FMA)}
+    ffma = {kind: {fn: n for fn, _, n in functions if kind in fn}
+            for kind in (CFMA, GFMA)}
     fma_bf16 = [fn for fn in hmma[FMA] if "nv_bfloat16" in fn]
     ok = all(hmma[MMA].values()) and all(hmma[GMMA].values()) \
         and bool(hmma[MMA]) and bool(hmma[GMMA]) \
-        and bool(ffma) and all(ffma.values()) \
-        and not any(hmma[CFMA].values()) \
+        and all(bool(f) and all(f.values()) for f in ffma.values()) \
+        and not any(hmma[CFMA].values()) and not any(hmma[GFMA].values()) \
         and not any(hmma[FMA].values()) and not fma_bf16
     launched = {}
     with torch.no_grad():
@@ -1515,18 +1562,23 @@ def phase_sass(dev, gen, functions):
             launched.setdefault(name, []).extend(names)
             mains = [n for n in names if any(k in n for k in hmma)]
             ok = ok and bool(mains) and all(want in n for n in mains)
+    # the FMA template is K4 fp32's alone
+    ok = ok and all(name == "conv_transpose2x_f32" for name, names
+                    in launched.items() for n in names if FMA in n)
     plans_differ = plans_agree()
     emit({"phase": "sass", "conv_mma_hmma": hmma[MMA],
           "gemm_mma_hmma": hmma[GMMA], "conv_fma_hmma": hmma[CFMA],
-          "conv_fma_ffma": ffma, "gemm_moments_hmma": hmma[FMA],
+          "conv_fma_ffma": ffma[CFMA], "gemm_fma_hmma": hmma[GFMA],
+          "gemm_fma_ffma": ffma[GFMA], "gemm_moments_hmma": hmma[FMA],
           "gemm_moments_bf16": fma_bf16,
           "launched": launched, "plans_differ": plans_differ,
           "ok": ok and not plans_differ})
     if not ok:
         raise AssertionError("the bf16 convs and GEMMs are not all on the "
                              "tensor cores, the fp32 convs not all on the "
-                             "FMA conv tile, or an FMA kernel has HMMA or "
-                             "is bf16")
+                             "FMA conv tile, K2/K7 fp32 not on the FMA "
+                             "GEMM tile, K4 fp32 not alone on the template, "
+                             "or an FMA kernel has HMMA or is bf16")
     if plans_differ:
         raise AssertionError(f"tile plans differ: {plans_differ}")
 
@@ -1603,7 +1655,8 @@ def main() -> int:
           "sources": [SRC_PGEMM, SRC_CONV, SRC_STATS, SRC_GN, SRC_PROBES],
           "flags": " ".join(_build.NVCC_FLAGS), "ptxas": ptxas,
           "ptxas_tensor_core_kernels": ptxas_report(log, (MMA, GMMA)),
-          "ptxas_conv_fma": ptxas_report(log, (CFMA,))})
+          "ptxas_conv_fma": ptxas_report(log, (CFMA,)),
+          "ptxas_gemm_fma": ptxas_report(log, (GFMA,))})
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)

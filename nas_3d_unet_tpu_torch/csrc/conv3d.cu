@@ -1,9 +1,10 @@
 // The use_pallas configuration's conv kernels, fp32 or bf16 elements with
 // fp32 accumulation, rounded once.  In fp32 they run on the FMA units: K6
-// on the conv tile (its bound and design: conv_fma.cuh), K7 and K4 on the
-// implicit-GEMM template (igemm.cuh); in bf16 they run on the tensor
-// cores: K6 on the conv tile (conv_mma.cuh), K7 and K4 on the voxel-row
-// GEMM tile (gemm_mma.cuh).
+// on the conv tile (its bound and design: conv_fma.cuh), K7 on the
+// voxel-row FMA tile (gemm_fma.cuh), K4 on the implicit-GEMM template
+// (igemm.cuh, its last user); in bf16 they run on the tensor cores: K6 on
+// the conv tile (conv_mma.cuh), K7 and K4 on the voxel-row GEMM tile
+// (gemm_mma.cuh).
 //
 // Replaces (nas_3d_unet_tpu/ops/pallas/conv3d.py):
 //   K6 conv3d_{f32,bf16}           <- conv3d (:201, _conv3d_pallas_fwd
@@ -24,33 +25,18 @@
 //      the output.  fp32: the caller passes the flipped, flattened kernel;
 //      bf16: gemm_mma.cuh reads the DHWIO kernel with lax's flip itself.
 // The TPU kernels fuse bias and ReLU into the matmul's epilogue; so do
-// these: the template compiles its EPI step in only for a call that asks
-// for either; the conv tiles' and gemm_mma.cuh's epilogues read the flags
-// at run time.
+// these: the template and gemm_fma.cuh compile their EPI step in only for
+// a call that asks for either; the conv tiles' and gemm_mma.cuh's
+// epilogues read the flags at run time.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "conv_fma.cuh"
 #include "conv_mma.cuh"
+#include "gemm_fma.cuh"
 #include "gemm_mma.cuh"
 #include "igemm.cuh"
-
-namespace {
-
-// The bias/ReLU epilogue variant only when one is asked for.
-template <int LAYOUT, typename T>
-int launch(const T* x, const T* w, const float* bias, T* y, int B, int rows,
-           int K, int N, int relu, ConvGeom g, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (bias != nullptr || relu)
-    return launch_gemm<LAYOUT, false, true>(x, w, bias, y, nullptr, B, rows,
-                                            K, N, relu, g, st);
-  return launch_gemm<LAYOUT, false, false>(x, w, bias, y, nullptr, B, rows, K,
-                                           N, relu, g, st);
-}
-
-}  // namespace
 
 extern "C" {
 
@@ -113,15 +99,18 @@ int conv_fma_plan(int cin, int cout, int stride, int dil, int* out) {
   return 0;
 }
 
-// K7: x (rows, K), w (K, N), bias (N,) fp32 or null, y (rows, N).
-#define NAS3D_POINTWISE(NAME, T)                                              \
-  int NAME(const T* x, const T* w, const float* bias, T* y, int rows, int K,  \
-           int N, int relu, void* stream) {                                   \
-    return launch<kGemm>(x, w, bias, y, 1, rows, K, N, relu, ConvGeom{},      \
-                         stream);                                             \
-  }
-NAS3D_POINTWISE(pointwise_conv_f32, float)
-#undef NAS3D_POINTWISE
+// K7: x (rows, K), w (K, N), bias (N,) fp32 or null, y (rows, N); the
+// bias/ReLU epilogue variant only when one is asked for.
+int pointwise_conv_f32(const float* x, const float* w, const float* bias,
+                       float* y, int rows, int K, int N, int relu,
+                       void* stream) {
+  gfma::Geom g{};
+  g.V = rows, g.K = K, g.N = N, g.relu = relu;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (bias != nullptr || relu)
+    return gfma::launch<false, true>(x, w, bias, y, nullptr, g, 1, st);
+  return gfma::launch<false, false>(x, w, bias, y, nullptr, g, 1, st);
+}
 
 // K7 in bf16, on the tensor cores: the bias comes rounded to bf16 (the
 // reference adds its bias row in w's dtype).
@@ -136,15 +125,17 @@ int pointwise_conv_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w,
 
 // K4: x (B, D, H, W, Cin), w (Cin, 8*Cout) with column (kd*4 + kh*2 + kw)*
 // Cout + co the tap that lands at output offset (kd, kh, kw), y (B, 2D, 2H,
-// 2W, Cout).
-#define NAS3D_TRANSPOSE2X(NAME, T)                                            \
-  int NAME(const T* x, const T* w, T* y, int B, int D, int H, int W, int Cin, \
-           int Cout, int relu, void* stream) {                                \
-    return launch<kGemmD2S>(x, w, nullptr, y, B, D * H * W, Cin, 8 * Cout,    \
-                            relu, ConvGeom{D, H, W}, stream);                 \
-  }
-NAS3D_TRANSPOSE2X(conv_transpose2x_f32, float)
-#undef NAS3D_TRANSPOSE2X
+// 2W, Cout); the ReLU epilogue variant only when it is asked for.
+int conv_transpose2x_f32(const float* x, const float* w, float* y, int B,
+                         int D, int H, int W, int Cin, int Cout, int relu,
+                         void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (relu)
+    return launch_gemm<true>(x, w, nullptr, y, B, D * H * W, Cin, 8 * Cout,
+                             relu, ConvGeom{D, H, W}, st);
+  return launch_gemm<false>(x, w, nullptr, y, B, D * H * W, Cin, 8 * Cout,
+                            relu, ConvGeom{D, H, W}, st);
+}
 
 // K4 in bf16, on the tensor cores: w (2, 2, 2, Cin, Cout) DHWIO as the
 // caller holds it (gemm_mma.cuh stages it with lax's flip).

@@ -1,36 +1,29 @@
-// The implicit-GEMM kernel template behind the package's fp32 GEMM kernels
-// on the FMA units: K2 (pgemm.cu), K7 and K4 (conv3d.cu).  The fp32 3^3
-// convs (K1, K1-dx, K6) run on the FMA conv tile, conv_fma.cuh; every bf16
-// kernel runs on the tensor cores (conv_mma.cuh, gemm_mma.cuh).  The
-// template still compiles for bf16 elements (fp32 accumulation), but no
-// kernel instantiates it so.
+// The implicit-GEMM kernel template behind the package's last fp32 GEMM
+// on the old FMA design: K4 fp32 (conv3d.cu conv_transpose2x_f32, the
+// depth-to-space store), its only user.  K2 and K7 in fp32 run on the
+// voxel-row FMA tile, gemm_fma.cuh; the fp32 3^3 convs (K1, K1-dx, K6) on
+// the FMA conv tile, conv_fma.cuh; every bf16 kernel on the tensor cores
+// (conv_mma.cuh, gemm_mma.cuh).  K4 fp32 is queued next for a tile of its
+// own, after which this file goes.
 //
-// Replaces (nas_3d_unet_tpu/ops/pallas/), in fp32: pgemm.py:311
-// gemm_stats (K2); conv3d.py:279 pointwise_conv (K7) and :356
+// Replaces (nas_3d_unet_tpu/ops/pallas/), in fp32: conv3d.py:356
 // conv_transpose2x (K4).
 //
-// What bounds them on the H100: in fp32 the tensor cores (bf16/TF32) are
-// off limits and the ceiling is the 67 TFLOP/s of fp32 FMA against 3.35
-// TB/s (balance ~20 flop/B).  The GEMMs straddle the balance: a voxel row
-// does 2*K*N flops for (K+N)*4 bytes, 6 flop/B at 48->16 up to 38 at
-// 192->128.
+// What bounds it on the H100: the bytes.  In fp32 the tensor cores
+// (bf16/TF32) are off limits and the ceiling is the 67 TFLOP/s of fp32 FMA
+// against 3.35 TB/s (balance ~20 flop/B); a voxel row does 2*Cin*8*Cout
+// flops for (Cin + 8*Cout) * 4 bytes, most of them the output.
 //
-// What the design does about it: one GEMM kernel for all three,
+// What the design does about it:
 //   Y[m, n] = sum_k X[m, k] * W[k, n]
-// over the voxel rows of x.  A block computes a BM x BN tile of Y with 256
-// threads, each holding an 8x4 register tile (8x2 at BN=16), from 8-deep K
-// slices double-buffered in shared memory: the next slice's global loads
-// are in flight in registers while the current one is multiplied.  BN
-// follows N (16/32/64) so narrow layers waste no columns.  The epilogue
-// rounds y once to the element type and stores it, then reduces the tile's
-// column sums in a fixed order into per-block partials (the moments; the
-// caller sums the partials in a fixed order, so they are the same bits run
-// to run, no atomics).  What varies by caller is compiled in or out by
-// template flags, so K2's code is not burdened by K4's: the store (rows, or
-// the 2^3 output block of each voxel for K4), the moments, and a bias/ReLU
-// step.  Simple first: no cp.async/TMA, no tensor cores (gemm_mma.cuh has
-// them for bf16; the fp32 path is held to TF32-off numbers, so it stays on
-// the FMA units).
+// over the voxel rows of x, with N = 8*Cout.  A block computes a BM x BN
+// tile of Y with 256 threads, each holding an 8x4 register tile (8x2 at
+// BN=16), from 8-deep K slices double-buffered in shared memory: the next
+// slice's global loads are in flight in registers while the current one is
+// multiplied.  BN follows N (16/32/64).  The store writes each row's
+// columns depth-to-space, so the 8x larger output is written once and
+// never permuted; a bias/ReLU step (EPI) is compiled in only for a call
+// that asks for it.  Simple first: no cp.async/TMA, no tensor cores.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -49,11 +42,7 @@ constexpr int kThreads = 256;
 constexpr int kBK = 8;   // K slice staged per iteration
 constexpr int kTM = 8;   // rows of Y per thread
 
-// How Y is written (the template's LAYOUT); A = x[b] as (rows, K) in both
-constexpr int kGemm = 0;     // Y stored as rows
-constexpr int kGemmD2S = 1;  // Y stored depth-to-space (K4)
-
-// kGemmD2S: the input volume (D, H, W) whose voxels are the rows
+// the input volume (D, H, W) whose voxels are the rows
 struct ConvGeom {
   int D, H, W;
 };
@@ -73,30 +62,25 @@ inline int pick_bn(int n) {
   return 16;
 }
 
-// kGemm: rows = V voxel rows of one batch item, A = x[b] as (V, K).
-// kGemmD2S: N = 8*Cout; column n = (kd*4 + kh*2 + kw)*Cout + co of row
-//   (d, h, w) is stored at (2d+kd, 2h+kh, 2w+kw, co) of the (2D, 2H, 2W,
-//   Cout) output.
+// rows = D*H*W voxel rows of one batch item, A = x[b] as (rows, K); N =
+//   8*Cout; column n = (kd*4 + kh*2 + kw)*Cout + co of row (d, h, w) is
+//   stored at (2d+kd, 2h+kh, 2w+kw, co) of the (2D, 2H, 2W, Cout) output.
 // EPI: adds bias (N,) fp32 (or none if null) to the fp32 sum and clamps at
 //   0 if relu, before the rounding; without EPI both are ignored.
-// partial: (B, gridDim.x, 2, N) per-block column sums of y and y^2 (STATS
-//          only; unused otherwise).
-// T: float or __nv_bfloat16 for x, w and y; shared memory and the
-//    accumulators are fp32 either way.
+// T: the element type of x, w and y (only float is instantiated); shared
+//    memory and the accumulators are fp32.
 //
 // Pipeline: shared memory holds two K slices; while the block multiplies
 // slice i, each thread's global loads for slice i+1 are already in flight
 // into registers, and land in the other buffer after the FMAs.
-template <int BN, int LAYOUT, typename T, bool STATS, bool EPI>
+template <int BN, typename T, bool EPI>
 __global__ void __launch_bounds__(kThreads, 2)
 gemm_moments_kernel(const T* __restrict__ x, const T* __restrict__ w,
                     const float* __restrict__ bias, T* __restrict__ y,
-                    float* __restrict__ partial, int rows, int K, int N,
-                    int relu, ConvGeom g) {
+                    int rows, int K, int N, int relu, ConvGeom g) {
   constexpr int TN = tile_n(BN);
   constexpr int BM = row_block(BN);
   constexpr int TX = BN / TN;               // threads along N
-  constexpr int TY = kThreads / TX;         // threads along M (= BM / kTM)
   constexpr int LR = BM * kBK / kThreads;   // A rows each thread stages
   constexpr int RSTEP = kThreads / kBK;     // 32: row stride between them
   constexpr int LB = (kBK * BN + kThreads - 1) / kThreads;  // B per thread
@@ -104,7 +88,6 @@ gemm_moments_kernel(const T* __restrict__ x, const T* __restrict__ w,
   // distinct bank quads, and rows stay 16-byte aligned for float4 reads
   __shared__ __align__(16) float As[2][kBK][BM + 4];
   __shared__ __align__(16) float Bs[2][kBK][BN];
-  __shared__ float red[2][TY][BN];
 
   const int tid = threadIdx.x;
   const int tx = tid % TX, ty = tid / TX;
@@ -190,33 +173,26 @@ gemm_moments_kernel(const T* __restrict__ x, const T* __restrict__ w,
     s ^= 1;
   }
 
-  // epilogue: (EPI) bias and ReLU in fp32, store y (rounded once to T),
-  // then this tile's column sums of the rounded values in a fixed order
+  // epilogue: (EPI) bias and ReLU in fp32, store y (rounded once to T)
+  // depth-to-space
   float bv[TN];
 #pragma unroll
   for (int j = 0; j < TN; ++j) {
     const int n = n0 + tx * TN + j;
     bv[j] = (EPI && bias != nullptr && n < N) ? __ldg(bias + n) : 0.f;
   }
-  float c1[TN], c2[TN];
-#pragma unroll
-  for (int j = 0; j < TN; ++j) c1[j] = c2[j] = 0.f;
 #pragma unroll
   for (int i = 0; i < kTM; ++i) {
     const int m = m0 + ty * kTM + i;
     if (m >= rows) continue;
-    T* yrow;
-    if constexpr (LAYOUT == kGemmD2S) {
-      // the row's (2d, 2h, 2w) output corner; columns add their offset
-      const int hw = g.H * g.W;
-      const int d = m / hw;
-      const int rem = m - d * hw;
-      const int h = rem / g.W;
-      yrow = y + ((((size_t)b * 2 * g.D + 2 * d) * 2 * g.H + 2 * h) * 2 * g.W +
-                  2 * (rem - h * g.W)) * (N / 8);
-    } else {
-      yrow = y + ((size_t)b * rows + m) * N;
-    }
+    // the row's (2d, 2h, 2w) output corner; columns add their offset
+    const int hw = g.H * g.W;
+    const int d = m / hw;
+    const int rem = m - d * hw;
+    const int h = rem / g.W;
+    T* const yrow =
+        y + ((((size_t)b * 2 * g.D + 2 * d) * 2 * g.H + 2 * h) * 2 * g.W +
+             2 * (rem - h * g.W)) * (N / 8);
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const int n = n0 + tx * TN + j;
@@ -226,61 +202,38 @@ gemm_moments_kernel(const T* __restrict__ x, const T* __restrict__ w,
           if (bias != nullptr) a += bv[j];
           if (relu) a = fmaxf(a, 0.f);
         }
-        size_t off = n;
-        if constexpr (LAYOUT == kGemmD2S) {
-          const int cout = N / 8;
-          const int tap = n / cout;
-          off = ((((size_t)(tap >> 2) * 2 * g.H + ((tap >> 1) & 1)) * 2 *
-                  g.W) + (tap & 1)) * cout + (n - tap * cout);
-        }
-        const float v = store_rounded(yrow + off, a);
-        c1[j] += v;
-        c2[j] += v * v;
+        const int cout = N / 8;
+        const int tap = n / cout;
+        const size_t off = ((((size_t)(tap >> 2) * 2 * g.H +
+                              ((tap >> 1) & 1)) * 2 * g.W) + (tap & 1)) *
+                               cout + (n - tap * cout);
+        store_rounded(yrow + off, a);
       }
-    }
-  }
-  if constexpr (STATS) {
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      red[0][ty][tx * TN + j] = c1[j];
-      red[1][ty][tx * TN + j] = c2[j];
-    }
-    __syncthreads();
-    if (tid < 2 * BN) {
-      const int s2 = tid / BN, nc = tid % BN;
-      float t = 0.f;
-      for (int r = 0; r < TY; ++r) t += red[s2][r][nc];
-      if (n0 + nc < N)
-        partial[(((size_t)b * gridDim.x + blockIdx.x) * 2 + s2) * N + n0 +
-                nc] = t;
     }
   }
 }
 
-// Launch over B batch items of `rows` rows each; returns the launch's
-// cudaError_t.  The grid's x extent (row blocks) sizes `partial`.
-template <int LAYOUT, bool STATS, bool EPI, typename T>
-int launch_gemm(const T* x, const T* w, const float* bias, T* y,
-                float* partial, int B, int rows, int K, int N, int relu,
-                ConvGeom g, cudaStream_t st) {
+// Launch over B batch items of `rows` input voxels each; returns the
+// launch's cudaError_t.
+template <bool EPI, typename T>
+int launch_gemm(const T* x, const T* w, const float* bias, T* y, int B,
+                int rows, int K, int N, int relu, ConvGeom g,
+                cudaStream_t st) {
   const int bn = pick_bn(N);
   const dim3 grid((rows + row_block(bn) - 1) / row_block(bn),
                   (N + bn - 1) / bn, B);
   switch (bn) {
     case 64:
-      gemm_moments_kernel<64, LAYOUT, T, STATS, EPI>
-          <<<grid, kThreads, 0, st>>>(x, w, bias, y, partial, rows, K, N,
-                                      relu, g);
+      gemm_moments_kernel<64, T, EPI><<<grid, kThreads, 0, st>>>(
+          x, w, bias, y, rows, K, N, relu, g);
       break;
     case 32:
-      gemm_moments_kernel<32, LAYOUT, T, STATS, EPI>
-          <<<grid, kThreads, 0, st>>>(x, w, bias, y, partial, rows, K, N,
-                                      relu, g);
+      gemm_moments_kernel<32, T, EPI><<<grid, kThreads, 0, st>>>(
+          x, w, bias, y, rows, K, N, relu, g);
       break;
     default:
-      gemm_moments_kernel<16, LAYOUT, T, STATS, EPI>
-          <<<grid, kThreads, 0, st>>>(x, w, bias, y, partial, rows, K, N,
-                                      relu, g);
+      gemm_moments_kernel<16, T, EPI><<<grid, kThreads, 0, st>>>(
+          x, w, bias, y, rows, K, N, relu, g);
   }
   return (int)cudaGetLastError();
 }

@@ -1,9 +1,9 @@
 // K1, K1-dx and K2: the stride-1 ConvNormAct convs with their GroupNorm
-// moments, and K1's dx.  fp32 (serving) runs the 3^3 convs on the FMA conv
-// tile (conv_fma.cuh) and the 1^3 GEMM on the FMA implicit-GEMM template
-// (igemm.cuh); bf16 (training) runs on the tensor cores: the 3^3 convs on
-// conv_mma.cuh, the 1^3 GEMM on gemm_mma.cuh.  Each has a moments
-// epilogue (the tensor-core kernels share moments.cuh's).
+// moments, and K1's dx.  fp32 (serving) runs on the FMA units: the 3^3
+// convs on the FMA conv tile (conv_fma.cuh), the 1^3 GEMM on the voxel-row
+// FMA tile (gemm_fma.cuh); bf16 (training) runs on the tensor cores: the
+// 3^3 convs on conv_mma.cuh, the 1^3 GEMM on gemm_mma.cuh.  Each has a
+// moments epilogue (the tensor-core kernels share moments.cuh's).
 //
 // Replaces (nas_3d_unet_tpu/ops/pallas/pgemm.py):
 //   K1 conv3x3x3_stats_{f32,bf16} <- conv_pgemm (:174, body _kernel :74)
@@ -31,8 +31,8 @@
 
 #include "conv_fma.cuh"
 #include "conv_mma.cuh"
+#include "gemm_fma.cuh"
 #include "gemm_mma.cuh"
-#include "igemm.cuh"
 
 namespace {
 
@@ -69,11 +69,6 @@ int reduce_moments(int err, const float* partial, float* s1, float* s2,
 
 extern "C" {
 
-// Rows of Y per block of the fp32 FMA template for an output width n; the
-// caller of K2 fp32 sizes `partial` as (B, ceil(rows / pgemm_row_block(n)),
-// 2, n) fp32.
-int pgemm_row_block(int n) { return row_block(pick_bn(n)); }
-
 // Blocks per batch item of the FMA conv tile at stride 1 (K1 fp32) for a
 // (D, H, W) volume: the caller sizes `partial` as (B, blocks, 2, Cout).
 int conv_fma_blocks(int cin, int cout, int dil, int D, int H, int W) {
@@ -102,6 +97,21 @@ int gemm_mma_plan(int k, int n, int stats, int d2s, int* out) {
   out[1] = gmma::kBM;
   out[2] = p.nchunks;
   out[3] = (int)p.smem;
+  return 0;
+}
+
+// The fp32 voxel-row FMA tile's plan for (K, N), with or without the
+// moments (stats), into out[5]: BN, the rows per tile (the caller of K2
+// fp32 sizes `partial` as (B, ceil(V / rows), 2, N)), the K chunks, the x
+// stages, the bytes of shared memory (ops/gemm_fma.py:plan mirrors it).
+int gemm_fma_plan(int k, int n, int stats, int* out) {
+  if (k < 1 || n < 1) return (int)cudaErrorInvalidValue;
+  const gfma::Plan p = gfma::make_plan(k, n, stats != 0);
+  out[0] = p.bn;
+  out[1] = p.bm;
+  out[2] = p.nchunks;
+  out[3] = p.stages;
+  out[4] = (int)p.smem;
   return 0;
 }
 
@@ -156,11 +166,11 @@ int gemm_stats_f32(const float* x, const float* w, float* y, float* partial,
                    float* s1, float* s2, int B, int V, int K, int N,
                    void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const int err = launch_gemm<kGemm, true, false>(
-      x, w, nullptr, y, partial, B, V, K, N, 0, ConvGeom{}, st);
-  return reduce_moments(err, partial, s1, s2, B,
-                        (V + pgemm_row_block(N) - 1) / pgemm_row_block(N), N,
-                        st);
+  gfma::Geom g{};
+  g.V = V, g.K = K, g.N = N;
+  const int err = gfma::launch<true, false>(x, w, nullptr, y, partial, g, B,
+                                            st);
+  return reduce_moments(err, partial, s1, s2, B, gfma::tiles(V, N), N, st);
 }
 
 int gemm_stats_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w,

@@ -40,6 +40,7 @@ _SIGNATURES["copy_rows_bf16"] = (2, 3)
 for _v in ("full", "c6", "nodot", "mt4", "fold1536"):
     _SIGNATURES[f"pg_{_v}_bf16"] = (5, 4)
 _declared: ctypes.CDLL | None = None
+_fns: dict = {}          # name -> the library's ctypes function
 
 
 def lib() -> ctypes.CDLL:
@@ -47,10 +48,8 @@ def lib() -> ctypes.CDLL:
     global _declared
     lib_ = _build.load()
     if _declared is not lib_:
-        for fn, argtypes in (("pgemm_row_block", [I]),
-                             ("stats_chunks", [I, I, I])):
-            getattr(lib_, fn).argtypes = argtypes
-            getattr(lib_, fn).restype = I
+        lib_.stats_chunks.argtypes = [I, I, I]
+        lib_.stats_chunks.restype = I
         for tile in ("conv_mma", "conv_fma"):
             getattr(lib_, f"{tile}_plan").argtypes = (
                 [I] * 4 + [ctypes.POINTER(I)])
@@ -59,10 +58,13 @@ def lib() -> ctypes.CDLL:
             getattr(lib_, f"{tile}_blocks").restype = I
         lib_.gemm_mma_plan.argtypes = [I] * 4 + [ctypes.POINTER(I)]
         lib_.gemm_mma_plan.restype = I
+        lib_.gemm_fma_plan.argtypes = [I] * 3 + [ctypes.POINTER(I)]
+        lib_.gemm_fma_plan.restype = I
         for fn, (n_ptr, n_int) in _SIGNATURES.items():
             getattr(lib_, fn).argtypes = [P] * n_ptr + [I] * n_int + [P]
             getattr(lib_, fn).restype = I
         _declared = lib_
+        _fns.clear()
     return lib_
 
 
@@ -83,6 +85,17 @@ def ptr(t: torch.Tensor | None) -> int | None:
     return None if t is None else t.data_ptr()
 
 
+def suffix(name: str, x: torch.Tensor, w: torch.Tensor) -> str:
+    """`check(name, x, w)` in one test where it passes: the hot path's
+    check of a kernel's two operands (the error, where it fails, is
+    check's)."""
+    t = SUFFIX.get(x.dtype)
+    if t is None or w.dtype != x.dtype or w.device != x.device \
+            or not (x.is_contiguous() and w.is_contiguous()):
+        return check(name, x, w)
+    return t
+
+
 def check(name: str, *ts: torch.Tensor) -> str:
     """The element-type suffix of tensors a kernel takes: one device, one
     dtype (fp32 or bf16), contiguous."""
@@ -99,10 +112,19 @@ def check(name: str, *ts: torch.Tensor) -> str:
 
 
 def run(fn: str, dev: torch.device, *args) -> None:
-    """Launch `fn(*args, stream)` on `dev`'s current stream; count it."""
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = getattr(lib(), fn)(*args, stream)
+    """Launch `fn(*args, stream)` on `dev`'s current stream; count it.  The
+    ctypes function is looked up once per name; the device is made current
+    only where it is not already."""
+    f = _fns.get(fn)
+    if f is None:
+        f = _fns[fn] = getattr(lib(), fn)
+    # the current stream's handle, without building a Stream object
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    if dev.index == torch.cuda.current_device():
+        err = f(*args, stream)
+    else:
+        with torch.cuda.device(dev):
+            err = f(*args, stream)
     if err != 0:
         raise RuntimeError(f"{fn}: CUDA launch failed with cudaError {err}")
     LAUNCHES[fn] += 1

@@ -2,10 +2,11 @@
 `nas_3d_unet_tpu/ops/pallas/conv3d.py`.
 
 Kernels (`csrc/conv3d.cu`: in fp32 on the FMA units, K6 on K1's conv
-tile `csrc/conv_fma.cuh` (planned as `ops/conv_fma.py` mirrors), K7 and
-K4 on the implicit-GEMM template of K2, `csrc/igemm.cuh`; in bf16 on the
-tensor cores, K6 on the conv tile `csrc/conv_mma.cuh` (`ops/conv_mma.py`),
-K7 and K4 on K2's GEMM tile `csrc/gemm_mma.cuh` (`ops/gemm_mma.py`)),
+tile `csrc/conv_fma.cuh` (planned as `ops/conv_fma.py` mirrors), K7 on
+K2's voxel-row FMA tile `csrc/gemm_fma.cuh` (`ops/gemm_fma.py`), K4 on
+the implicit-GEMM template `csrc/igemm.cuh`; in bf16 on the tensor cores,
+K6 on the conv tile `csrc/conv_mma.cuh` (`ops/conv_mma.py`), K7 and K4 on
+K2's GEMM tile `csrc/gemm_mma.cuh` (`ops/gemm_mma.py`)),
 fp32 or bf16 with fp32 accumulation, rounded once to the input's dtype,
 each with its plain PyTorch twin beside it:
 
@@ -215,7 +216,7 @@ def pointwise_conv_twin(x: torch.Tensor, w: torch.Tensor,
 def _k7(x, w, b, relu):
     if _cuda.dispatch("pointwise_conv", x, w):
         return pointwise_conv_twin(x, w, b, relu)
-    t = _cuda.check("pointwise_conv", x, w)
+    t = _cuda.suffix("pointwise_conv", x, w)
     cin, cout = w.shape
     rows = x.numel() // cin
     y = torch.empty((*x.shape[:-1], cout), dtype=x.dtype, device=x.device)
@@ -254,7 +255,11 @@ def pointwise_conv(x: torch.Tensor, w: torch.Tensor,
     """K7: x (B, D, H, W, Cin), w (Cin, Cout), b (Cout,) or None, one
     dtype → y (B, D, H, W, Cout).  Differentiable in x, w and b."""
     _check("pointwise_conv", x, w, b, ())
-    return _Pointwise.apply(x.contiguous(), w.contiguous(), b, relu)
+    x, w = x.contiguous(), w.contiguous()
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad or (
+            b is not None and b.requires_grad)):
+        return _Pointwise.apply(x, w, b, relu)
+    return _k7(x, w, b, relu)   # no graph to record (serving): no Function
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,144 @@
+"""The plan of the fp32 voxel-row FMA tile behind K2 and K7 in fp32
+(`csrc/gemm_fma.cuh`), and that kernel's algorithm in plain PyTorch.
+
+The kernel (launched by `pgemm.gemm_stats` and `conv3d.pointwise_conv` on
+fp32 CUDA tensors) cuts the voxel rows into tiles of BM; each block stages
+w (BN output columns) once and walks over its tiles, x in K chunks of 16
+through a ring of stages; each thread sums a TM × TN register tile (rows
+ty + i·TY, i < TM) over k in increasing order, adds the bias and clamps
+(K7), and the tile goes out as one run of rows; for K2 it also sums the
+moments of each tile's y.  Its host side picks the tile from the shapes:
+
+  `plan(k, n, stats)`  the block's columns BN, its rows per tile, the K
+      chunks, the x stages (the most, 4 or 3, with which two blocks fit an
+      SM, else 4 or fewer with one) and the bytes of shared memory.  The C
+      function `gemm_fma_plan` returns the same numbers (chip_smoke.py
+      holds the two equal on the card).
+  `row_gemm_stats(x3, w)`  K2's algorithm: the tile walk of
+      `gemm_mma.tile_sums` at this tile's rows and chunks, and the
+      per-tile moments partials (B, tiles, 2, N) in the kernel's order
+      (`tile_moments`; whichever block takes a tile, its sums are the
+      same).
+  `row_gemm(x3, w, b, relu)`  K7's: the same sums, the bias and the ReLU.
+No path runs them; the tests hold them against the twins and the JAX
+functions they replace, which checks the kernel's tiling and masking where
+no card is.  Their sums run chunk by chunk (a matmul each), where the
+kernel's run k by k: the same within fp32 rounding, not the same bits.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from .gemm_mma import epilogue, tile_sums
+
+THREADS = 256
+WARPS = THREADS // 32
+KC = 16                     # K per x stage
+LDX = KC + 4                # an x stage row in shared memory, floats
+SMEM_MAX = 232448           # 227 KB: the most a block may have
+SMEM_TWO_BLOCKS = 113 * 1024
+
+
+def tile_n(bn: int) -> int:
+    """A thread's columns."""
+    return 8 if bn >= 64 else 4
+
+
+def tile_m(bn: int) -> int:
+    """A thread's rows."""
+    return 8 if bn in (32, 128) else 4
+
+
+def tile_rows(bn: int) -> int:
+    """The tile's rows: 256 threads, BN / TN of them along N."""
+    return THREADS // (bn // tile_n(bn)) * tile_m(bn)
+
+
+@dataclass(frozen=True)
+class Plan:
+    bn: int                     # columns per block
+    rows: int                   # rows per tile (a partial row each)
+    nchunks: int                # K chunks of 16
+    stages: int                 # x stages in the ring
+    smem: int                   # bytes of shared memory per block
+
+
+def _smem(bn: int, nchunks: int, stages: int, stats: bool) -> int:
+    bm = tile_rows(bn)
+    return (nchunks * KC * bn + stages * bm * LDX + bm * bn
+            + (WARPS * 2 * bn if stats else 0)) * 4
+
+
+def plan(k: int, n: int, stats: bool = True) -> Plan:
+    """The kernel's tile (`gemm_fma.cuh` make_plan): BN the narrowest of
+    16/32/64/128 covering N (N above 128 takes ⌈N/128⌉ column blocks);
+    shared memory for w (all chunks), the ring of x stages, the epilogue's
+    y tile and, with `stats` (K2), the warps' moments rows."""
+    if min(k, n) < 1:
+        raise ValueError(f"gemm_fma: k {k} n {n}")
+    bn = 16 if n <= 16 else 32 if n <= 32 else 64 if n <= 64 else 128
+    nchunks = -(-k // KC)
+    fits = [s for s in (4, 3) if _smem(bn, nchunks, s, stats)
+            <= SMEM_TWO_BLOCKS]
+    fits = fits or [s for s in (4, 3, 2) if _smem(bn, nchunks, s, stats)
+                    <= SMEM_MAX] or [2]
+    return Plan(bn, tile_rows(bn), nchunks, fits[0],
+                _smem(bn, nchunks, fits[0], stats))
+
+
+def tile_moments(y: torch.Tensor, keep: torch.Tensor,
+                 bn: int) -> torch.Tensor:
+    """(2, C) fp32 (Σy, Σy²) of one tile's rows y (BM, C) where `keep`
+    (BM,), in the kernel's order: thread row ty holds rows ty + i·TY and
+    sums them in i order; the warp's WT = 32 / TX thread rows are summed
+    pairwise (the __shfl_xor butterfly), then the 8 warps in order."""
+    bm, c = y.shape
+    ty_n = THREADS // (bn // tile_n(bn))
+    v = torch.where(keep[:, None], y.float(), 0.0)
+    out = []
+    for t in (v, v * v):
+        t = t.view(bm // ty_n, ty_n, c)               # (i, ty, C)
+        acc = torch.zeros((ty_n, c))
+        for i in range(t.shape[0]):                   # this thread's rows
+            acc = acc + t[i]
+        acc = acc.view(WARPS, ty_n // WARPS, c)       # (warp, row in warp)
+        while acc.shape[1] > 1:                       # the butterfly
+            acc = acc[:, 0::2] + acc[:, 1::2]
+        total = torch.zeros(c)
+        for w in range(WARPS):                        # the warps, in order
+            total = total + acc[w, 0]
+        out.append(total)
+    return torch.stack(out)
+
+
+def row_gemm_stats(x3: torch.Tensor, w: torch.Tensor):
+    """K2's algorithm: x3 (B, V, K), w (K, N) fp32 → y (B, V, N) fp32,
+    summed per tile chunk by chunk, and partial (B, ⌈V/BM⌉, 2, N) fp32,
+    each tile's moments of its y over the rows < V."""
+    bsz, v, k = x3.shape
+    n = w.shape[1]
+    p = plan(k, n)
+    y = tile_sums(x3, w, p.rows, KC)
+    ntiles = y.shape[1] // p.rows
+    partial = torch.zeros((bsz, ntiles, 2, n))
+    rows = torch.arange(p.rows)
+    for b in range(bsz):
+        for t in range(ntiles):
+            r0 = t * p.rows
+            partial[b, t] = tile_moments(y[b, r0:r0 + p.rows],
+                                         r0 + rows < v, p.bn)
+    return y[:, :v].contiguous(), partial
+
+
+def row_gemm(x3: torch.Tensor, w: torch.Tensor,
+             b: torch.Tensor | None = None,
+             relu: bool = False) -> torch.Tensor:
+    """K7's algorithm: x3 (B, V, K), w (K, N), b (N,) fp32 or None → y (B,
+    V, N) fp32: the tile's sums, + b, ReLU."""
+    v = x3.shape[1]
+    p = plan(x3.shape[2], w.shape[1], False)
+    return epilogue(tile_sums(x3, w, p.rows, KC)[:, :v], b, relu,
+                    torch.float32)

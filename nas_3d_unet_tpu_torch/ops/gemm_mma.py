@@ -74,25 +74,36 @@ def plan(k: int, n: int, stats: bool = True, d2s: bool = False) -> Plan:
     return Plan(bn, BM, nchunks, smem)
 
 
-def _tile_sums(x3: torch.Tensor, w: torch.Tensor, p: Plan):
-    """The kernel's fp32 sums: x3 (B, V, K) and w (K, N) zero-padded to
-    whole tiles and K chunks, summed chunk by chunk per 128-row tile →
-    (B, tiles·128, N)."""
+def tile_sums(x3: torch.Tensor, w: torch.Tensor, rows: int, kc: int):
+    """A voxel-row tile's fp32 sums: x3 (B, V, K) and w (K, N) zero-padded
+    to whole tiles of `rows` and K chunks of `kc`, summed chunk by chunk per
+    tile → (B, tiles·rows, N).  This tile's walk (rows 128, chunks 32) and
+    the fp32 FMA tile's (`ops/gemm_fma.py`) alike."""
     bsz, v, k = x3.shape
     n = w.shape[1]
-    nblk = -(-v // p.rows)
-    xf = torch.zeros((bsz, nblk * p.rows, p.nchunks * KC))
+    nblk, nchunks = -(-v // rows), -(-k // kc)
+    xf = torch.zeros((bsz, nblk * rows, nchunks * kc))
     xf[:, :v, :k] = x3.float()
-    wf = torch.zeros((p.nchunks * KC, n))
+    wf = torch.zeros((nchunks * kc, n))
     wf[:k] = w.float()
-    acc = torch.zeros((bsz, nblk * p.rows, n))
+    acc = torch.zeros((bsz, nblk * rows, n))
     for b in range(bsz):
         for i in range(nblk):
-            rows = slice(i * p.rows, (i + 1) * p.rows)
-            for c in range(p.nchunks):
-                ks = slice(c * KC, (c + 1) * KC)
-                acc[b, rows] += xf[b, rows, ks] @ wf[ks]
+            rs = slice(i * rows, (i + 1) * rows)
+            for c in range(nchunks):
+                ks = slice(c * kc, (c + 1) * kc)
+                acc[b, rs] += xf[b, rs, ks] @ wf[ks]
     return acc
+
+
+def epilogue(acc: torch.Tensor, b: torch.Tensor | None, relu: bool,
+             dtype: torch.dtype) -> torch.Tensor:
+    """K7's epilogue on the fp32 sums: + b, ReLU, one rounding."""
+    if b is not None:
+        acc = acc + b.float()
+    if relu:
+        acc = acc.clamp_min(0.0)
+    return acc.to(dtype)
 
 
 def row_gemm_stats(x3: torch.Tensor, w: torch.Tensor):
@@ -101,7 +112,7 @@ def row_gemm_stats(x3: torch.Tensor, w: torch.Tensor):
     each tile's moments of its rounded y over the rows < V."""
     bsz, v, k = x3.shape
     p = plan(k, w.shape[1])
-    y = _tile_sums(x3, w, p).to(x3.dtype).float()        # one rounding
+    y = tile_sums(x3, w, p.rows, KC).to(x3.dtype).float()   # one rounding
     nblk = y.shape[1] // p.rows
     partial = torch.zeros((bsz, nblk, 2, w.shape[1]))
     rows = torch.arange(p.rows)
@@ -120,13 +131,8 @@ def row_gemm(x3: torch.Tensor, w: torch.Tensor,
     """K7's algorithm: x3 (B, V, K), w (K, N), b (N,) fp32 (already in
     w's dtype's values) or None → y (B, V, N) in x3's dtype: the chunked
     fp32 sums, + b, ReLU, one rounding."""
-    v, k = x3.shape[1:]
-    acc = _tile_sums(x3, w, plan(k, w.shape[1], False))[:, :v]
-    if b is not None:
-        acc = acc + b.float()
-    if relu:
-        acc = acc.clamp_min(0.0)
-    return acc.to(x3.dtype)
+    v = x3.shape[1]
+    return epilogue(tile_sums(x3, w, BM, KC)[:, :v], b, relu, x3.dtype)
 
 
 def staged_transpose_w(w: torch.Tensor) -> torch.Tensor:

@@ -15,8 +15,9 @@ bf16 (training) on the tensor cores:
      which K1's backward runs for dx (`conv_pgemm(..., with_stats=False)`);
      on the same two conv tiles;
   K2 `gemm_stats(x3, w)`: `y = x3 @ w` over voxel rows, the 1³ conv, plus
-     the moments (replaces `gemm_stats`); fp32 on the FMA implicit-GEMM
-     template (`csrc/igemm.cuh`), bf16 on the tensor-core GEMM
+     the moments (replaces `gemm_stats`); fp32 on the voxel-row FMA tile
+     with its per-tile moments (`csrc/gemm_fma.cuh`, plan and algorithm
+     mirrored by `ops/gemm_fma.py`), bf16 on the tensor-core GEMM
      (`csrc/gemm_mma.cuh`, mirrored by `ops/gemm_mma.py`).
 
 K1 and K2 return `(y, s1, s2)`: y in the input's dtype, `s1 = Σy` and
@@ -47,6 +48,7 @@ kernel).  There is no fallback from one to the other.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -178,28 +180,38 @@ def gemm_stats_twin(x3: torch.Tensor, w: torch.Tensor):
     return (y, *moments_twin(y))
 
 
+@functools.lru_cache(maxsize=None)
+def _k2_rows(t: str, k: int, n: int) -> int:
+    """Rows per moments partial of K2's kernel (one per tile): the
+    tensor-core GEMM's (bf16) or the FMA tile's (fp32), from the library's
+    plan, once per (dtype, K, N)."""
+    if t == "bf16":
+        plan = (ctypes.c_int * 4)()
+        err = _cuda.lib().gemm_mma_plan(k, n, 1, 0, plan)
+    else:
+        plan = (ctypes.c_int * 5)()
+        err = _cuda.lib().gemm_fma_plan(k, n, 1, plan)
+    if err:
+        raise ValueError(f"gemm_stats: no plan for {(k, n)}")
+    return plan[1]
+
+
 def _k2(x3: torch.Tensor, w: torch.Tensor):
     if _cuda.dispatch("gemm_stats", x3, w):
         return gemm_stats_twin(x3, w)
-    t = _cuda.check("gemm_stats", x3, w)
+    t = _cuda.suffix("gemm_stats", x3, w)
     b, v, k = x3.shape
     n = w.shape[1]
-    if t == "bf16":     # the tensor-core GEMM's rows per block
-        plan = (ctypes.c_int * 4)()
-        if _cuda.lib().gemm_mma_plan(k, n, 1, 0, plan):
-            raise ValueError(f"gemm_stats: no plan for {(k, n)}")
-        rows = plan[1]
-    else:
-        rows = _cuda.lib().pgemm_row_block(n)
-    nblk = -(-v // rows)
     y = torch.empty((b, v, n), dtype=x3.dtype, device=x3.device)
-    partial = torch.empty((b, nblk, 2, n), dtype=torch.float32,
-                          device=x3.device)
-    s1 = torch.empty((b, n), dtype=torch.float32, device=x3.device)
-    s2 = torch.empty_like(s1)
+    # one fp32 buffer: the partials (B, tiles, 2, N), then s1 and s2 (B, N)
+    nparts = b * -(-v // _k2_rows(t, k, n)) * 2 * n
+    buf = torch.empty(nparts + 2 * b * n, dtype=torch.float32,
+                      device=x3.device)
+    p = buf.data_ptr()
     _cuda.run(f"gemm_stats_{t}", x3.device, x3.data_ptr(), w.data_ptr(),
-              y.data_ptr(), partial.data_ptr(), s1.data_ptr(), s2.data_ptr(),
+              y.data_ptr(), p, p + 4 * nparts, p + 4 * (nparts + b * n),
               b, v, k, n)
+    s1, s2 = buf[nparts:].view(2, b, n).unbind(0)
     return y, s1, s2
 
 
@@ -228,4 +240,6 @@ def gemm_stats(x3: torch.Tensor, w: torch.Tensor):
     if x3.dim() != 3 or w.dim() != 2 or w.shape[0] != x3.shape[2]:
         raise ValueError(f"gemm_stats: x3 {tuple(x3.shape)} "
                          f"w {tuple(w.shape)}")
-    return _GemmStats.apply(x3, w)
+    if torch.is_grad_enabled() and (x3.requires_grad or w.requires_grad):
+        return _GemmStats.apply(x3, w)
+    return _k2(x3, w)       # no graph to record (serving): no Function
