@@ -17,6 +17,22 @@ JSON line:
                          Σy, Σy²) and K2's y alone, and K7's y (at
                          P_K7's geometries, and P_K7_EXTRA's with their
                          bias and ReLU), at fixed seeds;
+  k5                     K5a (moments), K5b (weighted_sums) and masked K5b
+                         at every geometry of chip_smoke.py's default and
+                         use_pallas paths (inputs from a generator of
+                         their own): per kernel the call's ms, its device
+                         ms and host ms (chip_smoke.py's `device_ms`) and
+                         its bound, summed per unit (fp32 per flagship
+                         forward, bf16 per train step; "pallas_moments_*"
+                         are the use_pallas configuration's K5a calls),
+                         the same per geometry, and a digest of each
+                         geometry's sums;
+  host_us                host µs a call of the launch path (wrapper,
+                         checks, allocation, ctypes launch) of K2, K7, K5a
+                         and K5b in both dtypes, at a shape whose device
+                         time is a few µs (8³ rows of 16 channels), so the
+                         device keeps up and the host's clock times the
+                         host alone: the least of 5 loops of 2000 calls;
   s_per_patient          3 synthetic patients after one warm-up, as
                          chip_smoke.py's phase "slice" serves them;
   patches_per_s          5 bf16 train steps after 3 warm-up, as its
@@ -43,6 +59,78 @@ def _digest(*ts) -> str:
         t = t.detach().cpu().contiguous()
         h.update(t.view(-1).view(torch.uint8).numpy().tobytes())
     return h.hexdigest()[:16]
+
+
+def _k5(cs, dev):
+    """K5's calls at every geometry of both paths, timed three ways."""
+    from nas_3d_unet_tpu_torch.ops import stats
+    from nas_3d_unet_tpu_torch.utils.bounds import bound_ms
+    from nas_3d_unet_tpu_torch.utils.timing import cuda_ms
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    f32, bf16 = torch.float32, torch.bfloat16
+    rows = ([("moments_f32", c, v, cs.BATCH, f32, n)
+             for c, v, n in cs.K5A_GEOMS]
+            + [("moments_bf16", c, v, cs.MICRO, bf16, n)
+               for c, v, n in cs.K5A_TRAIN]
+            + [("weighted_sums_bf16", c, v, cs.MICRO, bf16, n)
+               for c, v, n in cs.K5B_TRAIN]
+            + [("weighted_sums_masked_bf16", c, v, cs.MICRO, bf16, 2 * n)
+               for c, v, n in cs.P_K3]
+            + [("pallas_moments_f32", c, v, cs.BATCH, f32, n)
+               for c, v, n in cs.P_K5A]
+            + [("pallas_moments_bf16", c, v, cs.MICRO, bf16, 2 * n)
+               for c, v, n in cs.P_K5A])
+    keys = ("ms", "device_ms", "host_ms", "bound_ms")
+    sums, geoms, digests = {}, [], {}
+    for name, c, v, batch, dtype, n in rows:
+        nin = 1 if "moments" in name else 3 if "masked" in name else 2
+        ts = [torch.randn((batch, v, v, v, c), generator=gen, device=dev)
+              .to(dtype) for _ in range(nin)]
+        if nin == 3:
+            ts[2] = ts[2].relu()
+        fn = stats.moments if nin == 1 else stats.weighted_sums
+        rec = dict(zip(keys, (
+            cuda_ms(fn, *ts, iters=20, warmup=3), *cs.device_ms(fn, ts),
+            bound_ms(nin * ts[0].numel() * ts[0].element_size()
+                     + 8 * batch * c)[0])))
+        geoms.append([name, c, v, n, *rec.values()])
+        digests[f"{name}_{c}_{v}"] = _digest(*fn(*ts))
+        row = sums.setdefault(name, dict.fromkeys(keys, 0.0))
+        for k in keys:
+            row[k] += n * rec[k]
+        del ts
+    return {"per_unit": sums, "geometries": geoms, "digests": digests}
+
+
+def _host_us(dev, calls=2000, repeats=5):
+    """Host µs a call of K2's, K7's, K5a's and K5b's launch path, each
+    dtype: the least of `repeats` loops of `calls` calls."""
+    from nas_3d_unet_tpu_torch.ops import conv3d, pgemm, stats
+
+    out = {}
+    for dtype, t in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        x5 = torch.randn((1, 8, 8, 8, 16), device=dev).to(dtype)
+        x3 = x5.view(1, 512, 16)
+        w = torch.randn((16, 16), device=dev).to(dtype)
+        for name, fn, args in (
+                ("gemm_stats", pgemm.gemm_stats, (x3, w)),
+                ("pointwise_conv", conv3d.pointwise_conv,
+                 (x5, w, None, False)),
+                ("moments", stats.moments, (x5,)),
+                ("weighted_sums", stats.weighted_sums, (x5, x5))):
+            fn(*args)
+            best = float("inf")
+            for _ in range(repeats):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(calls):
+                    fn(*args)
+                best = min(best, (time.perf_counter() - t0) / calls)
+            torch.cuda.synchronize()
+            out[f"{name}_{t}"] = best * 1e6
+    return out
 
 
 def main() -> int:
@@ -118,6 +206,8 @@ def main() -> int:
                     _digest(conv3d.pointwise_conv(*args))
             out[str(dtype).split(".")[1]] = {"k1_ms": t1, "k1dx_ms": t1dx,
                                              "k2_ms": t2, "k7_ms": t7}
+        out["k5"] = _k5(cs, dev)
+        out["host_us"] = _host_us(dev)
     with strict_fp32():
         predictor = cs.flagship_predictor(dev, 0)
         recs = cs.synthetic_records(dev, 0, 4)

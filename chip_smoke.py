@@ -68,7 +68,14 @@ Phases, each printed as JSON lines:
      both), and their library call's, summed per unit with K2's in the
      line "pallas_device_split";
      K3's apply (fp32 and bf16) and dx (bf16); K5b masked by y > 0 (K3's
-     backward sums, bf16); K5a at the configuration's own geometries.
+     backward sums, bf16); K5a at the configuration's own geometries; and
+     off the path every K5 form in both dtypes at K5_EXTRA (the ragged
+     volume at C 12 and 7, the scalar loads, and inputs one element into
+     their buffers, not 16-byte aligned).  Every K5 record (phases 3, 5
+     and 7) holds the float64 check, the same bits twice, the plan, the
+     partials' share of one input's bytes, and the call's and the library
+     call's device ms and host ms, summed per unit in the line
+     "stats_device_split";
   8. pallas_slice: phase 4 with `DerivedNet(use_pallas=True)` (edge convs
      on K6/K7/K4, every GroupNorm on K3), the same patients and checks,
      against the twin path of that configuration.
@@ -98,7 +105,10 @@ Phases, each printed as JSON lines:
      `ops/conv_mma.py`'s and `ops/conv_fma.py`'s mirrors at every K1,
      K1-dx and K6 geometry checked, the GEMM tiles' plans
      `ops/gemm_mma.py`'s at every K2, K7 and K4 geometry and
-     `ops/gemm_fma.py`'s at every K2 and K7 geometry.
+     `ops/gemm_fma.py`'s at every K2 and K7 geometry; and one call of each
+     K5 form in both dtypes, aligned and not, in one trace, launches
+     exactly one kernel, `stats_sums_kernel` with the planned loads, and
+     `stats.cu` refuses a plan with any field one off `ops/stats.py`'s.
 Then the nvidia-smi line, the kernels summary line and, last,
 `{"ok": true, "device": {...}}`.  In the kernels line a serving kernel's
 `ms`, `plain_ms`, `library_ms` and `bound_ms` are one flagship forward's
@@ -124,6 +134,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -214,6 +225,12 @@ K2_TRAIN = [(k, n, v, 2 * c) for k, n, v, c in K2_GEOMS]
 # of 8 (16-byte copies) and not (scalar copies)
 K2_EXTRA = [(32, 32, RAGGED, 0), (40, 24, RAGGED, 0), (12, 7, RAGGED, 0)]
 K5A_TRAIN = [(c, v, 2 * n) for c, v, n in K5A_GEOMS]
+# K5 off the path, every form in both dtypes at batch 2: (C, volume,
+# element offset of the inputs).  C 12 and 7 at the ragged volume take the
+# scalar instantiation (bf16 rows of 24 and 14 bytes; fp32 C 12 is three
+# 16-byte loads a row), and the views 1 element into their buffers
+# (contiguous, not 16-byte aligned) take it at C 16 and 48
+K5_EXTRA = [(12, RAGGED, 0), (7, RAGGED, 0), (16, 32, 1), (48, RAGGED, 1)]
 # K5b: every GroupNorm's backward, (C, volume edge, launches per step)
 K5B_TRAIN = [(16, 64, 2), (16, 128, 14), (32, 32, 2), (32, 64, 22),
              (32, 128, 4), (48, 128, 2), (64, 16, 2), (64, 32, 22),
@@ -512,24 +529,39 @@ def _stats_library(name, args):
     return library
 
 
-def check_stats(dev, gen, name, c, v, batch, dtype):
+def _offset_view(t, offset):
+    """t's values in a contiguous view `offset` elements into a buffer of
+    its own (offset 0: t itself)."""
+    if not offset:
+        return t
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    view = buf[offset:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def check_stats(dev, gen, name, c, v, batch, dtype, offset=0):
     """K5a (moments), K5b (weighted_sums) or K5b masked by y > 0
     (weighted_sums_masked, K3's backward sums) against the twin, and
-    against float64 sums of the same input."""
+    against float64 sums of the same input; the inputs `offset` elements
+    into their buffers.  Also the call's device and host ms and its
+    library call's (`split_ms`), and the plan (VEC, rows a block, blocks
+    along V) with the partials' bytes as a share of one input's."""
     from nas_3d_unet_tpu_torch.ops import stats
 
-    shape = (batch, v, v, v, c)
-    x = (torch.randn(shape, generator=gen, device=dev) + 0.5).to(dtype)
+    shape = (batch, *_volume(v), c)
+    rand = lambda: torch.randn(shape, generator=gen, device=dev)
+    x = _offset_view((rand() + 0.5).to(dtype), offset)
     if name == "moments":
         args = (x,)
         xd = x.double()
         terms = (xd, xd * xd)
     else:
-        g = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        g = _offset_view(rand().to(dtype), offset)
         args = (g, x)
         gd = g.double()
         if name == "weighted_sums_masked":
-            y = torch.randn(shape, generator=gen, device=dev).relu().to(dtype)
+            y = _offset_view(rand().relu().to(dtype), offset)
             args = (g, x, y)
             gd = torch.where(y > 0, gd, 0.0)
         terms = (gd, gd * x.double())
@@ -543,9 +575,20 @@ def check_stats(dev, gen, name, c, v, batch, dtype):
             for o, t in zip(out, terms)]
     del terms
     torch.cuda.synchronize()
-    rec = {"c": c, "volume": v, "batch": batch, "bitwise_repeatable": rep,
+    library = _stats_library(name, args)
+    vox = x.numel() // (batch * c)
+    p = stats.plan(batch, vox, c, x.element_size(), len(args),
+                   not any(a.data_ptr() % 16 for a in args))
+    rec = {"c": c, "volume": v, "batch": batch, "offset": offset,
+           "bitwise_repeatable": rep,
            "max_err_over_sum_abs": errs, "limit": STATS_RTOL,
-           **_timings(kernel, twin, _stats_library(name, args), args)}
+           "plan": [p.vec, p.rows, p.nspan],
+           "partial_share": 16 * p.nspan / (vox * x.element_size()),
+           **_timings(kernel, twin, library, args)}
+    rec.update(zip(("device_ms", "host_ms"), device_ms(kernel, args)))
+    if library is not None:
+        rec.update(zip(("library_device_ms", "library_host_ms"),
+                       device_ms(library, args)))
     n_in = len(args)
     rec["bound_ms"], rec["bound_by"] = bound_ms(
         n_in * x.numel() * x.element_size() + 8 * batch * c,
@@ -742,7 +785,8 @@ class Summary:
         for key in ("ms", "plain_ms", "bound_ms"):
             row[key] += per_unit * rec[key]
         if rec["library_ms"] is None:
-            row["library_ms"] = None
+            if per_unit:     # off the path (0), it adds nothing either way
+                row["library_ms"] = None
         elif row["library_ms"] is not None:
             row["library_ms"] += per_unit * rec["library_ms"]
         row["bound_by"][rec["bound_by"]] += per_unit * rec["bound_ms"]
@@ -855,6 +899,16 @@ def phase_pallas_kernels(dev, gen, summary):
                          ("weighted_sums_masked", check_stats)):
             _run_check("pallas_kernel", f"{name}_bf16", fn, summary, 2 * n,
                        dev, gen, name, c, v, MICRO, bf16)
+    for c, v, off in K5_EXTRA:     # K5 off the path: scalar, unaligned
+        for name in ("moments", "weighted_sums", "weighted_sums_masked"):
+            for dtype in (f32, bf16):
+                _run_check("pallas_kernel", f"{name}_{SUFFIX[dtype]}",
+                           check_stats, summary, 0, dev, gen, name, c, v,
+                           BATCH, dtype, off)
+    emit({"phase": "stats_device_split", **{
+        n: summary.split(n) for n in
+        ("moments_f32", "moments_bf16", "weighted_sums_bf16",
+         "weighted_sums_masked_bf16")}})
     emit({"phase": "pallas_device_split", **{
         n: summary.split(n) for n in
         [f"{k}_{t}" for k in ("gemm_stats", "pointwise_conv",
@@ -1377,7 +1431,6 @@ def ptxas_report(log, kinds):
     each kernel whose name holds one of `kinds`, from the ptxas -v report
     of the build log (names demangled to `kernel<args>` where `c++filt`
     is at hand)."""
-    import re
     import shutil
 
     out, src, fn = {}, None, None
@@ -1403,9 +1456,10 @@ def ptxas_report(log, kinds):
             in zip(out.items(), short)}
 
 
-def kernels_launched(fn, *args):
+def kernels_launched(fn, *args, every=False):
     """The names of the device kernels one call of `fn` launches, from a
-    `torch.profiler` trace (demangled: `(anonymous namespace)::...`)."""
+    `torch.profiler` trace (demangled: `(anonymous namespace)::...`):
+    each name once, sorted, or with `every` each launch in launch order."""
     import tempfile
 
     from torch.profiler import ProfilerActivity, profile
@@ -1419,7 +1473,9 @@ def kernels_launched(fn, *args):
         prof.export_chrome_trace(path)
         with open(path) as f:
             events = json.load(f)["traceEvents"]
-    return sorted({e["name"] for e in events if e.get("cat") == "kernel"})
+    names = [e["name"] for e in sorted(events, key=lambda e: e.get("ts", 0))
+             if e.get("cat") == "kernel"]
+    return names if every else sorted(set(names))
 
 
 # (kernel, device kernel it must launch, call): the tensor-core conv behind
@@ -1427,6 +1483,7 @@ def kernels_launched(fn, *args):
 # bf16, the FMA conv tile behind K1, K1-dx and K6 in fp32, the voxel-row
 # FMA tile behind K2 and K7 in fp32, the FMA template behind K4 in fp32
 MMA, GMMA = "conv_mma_kernel", "gemm_mma_kernel"
+K5 = "stats_sums_kernel"          # K5a, K5b and masked K5b, both dtypes
 CFMA, GFMA, FMA = "conv_fma_kernel", "gemm_fma_kernel", "gemm_moments_kernel"
 
 
@@ -1465,6 +1522,52 @@ def _sass_calls(dev, gen):
             ("conv3d_f32", CFMA, conv3d.conv3d,
              (xf, wf, bias, 1, 1, True)),
             ("conv3d_f32", CFMA, conv3d.conv3d, (xf, wf, None, 2, 1, False))]
+
+
+def _k5_calls(dev, gen):
+    """One call of each K5 form (moments, weighted_sums, and masked by y)
+    in both dtypes, on aligned inputs (16-byte loads) and on views one
+    element into their buffers (the scalar instantiation): [(the
+    instantiation it must launch, fn, args)]."""
+    from nas_3d_unet_tpu_torch.ops import stats
+
+    calls = []
+    for dtype, t, wide in ((torch.float32, "float", 4),
+                           (torch.bfloat16, "__nv_bfloat16", 8)):
+        for offset, vec in ((0, wide), (1, 1)):
+            ts = [_offset_view(torch.randn((2, 8, 8, 8, 32), generator=gen,
+                                           device=dev).to(dtype), offset)
+                  for _ in range(3)]
+            for n, (w, m) in ((1, ("false", "false")),
+                              (2, ("true", "false")), (3, ("true", "true"))):
+                fn = stats.moments if n == 1 else stats.weighted_sums
+                calls.append((f"{K5}<{t}, {w}, {m}, {vec}>", fn,
+                              tuple(ts[:n])))
+    return calls
+
+
+def k5_plans_accepted(dev):
+    """The fields of `ops/stats.py`'s plan, each set one above the plan of
+    a bf16 K5b call (batch 2, 8³, C 32), whose wrong plan `stats.cu`
+    accepted: it must refuse every one (no launch, an error code)."""
+    from nas_3d_unet_tpu_torch.ops import _cuda, stats
+
+    g, x = (torch.zeros((2, 8 ** 3, 32), dtype=torch.bfloat16, device=dev)
+            for _ in range(2))
+    b, v, c = x.shape
+    p = stats.plan(b, v, c, 2, 2)
+    buf = torch.empty(2 + 4 * (p.nspan + 1), b, c, device=dev)
+    accepted = []
+    for field in p._fields:
+        try:
+            _cuda.run("weighted_sums_bf16", dev, g.data_ptr(), x.data_ptr(),
+                      buf.data_ptr(), b, v, c,
+                      *p._replace(**{field: getattr(p, field) + 1}))
+        except RuntimeError:
+            continue
+        accepted.append(field)
+    torch.cuda.synchronize()
+    return accepted
 
 
 def plans_agree():
@@ -1544,7 +1647,8 @@ def phase_sass(dev, gen, functions):
     FMA template, launches gemm_moments_kernel, no instantiation of which
     has HMMA or is bf16.  And the kernels' plans are the ones
     `ops/conv_mma.py`, `ops/conv_fma.py`, `ops/gemm_mma.py` and
-    `ops/gemm_fma.py` mirror."""
+    `ops/gemm_fma.py` mirror; K5 launches one `stats_sums_kernel` a call,
+    and refuses a plan other than `ops/stats.py`'s."""
     hmma = {kind: {fn: n for fn, n, _ in functions if kind in fn}
             for kind in (MMA, GMMA, CFMA, GFMA, FMA)}
     ffma = {kind: {fn: n for fn, _, n in functions if kind in fn}
@@ -1565,6 +1669,15 @@ def phase_sass(dev, gen, functions):
     # the FMA template is K4 fp32's alone
     ok = ok and all(name == "conv_transpose2x_f32" for name, names
                     in launched.items() for n in names if FMA in n)
+    # K5: one launch a call, of the instantiation its inputs call for,
+    # all in one trace
+    k5_calls = _k5_calls(dev, gen)
+    with torch.no_grad():
+        k5 = kernels_launched(lambda: [fn(*a) for _, fn, a in k5_calls],
+                              every=True)
+    k5_ok = len(k5) == len(k5_calls) and all(
+        want in n for (want, _, _), n in zip(k5_calls, k5))
+    k5_wrong_plans = k5_plans_accepted(dev)
     plans_differ = plans_agree()
     emit({"phase": "sass", "conv_mma_hmma": hmma[MMA],
           "gemm_mma_hmma": hmma[GMMA], "conv_fma_hmma": hmma[CFMA],
@@ -1572,7 +1685,16 @@ def phase_sass(dev, gen, functions):
           "gemm_fma_ffma": ffma[GFMA], "gemm_moments_hmma": hmma[FMA],
           "gemm_moments_bf16": fma_bf16,
           "launched": launched, "plans_differ": plans_differ,
-          "ok": ok and not plans_differ})
+          "k5_launched": [re.search(r"\w+_kernel<[^>]*>", n).group(0)
+                          if K5 in n else n for n in k5],
+          "k5_wrong_plans_accepted": k5_wrong_plans,
+          "ok": ok and k5_ok and not k5_wrong_plans and not plans_differ})
+    if not k5_ok:
+        raise AssertionError(f"K5 calls launched {k5}, not one "
+                             f"{K5} each as planned")
+    if k5_wrong_plans:
+        raise AssertionError(f"stats.cu launched K5 on a wrong plan: "
+                             f"{k5_wrong_plans} one off")
     if not ok:
         raise AssertionError("the bf16 convs and GEMMs are not all on the "
                              "tensor cores, the fp32 convs not all on the "
@@ -1656,7 +1778,8 @@ def main() -> int:
           "flags": " ".join(_build.NVCC_FLAGS), "ptxas": ptxas,
           "ptxas_tensor_core_kernels": ptxas_report(log, (MMA, GMMA)),
           "ptxas_conv_fma": ptxas_report(log, (CFMA,)),
-          "ptxas_gemm_fma": ptxas_report(log, (GFMA,))})
+          "ptxas_gemm_fma": ptxas_report(log, (GFMA,)),
+          "ptxas_stats": ptxas_report(log, (K5,))})
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)

@@ -216,7 +216,7 @@ def pointwise_conv_twin(x: torch.Tensor, w: torch.Tensor,
 def _k7(x, w, b, relu):
     if _cuda.dispatch("pointwise_conv", x, w):
         return pointwise_conv_twin(x, w, b, relu)
-    t = _cuda.suffix("pointwise_conv", x, w)
+    t = _cuda.check("pointwise_conv", x, w)
     cin, cout = w.shape
     rows = x.numel() // cin
     y = torch.empty((*x.shape[:-1], cout), dtype=x.dtype, device=x.device)

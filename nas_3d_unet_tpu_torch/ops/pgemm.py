@@ -199,7 +199,7 @@ def _k2_rows(t: str, k: int, n: int) -> int:
 def _k2(x3: torch.Tensor, w: torch.Tensor):
     if _cuda.dispatch("gemm_stats", x3, w):
         return gemm_stats_twin(x3, w)
-    t = _cuda.suffix("gemm_stats", x3, w)
+    t = _cuda.check("gemm_stats", x3, w)
     b, v, k = x3.shape
     n = w.shape[1]
     y = torch.empty((b, v, n), dtype=x3.dtype, device=x3.device)

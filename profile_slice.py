@@ -75,11 +75,12 @@ CLASSES = [   # (class, kernel-name pattern), first match wins
     ("K1/K2 moments reduce", r"moments_reduce_kernel"),
     ("K3 apply", r"apply_kernel<"),
     ("K3 dx", r"dx_kernel<"),
+    # stats_sums_kernel<T, WEIGHTED, MASKED, VEC> (csrc/stats.cu): K5a,
+    # K5b and masked K5b, one launch a call (its cross-block sum inside)
     ("K5b masked (K3 backward sums)",
-     r"channel_sums_kernel<[\w:]+, true, true"),
-    ("K5b weighted_sums", r"channel_sums_kernel<[\w:]+, true"),
-    ("K5a moments", r"channel_sums_kernel<[\w:]+, false"),
-    ("K5 partials reduce", r"partial_reduce_kernel"),
+     r"stats_sums_kernel<[\w:]+, true, true"),
+    ("K5b weighted_sums", r"stats_sums_kernel<[\w:]+, true"),
+    ("K5a moments", r"stats_sums_kernel<[\w:]+, false"),
     ("AdamW (foreach)", r"multi_tensor_apply"),
     ("cuDNN layout transform", r"nhwcToNchw|nchwToNhwc"),
     ("cuDNN conv", r"conv|xmma_fprop|cudnn"),
