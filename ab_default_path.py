@@ -8,15 +8,20 @@ ROOT is the root of a checkout (it holds `chip_smoke.py` and
 `nas_3d_unet_tpu_torch/`); its kernels are built from its own sources and
 its own `chip_smoke.py` helpers make the net and the data.  Prints one
 JSON line:
-  k1_ms, k1dx_ms, k2_ms, k7_ms
-                         K1, K1-dx, K2 and K7 (the use_pallas 1³ conv)
-                         summed over chip_smoke.py's geometries: fp32 per
-                         flagship forward (batch 2), bf16 per train step
-                         (two microbatches of 1);
+  k1_ms, k1dx_ms, k2_ms, k7_ms, k4_ms
+                         K1, K1-dx, K2, K7 (the use_pallas 1³ conv) and
+                         K4 (its k2s2 transpose conv) summed over
+                         chip_smoke.py's geometries: fp32 per flagship
+                         forward (batch 2), bf16 per train step (two
+                         microbatches of 1);
+  k4_device_ms, k4_host_ms
+                         K4's device ms and host ms a unit, the same sum
+                         (chip_smoke.py's `device_ms`);
   digests                SHA-256 of K1's (y, Σy, Σy²), K1-dx's y, K2's (y,
-                         Σy, Σy²) and K2's y alone, and K7's y (at
-                         P_K7's geometries, and P_K7_EXTRA's with their
-                         bias and ReLU), at fixed seeds;
+                         Σy, Σy²) and K2's y alone, K7's y (at P_K7's
+                         geometries, and P_K7_EXTRA's with their bias and
+                         ReLU) and K4's y (at P_K4's, and P_K4_EXTRA's
+                         with their ReLU), at fixed seeds;
   k5                     K5a (moments), K5b (weighted_sums) and masked K5b
                          at every geometry of chip_smoke.py's default and
                          use_pallas paths (inputs from a generator of
@@ -28,11 +33,12 @@ JSON line:
                          the same per geometry, and a digest of each
                          geometry's sums;
   host_us                host µs a call of the launch path (wrapper,
-                         checks, allocation, ctypes launch) of K2, K7, K5a
-                         and K5b in both dtypes, at a shape whose device
-                         time is a few µs (8³ rows of 16 channels), so the
-                         device keeps up and the host's clock times the
-                         host alone: the least of 5 loops of 2000 calls;
+                         checks, allocation, ctypes launch) of K2, K7, K4,
+                         K5a and K5b in both dtypes, at a shape whose
+                         device time is a few µs (8³ rows of 16 channels),
+                         so the device keeps up and the host's clock times
+                         the host alone: the least of 5 loops of 2000
+                         calls;
   s_per_patient          3 synthetic patients after one warm-up, as
                          chip_smoke.py's phase "slice" serves them;
   patches_per_s          5 bf16 train steps after 3 warm-up, as its
@@ -104,9 +110,41 @@ def _k5(cs, dev):
     return {"per_unit": sums, "geometries": geoms, "digests": digests}
 
 
+def _k4(cs, dev, out):
+    """K4 (`conv_transpose2x`) at P_K4 (timed three ways, summed a unit)
+    and P_K4_EXTRA, with inputs from a generator of its own: the sums
+    into out[dtype], the y digests into out["digests"]."""
+    from nas_3d_unet_tpu_torch.ops import conv3d
+    from nas_3d_unet_tpu_torch.utils.timing import cuda_ms
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    rand = lambda *s: torch.randn(s, generator=gen, device=dev)
+    for dtype, batch, per in ((torch.float32, cs.BATCH, 1),
+                              (torch.bfloat16, cs.MICRO, 2)):
+        sums = dict.fromkeys(("k4_ms", "k4_device_ms", "k4_host_ms"), 0.0)
+        for cin, cout, v, relu, n in (
+                [(c, c, v, False, n) for c, v, n in cs.P_K4]
+                + [(*g, 0) for g in cs.P_K4_EXTRA]):
+            x = rand(batch, *cs._volume(v), cin).to(dtype)
+            w = (rand(2, 2, 2, cin, cout) * cin ** -0.5).to(dtype)
+            args = (x, w, relu)
+            out["digests"][f"k4_{cin}_{cout}_{v}_{relu}_{dtype}"] = \
+                _digest(conv3d.conv_transpose2x(*args))
+            if n:
+                dev_ms, host_ms = cs.device_ms(conv3d.conv_transpose2x,
+                                               args)
+                for key, ms in (("k4_ms", cuda_ms(conv3d.conv_transpose2x,
+                                                  *args)),
+                                ("k4_device_ms", dev_ms),
+                                ("k4_host_ms", host_ms)):
+                    sums[key] += per * n * ms
+        out[str(dtype).split(".")[1]].update(sums)
+
+
 def _host_us(dev, calls=2000, repeats=5):
-    """Host µs a call of K2's, K7's, K5a's and K5b's launch path, each
-    dtype: the least of `repeats` loops of `calls` calls."""
+    """Host µs a call of K2's, K7's, K4's, K5a's and K5b's launch path,
+    each dtype: the least of `repeats` loops of `calls` calls."""
     from nas_3d_unet_tpu_torch.ops import conv3d, pgemm, stats
 
     out = {}
@@ -114,10 +152,13 @@ def _host_us(dev, calls=2000, repeats=5):
         x5 = torch.randn((1, 8, 8, 8, 16), device=dev).to(dtype)
         x3 = x5.view(1, 512, 16)
         w = torch.randn((16, 16), device=dev).to(dtype)
+        w4 = torch.randn((2, 2, 2, 16, 16), device=dev).to(dtype)
         for name, fn, args in (
                 ("gemm_stats", pgemm.gemm_stats, (x3, w)),
                 ("pointwise_conv", conv3d.pointwise_conv,
                  (x5, w, None, False)),
+                ("conv_transpose2x", conv3d.conv_transpose2x,
+                 (x5, w4, False)),
                 ("moments", stats.moments, (x5,)),
                 ("weighted_sums", stats.weighted_sums, (x5, x5))):
             fn(*args)
@@ -206,6 +247,7 @@ def main() -> int:
                     _digest(conv3d.pointwise_conv(*args))
             out[str(dtype).split(".")[1]] = {"k1_ms": t1, "k1dx_ms": t1dx,
                                              "k2_ms": t2, "k7_ms": t7}
+        _k4(cs, dev, out)
         out["k5"] = _k5(cs, dev)
         out["host_us"] = _host_us(dev)
     with strict_fp32():

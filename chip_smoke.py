@@ -60,18 +60,18 @@ Phases, each printed as JSON lines:
      scale 37, whose bf16 rounding matters); K4 conv_transpose2x (bf16 on
      the tensor cores, depth-to-space store; also off the path at the
      ragged volume at 16 -> 16, 16 -> 24 (N = 192 > 128) with ReLU and
-     12 -> 5 (scalar), and 64 -> 64 with ReLU); K7 in fp32 runs the
-     voxel-row FMA tile, K4 in fp32 the FMA template; K7's and K4's
-     records, as K2's, also hold their device ms and host ms
-     (`device_ms`: the calls queued behind a spin kernel, so the device's
-     time and the host's are each timed alone; the call's `ms` holds
-     both), and their library call's, summed per unit with K2's in the
-     line "pallas_device_split";
-     K3's apply (fp32 and bf16) and dx (bf16); K5b masked by y > 0 (K3's
-     backward sums, bf16); K5a at the configuration's own geometries; and
-     off the path every K5 form in both dtypes at K5_EXTRA (the ragged
-     volume at C 12 and 7, the scalar loads, and inputs one element into
-     their buffers, not 16-byte aligned).  Every K5 record (phases 3, 5
+     12 -> 5 (scalar), and 64 -> 64 with ReLU); K7 and K4 in fp32 run
+     the voxel-row FMA tile (K4 with its depth-to-space store); K3's
+     apply (fp32 and bf16) and dx (bf16); K7's, K4's and K3's records, as
+     K2's, also hold their device ms and host ms (`device_ms`: the calls
+     queued behind a spin kernel, so the device's time and the host's are
+     each timed alone; the call's `ms` holds both), and their library
+     call's, summed per unit with K2's in the line "pallas_device_split";
+     K5b masked by y > 0 (K3's backward sums, bf16); K5a at the
+     configuration's own geometries; and off the path every K5 form in
+     both dtypes at K5_EXTRA (the ragged volume at C 12 and 7, the scalar
+     loads, and inputs one element into their buffers, not 16-byte
+     aligned).  Every K5 record (phases 3, 5
      and 7) holds the float64 check, the same bits twice, the plan, the
      partials' share of one input's bytes, and the call's and the library
      call's device ms and host ms, summed per unit in the line
@@ -95,20 +95,19 @@ Phases, each printed as JSON lines:
      `torch.profiler` trace) are the tensor-core conv's
      (`conv_mma_kernel`), K2's, K7's and K4's in bf16 the tensor-core
      GEMM's (`gemm_mma_kernel`), each instantiation of both with HMMA in
-     its SASS; K1, K1-dx and K6 (stride 1 and 2) in fp32 launch the FMA
-     conv tile (`conv_fma_kernel`), every instantiation of which has FFMA
-     and no HMMA in its SASS; K2 and K7 in fp32 launch the voxel-row FMA
-     tile (`gemm_fma_kernel`), every instantiation of which has FFMA and
-     no HMMA; K4 in fp32, alone, launches the FMA template
-     (`gemm_moments_kernel`), none of whose instantiations has HMMA and
-     none of which is bf16; the conv tiles' plans and brick counts equal
-     `ops/conv_mma.py`'s and `ops/conv_fma.py`'s mirrors at every K1,
-     K1-dx and K6 geometry checked, the GEMM tiles' plans
-     `ops/gemm_mma.py`'s at every K2, K7 and K4 geometry and
-     `ops/gemm_fma.py`'s at every K2 and K7 geometry; and one call of each
-     K5 form in both dtypes, aligned and not, in one trace, launches
-     exactly one kernel, `stats_sums_kernel` with the planned loads, and
-     `stats.cu` refuses a plan with any field one off `ops/stats.py`'s.
+     its SASS, one such kernel a call; K1, K1-dx and K6 (stride 1 and 2)
+     in fp32 launch the FMA conv tile (`conv_fma_kernel`), every
+     instantiation of which has FFMA and no HMMA in its SASS; K2, K7 and
+     K4 in fp32 launch the voxel-row FMA tile (`gemm_fma_kernel`: K2 its
+     STATS instantiation, K7 a plain one, K4 a D2S one), every
+     instantiation of which has FFMA and no HMMA; the conv tiles' plans
+     and brick counts equal `ops/conv_mma.py`'s and `ops/conv_fma.py`'s
+     mirrors at every K1, K1-dx and K6 geometry checked, the GEMM tiles'
+     plans `ops/gemm_mma.py`'s and `ops/gemm_fma.py`'s at every K2, K7
+     and K4 geometry; and one call of each K5 form in both dtypes,
+     aligned and not, in one trace, launches exactly one kernel,
+     `stats_sums_kernel` with the planned loads, and `stats.cu` refuses a
+     plan with any field one off `ops/stats.py`'s.
 Then the nvidia-smi line, the kernels summary line and, last,
 `{"ok": true, "device": {...}}`.  In the kernels line a serving kernel's
 `ms`, `plain_ms`, `library_ms` and `bound_ms` are one flagship forward's
@@ -166,7 +165,7 @@ SOURCES = {"moments": SRC_STATS, "weighted_sums": SRC_STATS,
            "pointwise_conv_bf16": SRC_GMMA, "conv_transpose2x_bf16": SRC_GMMA,
            "conv3x3x3_f32": SRC_FMA, "conv3d_f32": SRC_FMA,
            "conv3x3x3_stats_f32": SRC_FMA, "gemm_stats_f32": SRC_GFMA,
-           "pointwise_conv_f32": SRC_GFMA}
+           "pointwise_conv_f32": SRC_GFMA, "conv_transpose2x_f32": SRC_GFMA}
 # the rest: SRC_PGEMM (by kernel name, else by its name without the dtype)
 REPLACES = {
     "conv3x3x3_stats": "nas_3d_unet_tpu/ops/pallas/pgemm.py:174",  # conv_pgemm
@@ -758,6 +757,7 @@ def check_gn(dev, gen, name, c, v, batch, dtype):
         yt = twin(*args)
         rep = _repeatable(kernel, args, yk)
         times = _timings(kernel, twin, library, args)
+        times.update(split_ms(kernel, library, args))
     torch.cuda.synchronize()
     rec = {"c": c, "volume": v, "batch": batch, "bitwise_repeatable": rep,
            **_y_check(yk, yt), **times}
@@ -912,8 +912,8 @@ def phase_pallas_kernels(dev, gen, summary):
     emit({"phase": "pallas_device_split", **{
         n: summary.split(n) for n in
         [f"{k}_{t}" for k in ("gemm_stats", "pointwise_conv",
-                              "conv_transpose2x")
-         for t in ("f32", "bf16")]}})
+                              "conv_transpose2x", "group_norm_apply")
+         for t in ("f32", "bf16")] + ["group_norm_dx_bf16"]}})
 
 
 # the kernels that run in a forward; the rest run in the backward
@@ -1481,10 +1481,14 @@ def kernels_launched(fn, *args, every=False):
 # (kernel, device kernel it must launch, call): the tensor-core conv behind
 # K1, K1-dx and K6 in bf16, the tensor-core GEMM behind K2, K7 and K4 in
 # bf16, the FMA conv tile behind K1, K1-dx and K6 in fp32, the voxel-row
-# FMA tile behind K2 and K7 in fp32, the FMA template behind K4 in fp32
+# FMA tile behind K2, K7 and K4 in fp32 (gemm_fma_kernel<BN, STATS, EPI,
+# D2S>: K2 STATS alone, K7 neither STATS nor D2S, K4 D2S alone)
 MMA, GMMA = "conv_mma_kernel", "gemm_mma_kernel"
 K5 = "stats_sums_kernel"          # K5a, K5b and masked K5b, both dtypes
-CFMA, GFMA, FMA = "conv_fma_kernel", "gemm_fma_kernel", "gemm_moments_kernel"
+CFMA, GFMA = "conv_fma_kernel", "gemm_fma_kernel"
+GFMA_K2 = GFMA + "<{}, true, false, false>"
+GFMA_K7 = GFMA + "<{}, false, {}, false>"
+GFMA_K4 = GFMA + "<{}, false, {}, true>"
 
 
 def _sass_calls(dev, gen):
@@ -1504,12 +1508,14 @@ def _sass_calls(dev, gen):
              (x, w2, bias[:16], True)),
             ("conv_transpose2x_bf16", GMMA, conv3d.conv_transpose2x,
              (x, w4, True)),
-            ("pointwise_conv_f32", GFMA, conv3d.pointwise_conv,
-             (xf, w2f, bias[:16], True)),
-            ("pointwise_conv_f32", GFMA, conv3d.pointwise_conv,
-             (xf, w2f, None, False)),
-            ("conv_transpose2x_f32", FMA, conv3d.conv_transpose2x,
-             (xf, w4.float(), False)),
+            ("pointwise_conv_f32", GFMA_K7.format(16, "true"),
+             conv3d.pointwise_conv, (xf, w2f, bias[:16], True)),
+            ("pointwise_conv_f32", GFMA_K7.format(16, "false"),
+             conv3d.pointwise_conv, (xf, w2f, None, False)),
+            ("conv_transpose2x_f32", GFMA_K4.format(128, "false"),
+             conv3d.conv_transpose2x, (xf, w4.float(), False)),
+            ("conv_transpose2x_f32", GFMA_K4.format(128, "true"),
+             conv3d.conv_transpose2x, (xf, w4.float(), True)),
             ("conv3x3x3_bf16", MMA, pgemm.conv3x3x3, (x, w, 1)),
             ("conv3d_bf16", MMA, conv3d.conv3d, (x, w, None, 1, 1, False)),
             ("conv3d_bf16", MMA, conv3d.conv3d, (x, w, bias, 2, 2, True)),
@@ -1517,7 +1523,8 @@ def _sass_calls(dev, gen):
             ("gemm_stats_bf16", GMMA, pgemm.gemm_stats, (x3, w2)),
             ("conv3x3x3_stats_f32", CFMA, pgemm.conv3x3x3_stats,
              (xf, wf, 1)),
-            ("gemm_stats_f32", GFMA, pgemm.gemm_stats, (x3f, w2f)),
+            ("gemm_stats_f32", GFMA_K2.format(16), pgemm.gemm_stats,
+             (x3f, w2f)),
             ("conv3x3x3_f32", CFMA, pgemm.conv3x3x3, (xf, wf, 1)),
             ("conv3d_f32", CFMA, conv3d.conv3d,
              (xf, wf, bias, 1, 1, True)),
@@ -1579,8 +1586,8 @@ def plans_agree():
     dtypes run the same geometries), the GEMM's (`gemm_mma_plan`) against
     `ops/gemm_mma.py` at every K2 (moments), K7 and K4 (depth-to-space, N
     = 8·Cout) geometry, and the fp32 GEMM's (`gemm_fma_plan`) against
-    `ops/gemm_fma.py` at every K2 (moments) and K7 geometry: {geometry:
-    (library, mirror)} where they differ."""
+    `ops/gemm_fma.py` at the same geometries: {geometry: (library,
+    mirror)} where they differ."""
     import ctypes
 
     from nas_3d_unet_tpu_torch.ops import (_cuda, conv_fma, conv_mma,
@@ -1625,11 +1632,10 @@ def plans_agree():
         mirror = [p.bn, p.rows, p.nchunks, p.smem]
         if list(out) != mirror:
             bad[str(("gemm", *g))] = (list(out), mirror)
-    for g in sorted({g[:3] for g in gemms if not g[3]}):
         out = (ctypes.c_int * 5)()
         if lib.gemm_fma_plan(*g, out):
             raise AssertionError(f"gemm_fma_plan refused {g}")
-        p = gemm_fma.plan(g[0], g[1], bool(g[2]))
+        p = gemm_fma.plan(g[0], g[1], bool(g[2]), bool(g[3]))
         mirror = [p.bn, p.rows, p.nchunks, p.stages, p.smem]
         if list(out) != mirror:
             bad[str(("gemm_fma", *g))] = (list(out), mirror)
@@ -1641,34 +1647,28 @@ def phase_sass(dev, gen, functions):
     cores: the kernels their wrappers launch are conv_mma_kernel or
     gemm_mma_kernel instantiations, each with HMMA in its SASS; the fp32
     convs on the FMA conv tile: they launch conv_fma_kernel, every
-    instantiation of which has FFMA and no HMMA; K2 and K7 in fp32 on the
-    voxel-row FMA tile: they launch gemm_fma_kernel, every instantiation
-    of which has FFMA and no HMMA; K4 in fp32, the only caller left of the
-    FMA template, launches gemm_moments_kernel, no instantiation of which
-    has HMMA or is bf16.  And the kernels' plans are the ones
-    `ops/conv_mma.py`, `ops/conv_fma.py`, `ops/gemm_mma.py` and
+    instantiation of which has FFMA and no HMMA; K2, K7 and K4 in fp32 on
+    the voxel-row FMA tile: they launch the gemm_fma_kernel instantiation
+    of their flags (K4: D2S), every instantiation of which has FFMA and no
+    HMMA; each call launches one such kernel.  And the kernels' plans are
+    the ones `ops/conv_mma.py`, `ops/conv_fma.py`, `ops/gemm_mma.py` and
     `ops/gemm_fma.py` mirror; K5 launches one `stats_sums_kernel` a call,
     and refuses a plan other than `ops/stats.py`'s."""
     hmma = {kind: {fn: n for fn, n, _ in functions if kind in fn}
-            for kind in (MMA, GMMA, CFMA, GFMA, FMA)}
+            for kind in (MMA, GMMA, CFMA, GFMA)}
     ffma = {kind: {fn: n for fn, _, n in functions if kind in fn}
             for kind in (CFMA, GFMA)}
-    fma_bf16 = [fn for fn in hmma[FMA] if "nv_bfloat16" in fn]
     ok = all(hmma[MMA].values()) and all(hmma[GMMA].values()) \
         and bool(hmma[MMA]) and bool(hmma[GMMA]) \
         and all(bool(f) and all(f.values()) for f in ffma.values()) \
-        and not any(hmma[CFMA].values()) and not any(hmma[GFMA].values()) \
-        and not any(hmma[FMA].values()) and not fma_bf16
+        and not any(hmma[CFMA].values()) and not any(hmma[GFMA].values())
     launched = {}
     with torch.no_grad():
         for name, want, fn, args in _sass_calls(dev, gen):
-            names = kernels_launched(fn, *args)
+            names = kernels_launched(fn, *args, every=True)
             launched.setdefault(name, []).extend(names)
             mains = [n for n in names if any(k in n for k in hmma)]
-            ok = ok and bool(mains) and all(want in n for n in mains)
-    # the FMA template is K4 fp32's alone
-    ok = ok and all(name == "conv_transpose2x_f32" for name, names
-                    in launched.items() for n in names if FMA in n)
+            ok = ok and len(mains) == 1 and want in mains[0]
     # K5: one launch a call, of the instantiation its inputs call for,
     # all in one trace
     k5_calls = _k5_calls(dev, gen)
@@ -1682,8 +1682,7 @@ def phase_sass(dev, gen, functions):
     emit({"phase": "sass", "conv_mma_hmma": hmma[MMA],
           "gemm_mma_hmma": hmma[GMMA], "conv_fma_hmma": hmma[CFMA],
           "conv_fma_ffma": ffma[CFMA], "gemm_fma_hmma": hmma[GFMA],
-          "gemm_fma_ffma": ffma[GFMA], "gemm_moments_hmma": hmma[FMA],
-          "gemm_moments_bf16": fma_bf16,
+          "gemm_fma_ffma": ffma[GFMA],
           "launched": launched, "plans_differ": plans_differ,
           "k5_launched": [re.search(r"\w+_kernel<[^>]*>", n).group(0)
                           if K5 in n else n for n in k5],
@@ -1698,9 +1697,9 @@ def phase_sass(dev, gen, functions):
     if not ok:
         raise AssertionError("the bf16 convs and GEMMs are not all on the "
                              "tensor cores, the fp32 convs not all on the "
-                             "FMA conv tile, K2/K7 fp32 not on the FMA "
-                             "GEMM tile, K4 fp32 not alone on the template, "
-                             "or an FMA kernel has HMMA or is bf16")
+                             "FMA conv tile, K2/K7/K4 fp32 not on their "
+                             "FMA GEMM tile instantiations, or an FMA "
+                             "kernel has HMMA")
     if plans_differ:
         raise AssertionError(f"tile plans differ: {plans_differ}")
 

@@ -1,9 +1,8 @@
 // The use_pallas configuration's conv kernels, fp32 or bf16 elements with
 // fp32 accumulation, rounded once.  In fp32 they run on the FMA units: K6
-// on the conv tile (its bound and design: conv_fma.cuh), K7 on the
-// voxel-row FMA tile (gemm_fma.cuh), K4 on the implicit-GEMM template
-// (igemm.cuh, its last user); in bf16 they run on the tensor cores: K6 on
-// the conv tile (conv_mma.cuh), K7 and K4 on the voxel-row GEMM tile
+// on the conv tile (its bound and design: conv_fma.cuh), K7 and K4 on the
+// voxel-row FMA tile (gemm_fma.cuh); in bf16 they run on the tensor cores:
+// K6 on the conv tile (conv_mma.cuh), K7 and K4 on the voxel-row GEMM tile
 // (gemm_mma.cuh).
 //
 // Replaces (nas_3d_unet_tpu/ops/pallas/conv3d.py):
@@ -21,13 +20,14 @@
 //      _transpose2x_fwd :373, body :338): (voxels, Cin) @ (Cin, 8*Cout)
 //      whose store writes the depth-to-space layout directly, so the 8x
 //      larger output is written once and never permuted; optional ReLU.
-//      Bytes-bound: (Cin + 8*Cout) * 2 bytes a voxel in bf16, most of them
-//      the output.  fp32: the caller passes the flipped, flattened kernel;
-//      bf16: gemm_mma.cuh reads the DHWIO kernel with lax's flip itself.
+//      Bytes-bound: (Cin + 8*Cout) * 2 bytes a voxel in bf16 (* 4 in
+//      fp32), most of them the output.  Both tiles read the DHWIO kernel
+//      with lax's flip themselves; the kw = 0 and 1 taps of one (kd, kh)
+//      land side by side, 2*Cout contiguous elements a voxel.
 // The TPU kernels fuse bias and ReLU into the matmul's epilogue; so do
-// these: the template and gemm_fma.cuh compile their EPI step in only for
-// a call that asks for either; the conv tiles' and gemm_mma.cuh's
-// epilogues read the flags at run time.
+// these: gemm_fma.cuh compiles its EPI step in only for a call that asks
+// for either; the conv tiles' and gemm_mma.cuh's epilogues read the flags
+// at run time.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -36,7 +36,6 @@
 #include "conv_mma.cuh"
 #include "gemm_fma.cuh"
 #include "gemm_mma.cuh"
-#include "igemm.cuh"
 
 extern "C" {
 
@@ -108,8 +107,9 @@ int pointwise_conv_f32(const float* x, const float* w, const float* bias,
   g.V = rows, g.K = K, g.N = N, g.relu = relu;
   cudaStream_t st = (cudaStream_t)stream;
   if (bias != nullptr || relu)
-    return gfma::launch<false, true>(x, w, bias, y, nullptr, g, 1, st);
-  return gfma::launch<false, false>(x, w, bias, y, nullptr, g, 1, st);
+    return gfma::launch<false, true, false>(x, w, bias, y, nullptr, g, 1,
+                                            st);
+  return gfma::launch<false, false, false>(x, w, bias, y, nullptr, g, 1, st);
 }
 
 // K7 in bf16, on the tensor cores: the bias comes rounded to bf16 (the
@@ -123,18 +123,21 @@ int pointwise_conv_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w,
                                           (cudaStream_t)stream);
 }
 
-// K4: x (B, D, H, W, Cin), w (Cin, 8*Cout) with column (kd*4 + kh*2 + kw)*
-// Cout + co the tap that lands at output offset (kd, kh, kw), y (B, 2D, 2H,
-// 2W, Cout); the ReLU epilogue variant only when it is asked for.
+// K4: x (B, D, H, W, Cin), w (2, 2, 2, Cin, Cout) DHWIO as the caller
+// holds it (gemm_fma.cuh stages it with lax's flip), y (B, 2D, 2H, 2W,
+// Cout); the ReLU epilogue variant only when it is asked for.
 int conv_transpose2x_f32(const float* x, const float* w, float* y, int B,
                          int D, int H, int W, int Cin, int Cout, int relu,
                          void* stream) {
+  gfma::Geom g{};
+  g.V = D * H * W, g.K = Cin, g.N = 8 * Cout, g.relu = relu;
+  g.H = H, g.W = W, g.cout = Cout;
   cudaStream_t st = (cudaStream_t)stream;
   if (relu)
-    return launch_gemm<true>(x, w, nullptr, y, B, D * H * W, Cin, 8 * Cout,
-                             relu, ConvGeom{D, H, W}, st);
-  return launch_gemm<false>(x, w, nullptr, y, B, D * H * W, Cin, 8 * Cout,
-                            relu, ConvGeom{D, H, W}, st);
+    return gfma::launch<false, true, true>(x, w, nullptr, y, nullptr, g, B,
+                                           st);
+  return gfma::launch<false, false, true>(x, w, nullptr, y, nullptr, g, B,
+                                          st);
 }
 
 // K4 in bf16, on the tensor cores: w (2, 2, 2, Cin, Cout) DHWIO as the

@@ -21,7 +21,7 @@
 // flops at the tensor cores' 989 TFLOP/s; the narrow levels (16 and 32
 // channels, ~79 % of the flops) give a block little arithmetic per staged
 // byte, and K1's stem (Cin 4) fills 4 of each MMA's 16 K columns.  The FMA
-// tile this replaces (igemm.cuh) ran ~11-12 TFLOP/s, under the 67 TFLOP/s
+// tile this replaces (since deleted) ran ~11-12 TFLOP/s, under the 67 TFLOP/s
 // fp32 ceiling, and read each input voxel 27 times through a bounds test
 // per element.
 //

@@ -19,7 +19,7 @@
 // for (K + N) * 2 bytes (K4: (Cin + 8*Cout) * 2), 8 to 64 flop/B at the
 // train step's shapes (K 16-384, N 16-128; K4 N = 8*Cout up to 512)
 // against the card's ~295 flop/B balance.  The FMA tile these replace
-// (igemm.cuh) staged 8-deep K slices through registers with 2- and 4-byte
+// (since deleted) staged 8-deep K slices through registers with 2- and 4-byte
 // loads and stored y as scalars: 6.7x (K7) and 14x (K4) their bounds
 // (measured on the H100 at the train step's shapes).
 //

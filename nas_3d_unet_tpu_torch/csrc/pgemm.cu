@@ -101,12 +101,13 @@ int gemm_mma_plan(int k, int n, int stats, int d2s, int* out) {
 }
 
 // The fp32 voxel-row FMA tile's plan for (K, N), with or without the
-// moments (stats), into out[5]: BN, the rows per tile (the caller of K2
-// fp32 sizes `partial` as (B, ceil(V / rows), 2, N)), the K chunks, the x
-// stages, the bytes of shared memory (ops/gemm_fma.py:plan mirrors it).
-int gemm_fma_plan(int k, int n, int stats, int* out) {
+// moments (stats) and the depth-to-space store (d2s), into out[5]: BN, the
+// rows per tile (the caller of K2 fp32 sizes `partial` as (B, ceil(V /
+// rows), 2, N)), the K chunks, the x stages, the bytes of shared memory
+// (ops/gemm_fma.py:plan mirrors it).
+int gemm_fma_plan(int k, int n, int stats, int d2s, int* out) {
   if (k < 1 || n < 1) return (int)cudaErrorInvalidValue;
-  const gfma::Plan p = gfma::make_plan(k, n, stats != 0);
+  const gfma::Plan p = gfma::make_plan(k, n, stats != 0, d2s != 0);
   out[0] = p.bn;
   out[1] = p.bm;
   out[2] = p.nchunks;
@@ -168,8 +169,8 @@ int gemm_stats_f32(const float* x, const float* w, float* y, float* partial,
   cudaStream_t st = (cudaStream_t)stream;
   gfma::Geom g{};
   g.V = V, g.K = K, g.N = N;
-  const int err = gfma::launch<true, false>(x, w, nullptr, y, partial, g, B,
-                                            st);
+  const int err = gfma::launch<true, false, false>(x, w, nullptr, y, partial,
+                                                   g, B, st);
   return reduce_moments(err, partial, s1, s2, B, gfma::tiles(V, N), N, st);
 }
 

@@ -56,7 +56,7 @@ def lib() -> ctypes.CDLL:
             getattr(lib_, f"{tile}_blocks").restype = I
         lib_.gemm_mma_plan.argtypes = [I] * 4 + [ctypes.POINTER(I)]
         lib_.gemm_mma_plan.restype = I
-        lib_.gemm_fma_plan.argtypes = [I] * 3 + [ctypes.POINTER(I)]
+        lib_.gemm_fma_plan.argtypes = [I] * 4 + [ctypes.POINTER(I)]
         lib_.gemm_fma_plan.restype = I
         for fn, (n_ptr, n_int) in _SIGNATURES.items():
             getattr(lib_, fn).argtypes = [P] * n_ptr + [I] * n_int + [P]

@@ -2,11 +2,11 @@
 `nas_3d_unet_tpu/ops/pallas/conv3d.py`.
 
 Kernels (`csrc/conv3d.cu`: in fp32 on the FMA units, K6 on K1's conv
-tile `csrc/conv_fma.cuh` (planned as `ops/conv_fma.py` mirrors), K7 on
-K2's voxel-row FMA tile `csrc/gemm_fma.cuh` (`ops/gemm_fma.py`), K4 on
-the implicit-GEMM template `csrc/igemm.cuh`; in bf16 on the tensor cores,
-K6 on the conv tile `csrc/conv_mma.cuh` (`ops/conv_mma.py`), K7 and K4 on
-K2's GEMM tile `csrc/gemm_mma.cuh` (`ops/gemm_mma.py`)),
+tile `csrc/conv_fma.cuh` (planned as `ops/conv_fma.py` mirrors), K7 and
+K4 on K2's voxel-row FMA tile `csrc/gemm_fma.cuh` (`ops/gemm_fma.py`); in
+bf16 on the tensor cores, K6 on the conv tile `csrc/conv_mma.cuh`
+(`ops/conv_mma.py`), K7 and K4 on K2's GEMM tile `csrc/gemm_mma.cuh`
+(`ops/gemm_mma.py`)),
 fp32 or bf16 with fp32 accumulation, rounded once to the input's dtype,
 each with its plain PyTorch twin beside it:
 
@@ -19,9 +19,9 @@ each with its plain PyTorch twin beside it:
   K4 `conv_transpose2x(x, w, relu)`: the kernel-2 stride-2 transpose conv
      as (voxels, Cin) @ (Cin, 8·Cout) whose store writes the depth-to-space
      layout; lax puts the spatially flipped tap at each output offset
-     (`_transpose2x_fwd`): the fp32 kernel takes the flipped, flattened
-     kernel, the bf16 one reads the DHWIO kernel with the flip itself
-     (replaces `conv_transpose2x`).
+     (`_transpose2x_fwd`): both kernels read the DHWIO kernel with the
+     flip themselves, so the wrapper copies nothing (replaces
+     `conv_transpose2x`).
 
 Layouts are the JAX package's: NDHWC activations, DHWIO kernels (K7:
 (Cin, Cout)).
@@ -31,7 +31,9 @@ XLA version (`_conv3d_bwd_rule`, `_pointwise_bwd_rule`,
 `_transpose2x_bwd_rule`), each autograd Function runs the kernel forward
 and the backward of its twin: cuDNN's `convolution_backward` for K6 and
 K4, matmuls for K7.  The cotangent is cast to x's dtype first and masked
-by y > 0 where the ReLU was fused.
+by y > 0 where the ReLU was fused.  Where no graph is recorded (grad mode
+off, or no input that needs a gradient: serving), K7 and K4 launch their
+kernel without the Function.
 
 Dispatch: a CPU tensor takes the twin; a CUDA tensor launches the kernel
 or raises.  There is no fallback from one to the other.
@@ -283,22 +285,17 @@ def conv_transpose2x_twin(x: torch.Tensor, w: torch.Tensor,
 
 
 def _k4(x, w, relu):
+    """One K4 launch on the DHWIO kernel as it is (both tiles stage it
+    with lax's flip, `conv3d.py:383-385`), or its twin on the CPU."""
     if _cuda.dispatch("conv_transpose2x", x, w):
         return conv_transpose2x_twin(x, w, relu)
     t = _cuda.check("conv_transpose2x", x, w)
     bsz, d, h, wd, cin = x.shape
     cout = w.shape[4]
-    wmat = w            # bf16: the kernel reads the DHWIO taps, flipped
-    if t == "f32":
-        # (Cin, 8·Cout): column (kd·4 + kh·2 + kw)·Cout + co is the flipped
-        # tap that lands at output offset (kd, kh, kw) (`conv3d.py:383-385`)
-        wmat = w.flip(0, 1, 2).permute(3, 0, 1, 2, 4).reshape(cin, 8 * cout)
-        wmat = wmat.contiguous()
     y = torch.empty((bsz, 2 * d, 2 * h, 2 * wd, cout), dtype=x.dtype,
                     device=x.device)
-    _cuda.run(f"conv_transpose2x_{t}", x.device, x.data_ptr(),
-              wmat.data_ptr(), y.data_ptr(), bsz, d, h, wd, cin, cout,
-              int(relu))
+    _cuda.run(f"conv_transpose2x_{t}", x.device, x.data_ptr(), w.data_ptr(),
+              y.data_ptr(), bsz, d, h, wd, cin, cout, int(relu))
     return y
 
 
@@ -330,4 +327,7 @@ def conv_transpose2x(x: torch.Tensor, w: torch.Tensor,
     ConvTranspose layout, one dtype → y (B, 2D, 2H, 2W, Cout).
     Differentiable in x and w."""
     _check("conv_transpose2x", x, w, None, (2, 2, 2))
-    return _Transpose2x.apply(x.contiguous(), w.contiguous(), relu)
+    x, w = x.contiguous(), w.contiguous()
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _Transpose2x.apply(x, w, relu)
+    return _k4(x, w, relu)      # no graph to record (serving): no Function

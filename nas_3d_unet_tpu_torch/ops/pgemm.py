@@ -190,7 +190,7 @@ def _k2_rows(t: str, k: int, n: int) -> int:
         err = _cuda.lib().gemm_mma_plan(k, n, 1, 0, plan)
     else:
         plan = (ctypes.c_int * 5)()
-        err = _cuda.lib().gemm_fma_plan(k, n, 1, plan)
+        err = _cuda.lib().gemm_fma_plan(k, n, 1, 0, plan)
     if err:
         raise ValueError(f"gemm_stats: no plan for {(k, n)}")
     return plan[1]

@@ -65,13 +65,13 @@ CLASSES = [   # (class, kernel-name pattern), first match wins
     ("K1-dx / K6 stride-1 fp32 conv (FMA conv tile)",
      r"conv_fma_kernel<\d+, 1,"),
     ("K6 stride-2 fp32 conv3d (FMA conv tile)", r"conv_fma_kernel<\d+, 2,"),
-    # gemm_fma_kernel<BN, STATS, EPI> (csrc/gemm_fma.cuh): the fp32 1³
-    # GEMMs on the FMA units, K2 with its moments, K7 without;
-    # gemm_moments_kernel<BN, T, EPI> (csrc/igemm.cuh): K4 fp32, its last
-    # user
+    # gemm_fma_kernel<BN, STATS, EPI, D2S> (csrc/gemm_fma.cuh): the fp32
+    # voxel-row GEMMs on the FMA units, K2 with its moments (STATS), K4
+    # with its depth-to-space store (D2S), K7 with neither
     ("K2 fp32 gemm_stats (FMA GEMM tile)", r"gemm_fma_kernel<\d+, true"),
+    ("K4 fp32 conv_transpose2x (FMA GEMM tile)",
+     r"gemm_fma_kernel<\d+, false, \w+, true>"),
     ("K7 fp32 pointwise_conv (FMA GEMM tile)", r"gemm_fma_kernel<"),
-    ("K4 fp32 conv_transpose2x", r"gemm_moments_kernel<"),
     ("K1/K2 moments reduce", r"moments_reduce_kernel"),
     ("K3 apply", r"apply_kernel<"),
     ("K3 dx", r"dx_kernel<"),
