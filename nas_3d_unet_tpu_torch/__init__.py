@@ -8,12 +8,16 @@ names mirror the JAX package's so each counterpart is easy to find:
               hand-written CUDA kernels (csrc/) with their plain PyTorch
               twins, ops/_cuda.py: their launch count and checks
     models/   genotype, derived cells, derived net (fp32 or bf16)
-    train/    train step, eval step, plateau LR, AdamW
-    data/     device-side augmentation
+    train/    train step, eval step, plateau LR, AdamW, the Trainer and
+              its .npz checkpoints
+    data/     preprocessing to .npz, the patch pipeline and prefetcher,
+              device-side augmentation
     infer/    sliding-window whole-volume inference and the patient loop
     metrics/  BraTS label/region mapping, region Dice, training losses
     io/       NIfTI reading and writing
-    utils/    CUDA-event timing, the fp32 precision policy, the bounds
+    utils/    JSON config, metrics logger, device choice, CUDA-event
+              timing, the fp32 precision policy, the bounds
+    cli.py    preprocess / train / predict (`python -m nas_3d_unet_tpu_torch`)
     experiments/  the measuring probes E1 (copy bandwidth) and E2 (K1's
               variants on the tensor cores), csrc/probes.cu
     bridge.py flax parameter trees <-> state_dicts

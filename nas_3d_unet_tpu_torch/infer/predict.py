@@ -8,20 +8,25 @@ Dice (WT/TC/ET) when a ground-truth label is present.
 A record is a dict: "patient" (name), "image" ((D, H, W, C) fp32, numpy or
 tensor; "image_dev" may hold a copy already on the device), "crop_start",
 "orig_shape", and optionally "label" ("label_dev"), "affine".
+`predict_dataset` runs the loop over a directory of preprocessed patients,
+with a loader thread reading and staging the next patient.
 """
 
 from __future__ import annotations
 
+import glob
 import json
 import os
 import queue
 import threading
 import time
-from typing import Dict, List, Optional
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..data.pipeline import DeviceStager
+from ..data.preprocess import load_patient
 from ..io.nifti import write_nifti
 from ..metrics.dice import labels_to_regions, region_dice
 from .sliding import SlidingWindowPredictor
@@ -132,4 +137,61 @@ def predict_records(predictor: SlidingWindowPredictor, records,
         wt.join()
     if err:
         raise RuntimeError("patient finalize failed") from err[0]
+    return results
+
+
+def _iter_patients_prefetched(paths: Sequence[str], device: torch.device
+                              ) -> Iterator[Tuple[str, Dict]]:
+    """Yield (path, record) with the next patient's file read and
+    host → device copy (`image_dev` fp32, `label_dev` uint8; pinned, on a
+    side stream) running in a loader thread while the current one
+    computes.  An error in the thread is raised here."""
+    q: "queue.Queue" = queue.Queue(maxsize=1)
+    end = object()
+    err: List[Exception] = []
+    stager = DeviceStager(device)
+
+    def loader():
+        try:
+            for path in paths:
+                rec = load_patient(path)
+                image = np.ascontiguousarray(rec["image"], dtype=np.float32)
+                label = (np.ascontiguousarray(rec["label"], dtype=np.uint8)
+                         if "label" in rec else None)
+                q.put((path, rec, stager.put(image, label)))
+        except Exception as e:  # re-raised by the consumer
+            err.append(e)
+        finally:
+            q.put(end)
+
+    threading.Thread(target=loader, daemon=True).start()
+    while True:
+        item = q.get()
+        if item is end:
+            if err:
+                raise RuntimeError("patient prefetch failed") from err[0]
+            return
+        path, rec, staged = item
+        rec["image_dev"], label_dev = stager.take(*staged)
+        if label_dev is not None:
+            rec["label_dev"] = label_dev
+        yield path, rec
+
+
+def predict_dataset(predictor: SlidingWindowPredictor, processed_dir: str,
+                    out_dir: Optional[str] = None, threshold: float = 0.5,
+                    overlap_output: bool = True) -> List[Dict]:
+    """Every patient `.npz` under processed_dir, in name order; prints one
+    JSON line per patient.  A loader thread feeds `predict_records`'
+    dispatch/finalize overlap; `overlap_output=False` runs the patients
+    one after the other (`predict_patient`)."""
+    paths = sorted(glob.glob(os.path.join(processed_dir, "*.npz")))
+    records = _iter_patients_prefetched(paths, predictor.device)
+    if overlap_output:
+        return predict_records(predictor, records, out_dir, threshold)
+    results = []
+    for _path, rec in records:
+        res = predict_patient(predictor, rec, out_dir, threshold)
+        print(json.dumps(res))
+        results.append(res)
     return results

@@ -23,19 +23,8 @@ import torch
 import torch.nn.functional as F
 
 from ..metrics.dice import class_indices_to_labels, region_masks_to_labels
+from ..utils.device import resolve_device
 from ..utils.precision import strict_fp32
-
-
-def resolve_device(device: torch.device | str | None) -> torch.device:
-    """`device` as a `torch.device`.  None means the card: an entry point
-    runs on the CPU only when the caller asks, and without a card None
-    raises instead of falling back."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass device='cpu' to run on the "
-                           "CPU")
-    return torch.device("cuda", torch.cuda.current_device())
 
 
 def grid_starts(dim: int, patch: int, stride: int) -> List[int]:

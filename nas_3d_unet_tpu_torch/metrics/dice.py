@@ -1,6 +1,7 @@
 """BraTS label ↔ region mapping and hard region Dice, in PyTorch.
 
-Counterpart of `nas_3d_unet_tpu/metrics/dice.py` (:31-77, :187-206).
+Counterpart of `nas_3d_unet_tpu/metrics/dice.py` (:31-77, :187-206), with
+the numpy label helpers of the patch pipeline (:42, :56).
 
 BraTS labels: 0 background, 1 necrotic/non-enhancing core, 2 edema,
 4 enhancing tumor.  Nested regions, in channel order: WT = {1, 2, 4},
@@ -9,6 +10,7 @@ TC = {1, 4}, ET = {4}.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 REGIONS = ("WT", "TC", "ET")
@@ -20,6 +22,20 @@ def labels_to_regions(labels: torch.Tensor) -> torch.Tensor:
     tc = (labels == 1) | (labels == 4)
     et = labels == 4
     return torch.stack([wt, tc, et], dim=-1).float()
+
+
+def labels_to_regions_np(labels: np.ndarray) -> np.ndarray:
+    """numpy twin of `labels_to_regions` for the host collate path: raw
+    uint8 labels → fp32 0/1 region one-hots (..., 3), exact."""
+    wt = (labels > 0).astype(np.float32)
+    tc = ((labels == 1) | (labels == 4)).astype(np.float32)
+    et = (labels == 4).astype(np.float32)
+    return np.stack([wt, tc, et], axis=-1)
+
+
+def labels_to_class_indices_np(labels: np.ndarray) -> np.ndarray:
+    """BraTS labels {0,1,2,4} → int32 class indices {0,1,2,3}."""
+    return np.where(labels == 4, 3, labels).astype(np.int32)
 
 
 def region_masks_to_labels(wt: torch.Tensor, tc: torch.Tensor,

@@ -88,3 +88,18 @@ class DerivedNet(nn.Module):
         head = self.Conv_0
         return below.float() @ head.kernel.view(below.shape[-1], -1) \
             + head.bias
+
+
+def make_derived(model_cfg, num_classes: int, genotype: Genotype,
+                 dtype_override: str | None = None) -> DerivedNet:
+    """The derived net of a `ModelConfig` (`utils/config.py`, which refuses
+    the settings the port does not run); `dtype_override` replaces
+    `model_cfg.dtype` (serving's `infer.dtype`).  `packed` has no effect."""
+    return DerivedNet(genotype, in_channels=model_cfg.in_channels,
+                      num_classes=num_classes,
+                      base_channels=model_cfg.base_channels,
+                      depth=model_cfg.depth, n_nodes=model_cfg.n_nodes,
+                      gn_groups=model_cfg.gn_groups,
+                      merge_ops=model_cfg.merge_ops,
+                      dtype=dtype_override or model_cfg.dtype,
+                      use_pallas=model_cfg.use_pallas)

@@ -1,0 +1,89 @@
+"""The port's JSON config (nas_3d_unet_tpu_torch/utils/config.py) against
+the JAX package's YAML config: the same values, defaults and overrides,
+compared exactly as dicts (tuples and lists normalised), and the settings
+the port refuses."""
+
+import json
+
+import pytest
+
+from nas_3d_unet_tpu.cli import _parse_overrides as jax_parse_overrides
+from nas_3d_unet_tpu.utils import config as jcfg
+from nas_3d_unet_tpu_torch.utils import config as tcfg
+from tests.torch_helpers import ROOT
+
+
+def _norm(obj):
+    """Tuples as lists, recursively."""
+    if isinstance(obj, dict):
+        return {k: _norm(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_norm(v) for v in obj]
+    return obj
+
+
+def test_config_json_holds_the_values_of_config_yml():
+    port = tcfg.load_config(str(ROOT / "config.json")).to_dict()
+    ref = jcfg.load_config(str(ROOT / "config.yml")).to_dict()
+    assert _norm(port) == _norm(ref)
+
+
+def test_defaults_are_the_reference_defaults():
+    assert _norm(tcfg.Config().to_dict()) == _norm(jcfg.Config().to_dict())
+    assert json.loads(tcfg.Config().to_json()) == _norm(
+        jcfg.Config().to_dict())
+
+
+OVERRIDES = [
+    ["model.depth=2", "data.patch_size=(8, 8, 8)", "train.lr=1e-3"],
+    ["data.label_mode=classes", "infer.overlap=0.25", "model.dtype=float32"],
+    ["data.label_mode=classes", "data.num_classes=4",
+     "train.checkpoint_dir=/tmp/x", "model.use_pallas=True"],
+    ["parallel.data_parallel=1", "search.partial_channels=2",
+     "model.packed=False", "train.genotype_path=g.json"],
+]
+
+
+@pytest.mark.parametrize("pairs", OVERRIDES, ids=range(len(OVERRIDES)))
+def test_overrides_give_equal_configs(pairs):
+    ov = tcfg.parse_overrides(pairs)
+    assert ov == jax_parse_overrides(pairs)
+    port = tcfg.load_config(str(ROOT / "config.json"), ov).to_dict()
+    ref = jcfg.load_config(str(ROOT / "config.yml"), ov).to_dict()
+    assert _norm(port) == _norm(ref)
+
+
+@pytest.mark.parametrize("bad", [{"model.nope": 1}, {"nope.x": 1},
+                                 {"model": 1}])
+def test_unknown_keys_raise(bad):
+    with pytest.raises(KeyError):
+        tcfg.load_config(None, bad)
+    with pytest.raises(KeyError):
+        jcfg.load_config(None, bad)
+
+
+REFUSED = [({"model.norm": "instance"}, "item 7"),
+           ({"model.norm": "none"}, "item 7"),
+           ({"model.remat": True}, "item 10"),
+           ({"model.remat_edges": True}, "item 10"),
+           ({"train.steps_per_call": 2}, "not ported by decision"),
+           ({"parallel.data_parallel": 2}, "item 9"),
+           ({"parallel.spatial_parallel": 4}, "item 9")]
+
+
+@pytest.mark.parametrize("ov,item", REFUSED, ids=[str(o) for o, _ in REFUSED])
+def test_unported_settings_are_refused(ov, item):
+    """The JAX package accepts each of these; the port names the
+    ROADMAP.md item that would bring it."""
+    jcfg.load_config(None, ov)
+    with pytest.raises(ValueError, match=item):
+        tcfg.load_config(None, ov)
+
+
+def test_label_mode_checks_match():
+    for ov in ({"data.label_mode": "x"},
+               {"data.label_mode": "classes", "data.num_classes": 3}):
+        with pytest.raises(ValueError):
+            tcfg.load_config(None, ov)
+        with pytest.raises(ValueError):
+            jcfg.load_config(None, ov)

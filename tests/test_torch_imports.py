@@ -2,7 +2,9 @@
 card (chip_smoke.py, profile_slice.py, grad_parity.py, ab_default_path.py)
 import no JAX stack
 and nothing of the JAX package: an AST scan of every import statement, top
-level or inside a function."""
+level or inside a function.  `export_flax_params.py` is left out of the
+scan on purpose: it reads a JAX checkpoint where flax is installed, and is
+the one file beside the port that imports flax (held below)."""
 
 import ast
 import pathlib
@@ -37,7 +39,28 @@ def test_scan_sees_the_package():
             "nas_3d_unet_tpu_torch/io/nifti.py",
             "nas_3d_unet_tpu_torch/experiments/r3_dma_probe.py",
             "nas_3d_unet_tpu_torch/experiments/r3_pg_variants.py",
+            "nas_3d_unet_tpu_torch/utils/config.py",
+            "nas_3d_unet_tpu_torch/utils/logging.py",
+            "nas_3d_unet_tpu_torch/utils/params.py",
+            "nas_3d_unet_tpu_torch/utils/device.py",
+            "nas_3d_unet_tpu_torch/data/preprocess.py",
+            "nas_3d_unet_tpu_torch/data/pipeline.py",
+            "nas_3d_unet_tpu_torch/train/checkpoint.py",
+            "nas_3d_unet_tpu_torch/train/loop.py",
+            "nas_3d_unet_tpu_torch/models/unet.py",
+            "nas_3d_unet_tpu_torch/cli.py",
+            "nas_3d_unet_tpu_torch/__main__.py",
             "chip_smoke.py", "profile_slice.py", "grad_parity.py"} <= names
+    assert "export_flax_params.py" not in names
+
+
+def test_the_export_script_imports_flax_and_not_the_port():
+    """It must run where flax is (reading a msgpack needs it) and stay out
+    of the port, which never imports flax."""
+    names = {n.split(".")[0] for n in _imports(ROOT / "export_flax_params.py")}
+    assert "flax" in names
+    assert not names & {"jax", "torch", "nas_3d_unet_tpu",
+                        "nas_3d_unet_tpu_torch"}
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: p.name)

@@ -270,3 +270,47 @@ def test_eval_step_and_plateau_match_jax(label_mode):
             ref.update(m, lr_r)
         assert (lr_o, best_o) == (lr_r, best_r)
     assert ours.state_dict() == ref.state_dict()
+
+
+def test_train_step_draws_from_the_callers_generator(monkeypatch):
+    """`make_train_step(gen=...)` draws its augmentation from the caller's
+    generator: a generator seeded like `seed` gives the same draws, and one
+    restored from a saved state continues them (what a checkpoint's
+    `rng/augment` carries)."""
+    draws = []
+
+    def noted(*args, **kwargs):
+        out = loop_draw(*args, **kwargs)
+        draws.append(out)
+        return out
+
+    loop_draw = loop.draw_augment
+    monkeypatch.setattr(loop, "draw_augment", noted)
+    x, y = (torch.from_numpy(a) for a in _batch(b=2, s=8))
+
+    def run(**kw):
+        net, _, _ = _nets()
+        step = loop.make_train_step(net, optim.make_optimizer(
+            net.parameters(), LR, WD), augment=AUGMENT, **kw)
+        start = len(draws)
+        for _ in range(2):
+            step(x, y)
+        return draws[start:]
+
+    gen = torch.Generator()
+    gen.manual_seed(5)
+    want = run(seed=5)
+    got = run(gen=gen)
+    saved = torch.Generator()
+    saved.manual_seed(5)
+    torch.rand((2, 3), generator=saved)                  # step 1's draws
+    torch.rand((2, 1, 1, 1, 4), generator=saved)
+    torch.rand((2, 1, 1, 1, 4), generator=saved)
+    resumed = torch.Generator()
+    resumed.set_state(saved.get_state())
+    net, _, _ = _nets()
+    loop.make_train_step(net, optim.make_optimizer(net.parameters(), LR, WD),
+                         augment=AUGMENT, gen=resumed)(x, y)
+    for a, b in zip(want + want[1:], got + draws[-1:]):
+        for ta, tb in zip(a, b):
+            assert torch.equal(ta, tb)
