@@ -66,9 +66,31 @@ Phases, each printed as JSON lines:
      and `predict` from the
      first run's checkpoints (a .nii.gz of
      240x240x155 with labels in {0,1,2,4} and finite Dice per patient;
-     launches = per forward x forwards).  Prints the Trainer's patches/s
-     beside phase 6's, s/patient (NIfTI write included) beside phase 4's,
-     and its own seconds.
+     launches = per forward x forwards), then `search` for one warmup epoch
+     of 2 steps and again, resumed at step 2, for one bilevel epoch of 2
+     steps with 1 eval batch (the resume event, both epoch records with
+     finite losses, the checkpoint, a valid genotype.json, the
+     `search_done` line).  Prints the Trainer's patches/s beside phase 6's,
+     s/patient (NIfTI write included) beside phase 4's, and its own
+     seconds.
+ 6c. search_kernels: the search's kernels against their twins at every
+     geometry one bilevel step of the shipped supernet gives them (bf16,
+     batch 1; S_K1, S_K1DX, S_K2, S_K5A, S_K5B): K1 at Cout = k·C for k =
+     1..3 outgoing edges (16..256, dilation 1 and 2, the up cells' 16 ->
+     48 at 128^3), K1-dx, K2 at the cells' projections, K5a and K5b;
+     their ms per bilevel step in the line's "per_step" (a Summary of its
+     own: the kernels line keeps the other paths').
+ 6d. search: the shipped supernet (config.json: base 16, depth 3, 3
+     nodes, bf16, merged ops, random weights from --seed through the
+     bridge, α from `init_alphas`) on synthetic 128^3 batches (patch 0
+     trains, patch 1 is the val batch).  One bilevel step's α and w
+     gradients on the kernel path against the twin path (per leaf, the
+     limits of phase 6) and the shapes it hands the kernels against phase
+     6c's tables; then 1 warmup step (α unchanged) and 3 timed bilevel
+     steps (α moved): seconds a step, patches/s, finite losses, peak
+     memory, launches equal to the count from the modules
+     (`_search_per_step`) x steps; the genotype `parse_alphas` decodes,
+     whose derived net runs one forward.
   7. pallas_kernels: the `use_pallas` configuration's kernels against their
      twins at every geometry it gives them: K6 conv3d (stride 1 and 2) in
      fp32 at batch 2 (the FMA conv tile) and in bf16 at batch 1 (the
@@ -131,6 +153,8 @@ Phases, each printed as JSON lines:
      plan with any field one off `ops/stats.py`'s.  A trace that comes
      back holding no kernel at all is taken again (up to 3 times; the
      record lists the retakes under "trace_retakes").
+The "done" line also holds the search's s a step, patches/s, peak memory
+and the new phases' seconds, and the whole script's.
 Then the nvidia-smi line, the kernels summary line and, last,
 `{"ok": true, "device": {...}}`.  In the kernels line a serving kernel's
 `ms`, `plain_ms`, `library_ms` and `bound_ms` are one flagship forward's
@@ -296,6 +320,47 @@ P_K3 = [(16, 64, 1), (16, 128, 7), (32, 32, 1), (32, 64, 11), (32, 128, 2),
 P_K5A = [(16, 128, 6), (32, 64, 10), (64, 32, 10), (64, 64, 2), (128, 16, 4),
          (128, 32, 2), (256, 16, 1)]
 P_K1 = [K1_GEOMS[0]]                         # the stem
+
+# The search (phases "search_kernels" and "search"): the shipped supernet
+# (config.json: base 16, depth 3, 3 nodes, GroupNorm 8, bf16, merged ops)
+# at 128^3, search batch 1; launches per bilevel step (the α-step's
+# forward and backward, then the w-step's).  Sources of k outgoing edges
+# run conv3 / dil_conv3 / up_conv3 as one k·C-wide K1 (C·k = 16..256).
+# K1 and K1-dx: (Cin, Cout, edge, dilation, launches) as `noting_kernels`
+# keys them (K1-dx: dy's channels, then dx's)
+S_K1 = [(4, 48, 128, 1, 2), (16, 16, 128, 1, 2), (16, 16, 128, 2, 2),
+        (16, 32, 128, 1, 2), (16, 32, 128, 2, 2), (16, 48, 128, 1, 4),
+        (16, 48, 128, 2, 2), (32, 32, 64, 1, 4), (32, 32, 64, 2, 4),
+        (32, 64, 64, 1, 4), (32, 64, 64, 2, 4), (32, 96, 64, 1, 4),
+        (32, 96, 64, 2, 2), (64, 64, 32, 1, 4), (64, 64, 32, 2, 4),
+        (64, 128, 32, 1, 4), (64, 128, 32, 2, 4), (64, 192, 32, 1, 4),
+        (64, 192, 32, 2, 2), (128, 128, 16, 1, 2), (128, 128, 16, 2, 2),
+        (128, 256, 16, 1, 2), (128, 256, 16, 2, 2)]
+S_K1DX = [(16, 16, 128, 1, 2), (16, 16, 128, 2, 2), (32, 16, 128, 1, 2),
+          (32, 16, 128, 2, 2), (32, 32, 64, 1, 4), (32, 32, 64, 2, 4),
+          (48, 16, 128, 1, 3), (48, 16, 128, 2, 1), (64, 32, 64, 1, 4),
+          (64, 32, 64, 2, 4), (64, 64, 32, 1, 4), (64, 64, 32, 2, 4),
+          (96, 32, 64, 1, 4), (96, 32, 64, 2, 2), (128, 64, 32, 1, 4),
+          (128, 64, 32, 2, 4), (128, 128, 16, 1, 2), (128, 128, 16, 2, 2),
+          (192, 64, 32, 1, 4), (192, 64, 32, 2, 2), (256, 128, 16, 1, 2),
+          (256, 128, 16, 2, 2)]
+# K2: (K, N, edge, launches); K5a, K5b: (C, edge, launches)
+S_K2 = [(48, 16, 128, 2), (48, 32, 128, 4), (96, 16, 64, 2), (96, 32, 64, 2),
+        (96, 64, 64, 2), (192, 32, 32, 2), (192, 64, 32, 2),
+        (192, 128, 32, 2), (384, 64, 16, 2)]
+S_K5A = [(16, 128, 18), (32, 64, 36), (48, 128, 2), (64, 32, 36),
+         (64, 64, 2), (96, 64, 10), (128, 16, 18), (128, 32, 2),
+         (192, 32, 10), (384, 16, 8)]
+S_K5B = [(16, 64, 2), (16, 128, 20), (32, 32, 2), (32, 64, 40),
+         (32, 128, 6), (48, 128, 7), (64, 16, 2), (64, 32, 43),
+         (64, 64, 11), (96, 64, 12), (128, 16, 22), (128, 32, 12),
+         (192, 32, 14), (256, 16, 4), (384, 16, 8)]
+SEARCH_BATCH = 1
+SEARCH_WARMUP_STEPS, SEARCH_STEPS = 1, 3
+# phase "cli"'s search: 2 steps an epoch, 1 warmup epoch (run 1), then
+# resumed for 1 bilevel epoch with 1 eval batch (run 2)
+CLI_SEARCH = ["search.steps_per_epoch=2", "search.warmup_epochs=1",
+              "search.val_steps=1"]
 
 # limits
 Y_RTOL = Y_ATOL = 1e-4       # fp32 y: |k - t| <= atol + rtol·|t|
@@ -1277,12 +1342,39 @@ def synthetic_batch(dev, seed):
     return x, torch.stack([wt, wt, wt], dim=-1)
 
 
+def leaf_stats(names, kernel, twin, use_pallas=False):
+    """Gradients of the kernel path against the twin path, leaf by leaf:
+    the relative L2 distance ‖g_k − g_t‖ / ‖g_t‖ (its largest and its
+    median), the cosine, and the relative difference of the norms.  `ok`
+    holds all but the last to their limits (the use_pallas
+    configuration's own with use_pallas)."""
+    rel, cos, norm_rel = [], [], []
+    for gk, gt in zip(kernel, twin):
+        gk, gt = gk.double(), gt.double()
+        nk, nt = gk.norm().item(), gt.norm().item()
+        rel.append((gk - gt).norm().item() / max(nt, 1e-30))
+        cos.append((gk.flatten() @ gt.flatten()).item()
+                   / max(nk * nt, 1e-30))
+        norm_rel.append(abs(nk - nt) / max(nt, 1e-30))
+    worst, least = int(np.argmax(rel)), int(np.argmin(cos))
+    vals = rel + cos + norm_rel
+    lim_rel, lim_med, lim_cos = (
+        (P_GRAD_REL_L2, P_GRAD_REL_L2_MEDIAN, P_GRAD_COS) if use_pallas
+        else (GRAD_REL_L2, GRAD_REL_L2_MEDIAN, GRAD_COS))
+    return {"leaves": len(rel), "grad_rel_l2_max": rel[worst],
+            "rel_l2_worst_leaf": names[worst],
+            "grad_rel_l2_median": float(np.median(rel)),
+            "grad_cos_min": cos[least], "cos_worst_leaf": names[least],
+            "grad_norm_rel_max": max(norm_rel),
+            "limits": {"rel_l2": lim_rel, "rel_l2_median": lim_med,
+                       "cos": lim_cos},
+            "ok": (all(map(math.isfinite, vals)) and rel[worst] <= lim_rel
+                   and np.median(rel) <= lim_med and cos[least] >= lim_cos)}
+
+
 def grad_parity(net, x, y, kernel_ctx=None, use_pallas=False):
     """One step's gradients on the kernel path (inside `kernel_ctx`) and on
-    the twin path, leaf by leaf: the relative L2 distance
-    ‖g_k − g_t‖ / ‖g_t‖ (its largest and its median), the cosine, and the
-    relative difference of the norms.  `ok` holds all but the last to
-    their limits (the use_pallas configuration's own with use_pallas)."""
+    the twin path, leaf by leaf (`leaf_stats`)."""
     from nas_3d_unet_tpu_torch.metrics.losses import dice_ce_loss
     from nas_3d_unet_tpu_torch.train.loop import loss_and_grads
 
@@ -1294,28 +1386,9 @@ def grad_parity(net, x, y, kernel_ctx=None, use_pallas=False):
             loss, grads = loss_and_grads(net, x, y, dice_ce_loss, MICRO)
         out[path] = (loss.item(), [g.double() for g in grads])
     net.zero_grad(set_to_none=True)
-    rel, cos, norm_rel = [], [], []
-    for gk, gt in zip(out["kernel"][1], out["twin"][1]):
-        nk, nt = gk.norm().item(), gt.norm().item()
-        rel.append((gk - gt).norm().item() / max(nt, 1e-30))
-        cos.append((gk.flatten() @ gt.flatten()).item()
-                   / max(nk * nt, 1e-30))
-        norm_rel.append(abs(nk - nt) / max(nt, 1e-30))
-    worst, least = int(np.argmax(rel)), int(np.argmin(cos))
-    vals = rel + cos + norm_rel
-    lim_rel, lim_med, lim_cos = (
-        (P_GRAD_REL_L2, P_GRAD_REL_L2_MEDIAN, P_GRAD_COS) if use_pallas
-        else (GRAD_REL_L2, GRAD_REL_L2_MEDIAN, GRAD_COS))
     return {"loss_kernel": out["kernel"][0], "loss_twin": out["twin"][0],
-            "leaves": len(rel), "grad_rel_l2_max": rel[worst],
-            "rel_l2_worst_leaf": names[worst],
-            "grad_rel_l2_median": float(np.median(rel)),
-            "grad_cos_min": cos[least], "cos_worst_leaf": names[least],
-            "grad_norm_rel_max": max(norm_rel),
-            "limits": {"rel_l2": lim_rel, "rel_l2_median": lim_med,
-                       "cos": lim_cos},
-            "ok": (all(map(math.isfinite, vals)) and rel[worst] <= lim_rel
-                   and np.median(rel) <= lim_med and cos[least] >= lim_cos)}
+            **leaf_stats(names, out["kernel"][1], out["twin"][1],
+                         use_pallas)}
 
 
 def phase_train(dev, seed, use_pallas=False):
@@ -1374,6 +1447,232 @@ def phase_train(dev, seed, use_pallas=False):
         raise AssertionError(f"launch counts {launches} != {expected} "
                              f"(per microbatch {per})")
     return launches, rec
+
+
+def phase_search_kernels(dev, gen, summary):
+    """The search's kernels at every geometry one full-width bilevel step
+    hands them (bf16, batch 1); per_unit = launches per bilevel step, summed
+    in `summary` (the search's own: the kernels line keeps the other
+    paths')."""
+    t0 = time.perf_counter()
+    bf16 = torch.bfloat16
+    for cin, cout, v, dil, n in S_K1:
+        _run_check("search_kernel", "conv3x3x3_stats_bf16", check_conv,
+                   summary, n, dev, gen, cin, cout, v, dil, SEARCH_BATCH,
+                   bf16, True)
+    for cin, cout, v, dil, n in S_K1DX:
+        _run_check("search_kernel", "conv3x3x3_bf16", check_conv, summary, n,
+                   dev, gen, cin, cout, v, dil, SEARCH_BATCH, bf16, False)
+    for k, nn, v, n in S_K2:
+        _run_check("search_kernel", "gemm_stats_bf16", check_gemm, summary,
+                   n, dev, gen, k, nn, v, SEARCH_BATCH, bf16)
+    for name, rows in (("moments", S_K5A), ("weighted_sums", S_K5B)):
+        for c, v, n in rows:
+            _run_check("search_kernel", f"{name}_bf16", check_stats, summary,
+                       n, dev, gen, name, c, v, SEARCH_BATCH, bf16)
+    seconds = time.perf_counter() - t0
+    emit({"phase": "search_kernels", "seconds": seconds, "per_step": {
+        n: summary.entry(n) for n in
+        ("conv3x3x3_stats_bf16", "conv3x3x3_bf16", "gemm_stats_bf16",
+         "moments_bf16", "weighted_sums_bf16")}})
+    return seconds
+
+
+def search_supernet(seed):
+    """The shipped supernet (the root config.json's model) on the CPU, with
+    random weights from `seed` at flax's initialiser scales through the
+    bridge, and α from `init_alphas` on a CPU generator seeded with
+    `seed`."""
+    from nas_3d_unet_tpu_torch import bridge
+    from nas_3d_unet_tpu_torch.models.genotype import init_alphas
+    from nas_3d_unet_tpu_torch.models.unet import make_supernet
+    from nas_3d_unet_tpu_torch.utils.config import load_config
+
+    cfg = load_config(os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "config.json"))
+    net = make_supernet(cfg.model, cfg.data.num_classes)
+    bridge.load_flax_params(net, bridge.random_flax_params(net, seed))
+    g = torch.Generator()
+    g.manual_seed(seed)
+    return net, init_alphas(g, cfg.model.n_nodes), cfg
+
+
+def _search_per_step(net):
+    """Kernel launches of a warmup step and of a bilevel step, counted from
+    the modules.  A warmup step is a forward and the w-backward, as a train
+    microbatch (`_modules_per_forward`).  A bilevel step runs two forwards;
+    the w-step's backward runs every K5b and every K1-dx but the stem's;
+    the α-step's (the weights frozen) only those of the modules whose input
+    depends on α: not the stem, nor the projections and edge ops that read
+    it (both inputs of down cell 0, s0 of down cell 1, the skip of the last
+    up cell)."""
+    warm = _modules_per_forward(net)
+    down = [getattr(net, n) for n in net._down]
+    last_up = getattr(net, net._up[-1])
+
+    def pre(cell, i):
+        return getattr(cell, cell.pre[i])
+
+    reads_stem = torch.nn.ModuleList([
+        net.ConvNormAct_0, pre(down[0], 0), pre(down[0], 1),
+        down[0].src_in0, down[0].src_in1, pre(down[1], 0), down[1].src_in0,
+        pre(last_up, 0), last_up.src_skip])
+    off = _modules_per_forward(reads_stem)
+    step = {k: 2 * warm[k] for k in ("conv3x3x3_stats", "gemm_stats",
+                                     "moments")}
+    step["conv3x3x3"] = warm["conv3x3x3"] + warm["conv3x3x3_stats"] \
+        - off.get("conv3x3x3_stats", 0)
+    step["weighted_sums"] = 2 * warm["weighted_sums"] \
+        - off.get("weighted_sums", 0)
+    return warm, step
+
+
+class _Recorder:
+    """Stands in for AdamW in a search step: keeps the gradients it is
+    handed and updates nothing."""
+
+    def __init__(self, params):
+        self.params = list(params)
+        self.grads = None
+
+    def step(self, grads):
+        self.grads = [g.detach().clone() for g in grads]
+
+
+def search_grad_parity(net, alphas, batches, kernel_ctx):
+    """One bilevel step's α gradients (the α-step's) and w gradients (the
+    w-step's) on the kernel path (inside `kernel_ctx`) and on the twin
+    path, no update in between (`_Recorder`), leaf by leaf."""
+    from nas_3d_unet_tpu_torch.search.bilevel import make_search_step
+
+    out = {}
+    for path, ctx in (("kernel", kernel_ctx), ("twin", twin_path())):
+        w_rec, a_rec = _Recorder(net.parameters()), _Recorder(alphas.values())
+        with ctx:
+            m = make_search_step(net, w_rec, a_rec, alphas)(*batches)
+        out[path] = ({k: v.item() for k, v in m.items()}, w_rec.grads,
+                     a_rec.grads)
+    net.zero_grad(set_to_none=True)
+    (mk, wk, ak), (mt, wt, at) = out["kernel"], out["twin"]
+    rec = {"losses_kernel": mk, "losses_twin": mt,
+           "alpha": leaf_stats(list(alphas), ak, at),
+           "w": leaf_stats([n for n, _ in net.named_parameters()], wk, wt)}
+    rec["ok"] = rec["alpha"]["ok"] and rec["w"]["ok"]
+    return rec
+
+
+def phase_search(dev, seed):
+    """The search on the card: the shipped supernet at 128^3, one warmup
+    step and SEARCH_STEPS bilevel steps from synthetic batches."""
+    from nas_3d_unet_tpu_torch import bridge
+    from nas_3d_unet_tpu_torch.models.genotype import parse_alphas
+    from nas_3d_unet_tpu_torch.models.unet import make_derived
+    from nas_3d_unet_tpu_torch.ops import _cuda
+    from nas_3d_unet_tpu_torch.search.bilevel import (make_search_step,
+                                                      make_warmup_step)
+    from nas_3d_unet_tpu_torch.train.optim import make_optimizer
+
+    t_phase = time.perf_counter()
+    net, alphas, cfg = search_supernet(seed)
+    net = net.to(dev)
+    alphas = {k: v.to(dev).requires_grad_() for k, v in alphas.items()}
+    x, y = synthetic_batch(dev, seed)       # patch 0 trains, patch 1 is val
+    batches = (x[:1], y[:1], x[1:], y[1:])
+
+    # one step's gradients, kernel path (noting the shapes) then twin path
+    seen = collections.Counter()
+    rec = search_grad_parity(net, alphas, batches, noting_kernels(seen))
+    tables = _table(("conv3x3x3_stats", S_K1), ("conv3x3x3", S_K1DX),
+                    ("gemm_stats", S_K2), ("moments", S_K5A),
+                    ("weighted_sums", S_K5B))
+    emit({"phase": "search_parity", **rec,
+          "geometries_match_search_kernels": seen == tables})
+    if not rec["ok"]:
+        raise AssertionError("the search step's kernel-path gradients "
+                             "disagree with the twin path")
+    if seen != tables:
+        raise AssertionError(f"the search step's kernel shapes {dict(seen)} "
+                             "are not the geometries checked in "
+                             "search_kernels")
+
+    sc = cfg.search
+    w_opt = make_optimizer(net.parameters(), sc.w_lr, sc.w_weight_decay)
+    a_opt = make_optimizer(alphas.values(), sc.alpha_lr,
+                           sc.alpha_weight_decay)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    warmup = make_warmup_step(net, w_opt, alphas, AUGMENT, gen=gen)
+    step = make_search_step(net, w_opt, a_opt, alphas, AUGMENT, gen=gen)
+    a0 = {k: v.detach().clone() for k, v in alphas.items()}
+    per_warm, per_step = _search_per_step(net)
+
+    _cuda.LAUNCHES.clear()
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warm = [warmup(*batches[:2])["train_loss"].item()
+            for _ in range(SEARCH_WARMUP_STEPS)]
+    warm_s = (time.perf_counter() - t0) / SEARCH_WARMUP_STEPS
+    warm_launches = dict(_cuda.LAUNCHES)
+    alpha_fixed = all(torch.equal(alphas[k], a0[k]) for k in alphas)
+
+    _cuda.LAUNCHES.clear()
+    torch.cuda.synchronize()
+    steps_s, losses = [], []
+    for _ in range(SEARCH_STEPS):
+        t0 = time.perf_counter()
+        m = step(*batches)
+        torch.cuda.synchronize()
+        steps_s.append(time.perf_counter() - t0)
+        losses.append({k: v.item() for k, v in m.items()})
+    launches = dict(_cuda.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    alpha_moved = any(not torch.equal(alphas[k], a0[k]) for k in alphas)
+
+    alphas_np = {k: v.detach().cpu().numpy() for k, v in alphas.items()}
+    genotype = parse_alphas(alphas_np, cfg.model.n_nodes)
+    derived = make_derived(cfg.model, cfg.data.num_classes, genotype)
+    bridge.load_flax_params(derived, bridge.random_flax_params(derived,
+                                                               seed))
+    with torch.inference_mode():
+        logits = derived.to(dev)(x[:1])
+    derived_ok = (tuple(logits.shape) == (1, *(TRAIN_PATCH,) * 3, 3)
+                  and bool(torch.isfinite(logits).all()))
+    del derived, logits
+
+    expected_warm = {f"{k}_bf16": n * SEARCH_WARMUP_STEPS
+                     for k, n in per_warm.items()}
+    expected = {f"{k}_bf16": n * SEARCH_STEPS for k, n in per_step.items()}
+    step_s = float(np.mean(steps_s))
+    rec = {"phase": "search", "patch": TRAIN_PATCH, "batch": SEARCH_BATCH,
+           "dtype": cfg.model.dtype,
+           "params": sum(p.numel() for p in net.parameters()),
+           "warmup_step_s": warm_s, "warmup_losses": warm,
+           "bilevel_step_s": steps_s, "step_s": step_s,
+           "patches_per_s": SEARCH_BATCH / step_s, "losses": losses,
+           "peak_mem_gb": peak, "alpha_fixed_in_warmup": alpha_fixed,
+           "alpha_moved_in_bilevel": alpha_moved,
+           "launches_per_warmup_step": per_warm,
+           "launches_per_bilevel_step": per_step,
+           "warmup_launches": warm_launches,
+           "expected_warmup_launches": expected_warm,
+           "launches": launches, "expected_launches": expected,
+           "genotype": json.loads(genotype.to_json()),
+           "derived_forward_ok": derived_ok,
+           "seconds": time.perf_counter() - t_phase}
+    emit(rec)
+    values = warm + [v for m in losses for v in m.values()]
+    if not all(map(math.isfinite, values)):
+        raise AssertionError(f"non-finite search loss {values}")
+    if not alpha_fixed or not alpha_moved:
+        raise AssertionError(f"α fixed in warmup {alpha_fixed}, moved in "
+                             f"the bilevel steps {alpha_moved}")
+    if launches != expected or warm_launches != expected_warm:
+        raise AssertionError(f"search launches {launches} != {expected}, "
+                             f"warmup {warm_launches} != {expected_warm}")
+    if not derived_ok:
+        raise AssertionError("the searched genotype's net gave bad logits")
+    return rec
 
 
 def write_raw_patients(raw_dir, seed):
@@ -1538,7 +1837,8 @@ def phase_cli(dev, seed, slice_s_per_patient, train_rec):
 
     from nas_3d_unet_tpu_torch.infer.sliding import grid_coords
     from nas_3d_unet_tpu_torch.io.nifti import read_nifti
-    from nas_3d_unet_tpu_torch.models.genotype import default_genotype
+    from nas_3d_unet_tpu_torch.models.genotype import (Genotype,
+                                                       default_genotype)
     from nas_3d_unet_tpu_torch.models.unet import make_derived
     from nas_3d_unet_tpu_torch.ops import _cuda
     from nas_3d_unet_tpu_torch.train import checkpoint as ck
@@ -1637,6 +1937,36 @@ def phase_cli(dev, seed, slice_s_per_patient, train_rec):
         done = lines[-1]
         outputs = [read_nifti(p["output"]).data for p in patients]
 
+        # search: one warmup epoch, then resumed for one bilevel epoch
+        def search(epochs):
+            args = ["search", *base, "-o", f"search.epochs={epochs}",
+                    "-o", f"search.checkpoint_dir={tmp}/s"]
+            for o in CLI_SEARCH:
+                args += ["-o", o]
+            return _cli(args)
+
+        scfg = load_config(os.path.join(root, "config.json"),
+                           parse_overrides(overrides + CLI_SEARCH)).search
+        _, search1_s = search(1)
+        search_lines, search2_s = search(2)
+        search_events = _jsonl(f"{tmp}/s/metrics.jsonl")
+        search_epochs = [e for e in search_events if e["event"] == "epoch"]
+        search_resumes = [e["step"] for e in search_events
+                          if e["event"] == "resume"]
+        genotype = Genotype.load(f"{tmp}/s/genotype.json")
+        genotype.validate()
+        ok_search = (
+            search_resumes == [scfg.steps_per_epoch]
+            and [(e["epoch"], e["warmup"]) for e in search_epochs]
+            == [(0, True), (1, False)]
+            and all(math.isfinite(e[k]) for e in search_epochs
+                    for k in ("train_loss", "val_loss"))
+            and math.isfinite(search_epochs[1]["eval_loss"])
+            and os.path.exists(f"{tmp}/s/ckpt_{2 * scfg.steps_per_epoch}"
+                               ".npz")
+            and search_lines[-1] == {"event": "search_done",
+                                     "genotype": f"{tmp}/s/genotype.json"})
+
     stride = tuple(max(1, int(round(p * (1 - cfg.infer.overlap))))
                    for p in cfg.infer.patch_size)
     # the window grid of each crop, end-padded to at least one patch
@@ -1677,6 +2007,12 @@ def phase_cli(dev, seed, slice_s_per_patient, train_rec):
            "grad_repeat": repeat,
            "train_launches": train_launches,
            "expected_train_launches": expected_train,
+           "search_s": [search1_s, search2_s],
+           "search_resume_events": search_resumes,
+           "search_epochs": [{k: e.get(k) for k in (
+               "epoch", "warmup", "train_loss", "val_loss", "eval_loss",
+               "patches_per_sec")} for e in search_epochs],
+           "search_genotype": json.loads(genotype.to_json()),
            "predict_forwards": forwards,
            "predict_launches": predict_launches,
            "expected_predict_launches": expected_predict}
@@ -1686,6 +2022,9 @@ def phase_cli(dev, seed, slice_s_per_patient, train_rec):
     if resumes != [spe] or not resave_equal:
         raise AssertionError(f"resume events {resumes}, re-saved "
                              f"checkpoint byte-equal: {resave_equal}")
+    if not ok_search:
+        raise AssertionError(f"search: epochs {search_epochs}, resumes "
+                             f"{search_resumes}, last line {search_lines[-1]}")
     if len(patients) != CLI_PATIENTS or done.get("event") != "predict_done":
         raise AssertionError(f"predict: {lines}")
     for p, lab in zip(patients, outputs):
@@ -2120,6 +2459,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+    t_script = time.perf_counter()
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing measured", file=sys.stderr)
@@ -2162,6 +2502,8 @@ def main() -> int:
         phase_train_kernels(dev, gen, summary)
         train_launches, train = phase_train(dev, args.seed)
         cli = phase_cli(dev, args.seed, s_per_patient, train)
+        search_kernels_s = phase_search_kernels(dev, gen, Summary())
+        search = phase_search(dev, args.seed)
         phase_pallas_kernels(dev, gen, summary)
         p_serve_launches, p_s_per_patient = phase_slice(dev, args.seed, True)
         p_train_launches, p_train = phase_train(dev, args.seed, True)
@@ -2178,6 +2520,13 @@ def main() -> int:
           "cli_s_per_patient": cli["s_per_patient"],
           "cli_patches_per_sec": cli["patches_per_sec"],
           "cli_seconds": cli["seconds"],
+          "search_step_s": search["step_s"],
+          "search_patches_per_s": search["patches_per_s"],
+          "search_peak_mem_gb": search["peak_mem_gb"],
+          "search_kernels_s": search_kernels_s,
+          "search_s": search["seconds"],
+          "search_launches_per_step": search["launches_per_bilevel_step"],
+          "script_s": time.perf_counter() - t_script,
           "card": smi, "build_s": build_s})
     # each kernel's launches in the run of its path: the default path's
     # serving and training, the use_pallas configuration's, the probes'

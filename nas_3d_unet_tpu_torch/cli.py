@@ -1,15 +1,18 @@
-"""Command-line interface: preprocess / train / predict.
+"""Command-line interface: preprocess / search / train / predict.
 
 Counterpart of `nas_3d_unet_tpu/cli.py`, reading a JSON config with dotted
 overrides:
 
     python -m nas_3d_unet_tpu_torch preprocess -c config.json
+    python -m nas_3d_unet_tpu_torch search     -c config.json -o search.epochs=5
     python -m nas_3d_unet_tpu_torch train      -c config.json -o train.epochs=2
     python -m nas_3d_unet_tpu_torch predict    -c config.json -o infer.overlap=0.25
 
-Every command runs on the card (`--device cuda`, the default) and fails
-where there is none; `--device cpu` runs it on the CPU.  `search` waits for
-the supernet (ROADMAP.md queue 1, item 8).
+`search` writes `metrics.jsonl`, its checkpoints and `genotype.json` under
+`search.checkpoint_dir`; `train` and `predict` read the genotype at
+`train.genotype_path` (the flagship's when there is none).  Every command
+runs on the card (`--device cuda`, the default) and fails where there is
+none; `--device cpu` runs it on the CPU.
 """
 
 from __future__ import annotations
@@ -53,6 +56,25 @@ def cmd_preprocess(args, device) -> int:
                               workers=args.workers)
     print(json.dumps({"event": "preprocess_done", "patients": len(outs),
                       "out_dir": cfg.data.processed_dir}))
+    return 0
+
+
+def cmd_search(args, device) -> int:
+    from .data.pipeline import dataset_paths
+    from .models.unet import make_supernet
+    from .search.bilevel import Searcher
+
+    cfg = _load_cfg(args)
+    sc = cfg.search
+    searcher = Searcher(make_supernet(cfg.model, cfg.data.num_classes), cfg,
+                        dataset_paths(cfg.data.processed_dir),
+                        log_path=os.path.join(sc.checkpoint_dir,
+                                              "metrics.jsonl"),
+                        device=device)
+    searcher.search()
+    print(json.dumps({"event": "search_done",
+                      "genotype": os.path.join(sc.checkpoint_dir,
+                                               "genotype.json")}))
     return 0
 
 
@@ -113,8 +135,8 @@ def build_parser() -> argparse.ArgumentParser:
                                 formatter_class=argparse
                                 .RawDescriptionHelpFormatter)
     sub = p.add_subparsers(dest="cmd", required=True)
-    for name, fn in (("preprocess", cmd_preprocess), ("train", cmd_train),
-                     ("predict", cmd_predict)):
+    for name, fn in (("preprocess", cmd_preprocess), ("search", cmd_search),
+                     ("train", cmd_train), ("predict", cmd_predict)):
         sp = sub.add_parser(name)
         sp.add_argument("-c", "--config", default=None,
                         help="JSON config path")

@@ -1,8 +1,18 @@
-"""Decoded architectures (genotypes), without JAX.
+"""Architecture parameters (α) and decoded architectures (genotypes).
 
-Counterpart of `nas_3d_unet_tpu/models/genotype.py`: the same JSON
-document, validation, flagship genotype and top-2 α parse.  α itself (and
-its `jax.random` init) belongs to the search, which is not ported yet;
+Counterpart of `nas_3d_unet_tpu/models/genotype.py`: α's shapes and its
+near-uniform init (`:45-68`), the same JSON document, validation, flagship
+genotype and top-2 α parse.  α is a dict of fp32 tensors, one per edge
+group, shared by every cell of its kind:
+
+    down_in  (2·N, |DOWN_OPS|)     node i ← in0 (row 2i), in1 (row 2i+1)
+    down_mid (N(N−1)/2, |NORMAL|)  node i ← node j < i (row mid_index(i, j))
+    up_below (N, |UP_OPS|)         node i ← below
+    up_skip  (N, |NORMAL|)         node i ← skip
+    up_mid   (N(N−1)/2, |NORMAL|)
+
+`init_alphas` draws from a `torch.Generator`; `jax.random` streams are not
+reproduced, so a test hands both packages the same α as numpy arrays.
 `parse_alphas` takes any mapping of array-likes.
 
 Edge sources: down cell — "in0" | "in1" | "n{j}"; up cell — "skip" |
@@ -13,9 +23,10 @@ from __future__ import annotations
 
 import json
 from dataclasses import dataclass
-from typing import List, Mapping, Tuple
+from typing import Dict, List, Mapping, Tuple
 
 import numpy as np
+import torch
 
 from ..ops.primitives import DOWN_OPS, NORMAL_OPS, UP_OPS
 
@@ -26,6 +37,31 @@ EDGES_PER_NODE = 2
 def mid_index(i: int, j: int) -> int:
     """Flat index of the mid edge node_i ← node_j (j < i)."""
     return i * (i - 1) // 2 + j
+
+
+def num_mid_edges(n_nodes: int) -> int:
+    return n_nodes * (n_nodes - 1) // 2
+
+
+def alpha_shapes(n_nodes: int) -> Dict[str, Tuple[int, int]]:
+    m = num_mid_edges(n_nodes)
+    return {
+        "down_in": (2 * n_nodes, len(DOWN_OPS)),
+        "down_mid": (m, len(NORMAL_OPS)),
+        "up_below": (n_nodes, len(UP_OPS)),
+        "up_skip": (n_nodes, len(NORMAL_OPS)),
+        "up_mid": (m, len(NORMAL_OPS)),
+    }
+
+
+def init_alphas(gen: torch.Generator, n_nodes: int,
+                scale: float = 1e-3) -> Dict[str, torch.Tensor]:
+    """Near-uniform α, as in DARTS: `scale` times standard normal logits,
+    drawn from `gen` (on its device) group by group in sorted name
+    order."""
+    return {name: scale * torch.randn(shape, generator=gen,
+                                      device=gen.device)
+            for name, shape in sorted(alpha_shapes(n_nodes).items())}
 
 
 @dataclass(frozen=True)

@@ -1,0 +1,1 @@
+"""search of the PyTorch port (see the package docstring)."""

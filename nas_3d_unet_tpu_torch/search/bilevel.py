@@ -1,0 +1,392 @@
+"""DARTS bilevel search: the α-step, the w-step, warmup and the Searcher.
+
+Counterpart of `nas_3d_unet_tpu/search/bilevel.py`: `make_search_step`
+(:58), `make_warmup_step` (:154), `alpha_summary` (:180) and `Searcher`
+(:190).  A search step, first-order as the reference runs it:
+  1. α-step: the supernet's loss on a val-split batch, its gradient with
+     respect to α alone, an AdamW step on α (`alpha_lr`,
+     `alpha_weight_decay`);
+  2. w-step: the loss on a train-split batch under the updated α, its
+     gradient with respect to the weights alone, an AdamW step on w
+     (`w_lr`, `w_weight_decay`).
+Warmup epochs run the w-step alone, α frozen.  The α-step switches
+`requires_grad` off on the weights (and the w-step takes α's softmax
+without a graph), so neither backward computes the other's gradients: a
+kernel's autograd Function skips dW (or dx) for an input that needs none.
+
+In bf16 an α gradient is, per (edge, op), the full-volume sum of g·y
+with the op's bf16 output y: as in JAX, where the weight is cast to the
+activations' dtype (`cell.py` `_weighted`), each product is rounded to
+bf16 and the sum once more; the port accumulates the sum in fp32 (the JAX
+package on the CPU accumulates it in bf16, which the port does not
+follow).
+
+The model runs eagerly on one device; there is no jit, donation or mesh.
+`search.unrolled` (the second-order step) and `search.partial_channels` > 1
+(PC-DARTS) load in the config and are refused here, by the `Searcher`
+(`ROADMAP.md` queue 1, items 12 and 13).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import os
+import time
+from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from .. import bridge
+from ..data.augment import augment_batch, draw_augment
+from ..data.pipeline import (PatchGenerator, PatientCache, Prefetcher,
+                             split_patients)
+from ..metrics.losses import get_loss_fn
+from ..models.genotype import Genotype, alpha_shapes, init_alphas, \
+    parse_alphas
+from ..models.unet import arch_weights_from_alphas
+from ..train.checkpoint import (latest_checkpoint, load_checkpoint,
+                                optimizer_state, restore_optimizer_state,
+                                restore_train_state, save_checkpoint,
+                                train_state)
+from ..train.loop import (loss_and_grads, make_eval_step,
+                          warn_stream_geometry_mismatch)
+from ..train.optim import AdamW, make_optimizer
+from ..utils.device import resolve_device
+from ..utils.logging import MetricsLogger, is_primary_process
+from ..utils.params import count_params
+
+
+class ArchBound(nn.Module):
+    """A supernet with its architecture weights bound: `forward(x)` is
+    `net(x, arch_weights)`, its parameters the supernet's."""
+
+    def __init__(self, net: nn.Module,
+                 arch_weights: Optional[Mapping[str, torch.Tensor]] = None):
+        super().__init__()
+        self.net = net
+        self.arch_weights = arch_weights
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.net(x, self.arch_weights)
+
+
+@contextlib.contextmanager
+def _frozen(params: Sequence[torch.Tensor]):
+    """`requires_grad` off on `params` for the block."""
+    for p in params:
+        p.requires_grad_(False)
+    try:
+        yield
+    finally:
+        for p in params:
+            p.requires_grad_(True)
+
+
+def _augmenter(augment: Optional[dict],
+               gen: Optional[torch.Generator]) -> Callable:
+    """(x, y) → (x, y) augmented with draws from `gen`, which `augment`
+    needs; identity when `augment` is None."""
+    if augment is None:
+        return lambda x, y: (x, y)
+    if gen is None:
+        raise ValueError("augment needs a generator (gen=)")
+
+    def apply(x, y):
+        return augment_batch(x, y, *draw_augment(gen, x.shape[0],
+                                                 x.shape[-1], **augment))
+
+    return apply
+
+
+def _w_update(bound: ArchBound, w_opt: AdamW, x: torch.Tensor,
+              y: torch.Tensor, loss_fn: Callable,
+              alphas: Mapping[str, torch.Tensor]) -> torch.Tensor:
+    """One w-step under `alphas` (no graph to α); returns the loss."""
+    with torch.no_grad():
+        bound.arch_weights = arch_weights_from_alphas(alphas)
+    loss, grads = loss_and_grads(bound, x, y, loss_fn)
+    w_opt.step(grads)
+    return loss
+
+
+def make_search_step(net: nn.Module, w_opt: AdamW, a_opt: AdamW,
+                     alphas: Mapping[str, torch.Tensor],
+                     augment: Optional[dict] = None,
+                     label_mode: str = "regions", augment_val: bool = False,
+                     gen: Optional[torch.Generator] = None):
+    """(x_tr, y_tr, x_val, y_val) → {"train_loss", "val_loss"} (0-d fp32
+    tensors); updates α (`alphas`, the leaf tensors `a_opt` holds, in
+    place) and then the weights (`w_opt`'s, the supernet's).
+
+    `augment`: None, or dict(flip_prob=…, intensity_shift=…,
+    intensity_scale=…) for the train batch; `augment_val` also augments
+    the val batch (the reference runs none there, so α's gradients come
+    from clean batches by default).  Draws come from `gen`, a generator on
+    the net's device that the caller keeps, train batch first."""
+    loss_fn = get_loss_fn(label_mode)
+    aug = _augmenter(augment, gen)
+    bound = ArchBound(net)
+
+    def step(x_tr, y_tr, x_val, y_val) -> Dict[str, torch.Tensor]:
+        x_tr, y_tr = aug(x_tr, y_tr)
+        if augment_val:
+            x_val, y_val = aug(x_val, y_val)
+        # (1) architecture step on the val batch, the weights frozen
+        with _frozen(w_opt.params):
+            val_loss = loss_fn(net(x_val, arch_weights_from_alphas(alphas)),
+                               y_val)
+            a_grads = torch.autograd.grad(val_loss, a_opt.params,
+                                          allow_unused=True,
+                                          materialize_grads=True)
+        a_opt.step(list(a_grads))
+        # (2) weight step on the train batch, under the updated α
+        train_loss = _w_update(bound, w_opt, x_tr, y_tr, loss_fn, alphas)
+        return {"train_loss": train_loss, "val_loss": val_loss.detach()}
+
+    return step
+
+
+def make_warmup_step(net: nn.Module, w_opt: AdamW,
+                     alphas: Mapping[str, torch.Tensor],
+                     augment: Optional[dict] = None,
+                     label_mode: str = "regions",
+                     gen: Optional[torch.Generator] = None):
+    """(x_tr, y_tr) → {"train_loss", "val_loss" (0)}: the w-step alone,
+    α frozen (the warmup epochs)."""
+    loss_fn = get_loss_fn(label_mode)
+    aug = _augmenter(augment, gen)
+    bound = ArchBound(net)
+
+    def step(x_tr, y_tr) -> Dict[str, torch.Tensor]:
+        x_tr, y_tr = aug(x_tr, y_tr)
+        loss = _w_update(bound, w_opt, x_tr, y_tr, loss_fn, alphas)
+        return {"train_loss": loss, "val_loss": torch.zeros_like(loss)}
+
+    return step
+
+
+def alpha_summary(alphas: Mapping[str, torch.Tensor]) -> Dict[str, float]:
+    """Mean softmax entropy per α group — the search-health signal."""
+    out = {}
+    for name, a in alphas.items():
+        p = torch.softmax(a.detach().float(), dim=-1)
+        ent = -(p * torch.log(p + 1e-9)).sum(-1)
+        out[f"entropy_{name}"] = float(ent.mean())
+    return out
+
+
+def _numpy(alphas: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    return {k: v.detach().cpu().numpy() for k, v in alphas.items()}
+
+
+class Searcher:
+    """The supernet search loop: warmup epochs, then bilevel epochs, an
+    α-split eval per bilevel epoch, checkpoints with the genotype, and
+    trajectory-exact resume from the latest checkpoint.
+
+    `supernet`: a `SuperNet`, moved to `device` (None: the card); `cfg`: a
+    `Config`; `data_paths`: the patients' `.npz` files, split into a
+    w-part and an α-part (`split_patients`).  The train batch is flipped
+    and jittered inside the step, with draws from the Searcher's generator
+    (saved in every checkpoint); the patch streams never augment on the
+    host."""
+
+    def __init__(self, supernet: nn.Module, cfg, data_paths: Sequence[str],
+                 log_path: Optional[str] = None,
+                 device: torch.device | str | None = None):
+        sc, dc = cfg.search, cfg.data
+        if sc.unrolled:
+            raise ValueError(
+                "search.unrolled (the second-order DARTS step) is not "
+                "supported by the PyTorch port (ROADMAP.md queue 1, item 12)")
+        if sc.partial_channels > 1:
+            raise ValueError(
+                f"search.partial_channels={sc.partial_channels} (PC-DARTS) "
+                "is not supported by the PyTorch port (ROADMAP.md queue 1, "
+                "item 13)")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.net = supernet.to(self.device)
+        self.alphas = {k: torch.zeros(s, device=self.device,
+                                      requires_grad=True)
+                       for k, s in sorted(alpha_shapes(
+                           cfg.model.n_nodes).items())}
+        self.w_opt = make_optimizer(self.net.parameters(), sc.w_lr,
+                                    sc.w_weight_decay)
+        self.a_opt = make_optimizer(self.alphas.values(), sc.alpha_lr,
+                                    sc.alpha_weight_decay)
+        self.gen = torch.Generator(device=self.device)
+        aug = dict(flip_prob=dc.flip_prob, intensity_shift=dc.intensity_shift,
+                   intensity_scale=dc.intensity_scale)
+        self.augment_val = bool(sc.augment_val)
+        self.search_step = make_search_step(
+            self.net, self.w_opt, self.a_opt, self.alphas, aug,
+            dc.label_mode, self.augment_val, gen=self.gen)
+        self.warmup_step = make_warmup_step(self.net, self.w_opt,
+                                            self.alphas, aug, dc.label_mode,
+                                            gen=self.gen)
+        # the α-split eval: loss and per-region Dice with the current α
+        # frozen (the reference's `Searching.validate`)
+        self.bound = ArchBound(self.net)
+        self.eval_step = make_eval_step(self.bound, label_mode=dc.label_mode)
+        self.logger = MetricsLogger(
+            log_path, tb_dir=(os.path.join(sc.checkpoint_dir, "tb")
+                              if sc.tensorboard else None))
+        w_paths, a_paths = split_patients(data_paths, dc.val_fraction,
+                                          dc.seed)
+        self.w_cache = PatientCache(w_paths, dc.label_mode)
+        self.a_cache = PatientCache(a_paths or w_paths, dc.label_mode)
+        self.patch = dc.patch_size
+        # search.batch_size overrides data.batch_size (0 = inherit)
+        self.batch = sc.batch_size or dc.batch_size
+        self.step = 0
+        self._resume_meta: dict = {}
+
+    def init_state(self, seed: int) -> None:
+        """Weights at flax's initialiser scales from `seed`, α from
+        `init_alphas` on a CPU generator seeded with `seed`, fresh AdamW
+        states, the augmentation generator seeded with `seed`."""
+        bridge.load_flax_params(self.net,
+                                bridge.random_flax_params(self.net, seed))
+        g = torch.Generator()
+        g.manual_seed(seed)
+        with torch.no_grad():
+            for k, a in init_alphas(g, self.cfg.model.n_nodes).items():
+                self.alphas[k].copy_(a)
+        sc = self.cfg.search
+        for opt, lr in ((self.w_opt, sc.w_lr), (self.a_opt, sc.alpha_lr)):
+            for m in opt.mu + opt.nu:
+                m.zero_()
+            opt.count, opt.lr = 0, lr
+        self.gen.manual_seed(seed)
+        self.step = 0
+
+    def state(self) -> Dict[str, np.ndarray]:
+        """The search state as a checkpoint's arrays
+        (`train/checkpoint.py`)."""
+        out = train_state(self.net, self.w_opt, self.step, self.gen)
+        out.update({f"alphas/{k}": v.detach().cpu().numpy().copy()
+                    for k, v in self.alphas.items()})
+        out.update(optimizer_state(self.a_opt, self.alphas, "a_opt"))
+        return out
+
+    def resume_or_init(self, seed: int) -> None:
+        self.init_state(seed)
+        self._resume_meta = {}
+        sc = self.cfg.search
+        ckpt = latest_checkpoint(sc.checkpoint_dir)
+        if ckpt is None:
+            return
+        step, path = ckpt
+        arrays = load_checkpoint(path)
+        self.step = restore_train_state(arrays, self.net, self.w_opt,
+                                        self.gen)
+        with torch.no_grad():
+            for k, a in self.alphas.items():
+                a.copy_(torch.from_numpy(arrays[f"alphas/{k}"]))
+        restore_optimizer_state(arrays, self.a_opt, list(self.alphas),
+                                "a_opt")
+        meta_path = os.path.join(sc.checkpoint_dir, "metadata.json")
+        if os.path.exists(meta_path):
+            with open(meta_path) as f:
+                self._resume_meta = json.load(f)
+        self.logger.log(event="resume", step=step, path=path)
+
+    def search(self, epochs: Optional[int] = None,
+               steps_per_epoch: Optional[int] = None
+               ) -> Tuple[Dict[str, np.ndarray], Optional[Genotype]]:
+        """Search to `epochs` (default `search.epochs`), resuming from the
+        latest checkpoint; returns the final state (`state()`) and the
+        genotype of the last epoch run (None if none ran)."""
+        sc = self.cfg.search
+        n = self.cfg.model.n_nodes
+        epochs = sc.epochs if epochs is None else epochs
+        spe = sc.steps_per_epoch if steps_per_epoch is None \
+            else steps_per_epoch
+        self.resume_or_init(sc.seed)
+        warn_stream_geometry_mismatch(self._resume_meta, self.logger,
+                                      steps_per_epoch=spe,
+                                      val_steps=sc.val_steps,
+                                      warmup_epochs=sc.warmup_epochs)
+        self.logger.log(event="model", params=count_params(self.net),
+                        alphas=sum(a.numel() for a in self.alphas.values()))
+        start_epoch = self.step // spe
+        # counter-based streams positioned by the restored step make the
+        # resume trajectory-exact: g_w advances every step, g_a and g_eval
+        # only in bilevel epochs
+        non_warm = max(0, start_epoch - sc.warmup_epochs)
+        g_w = PatchGenerator(self.w_cache, self.patch, self.batch,
+                             seed=sc.seed + 101, augment=False,
+                             start_step=self.step)
+        g_a = PatchGenerator(self.a_cache, self.patch, self.batch,
+                             seed=sc.seed + 202, augment=False,
+                             start_step=non_warm * spe)
+        # its own generator: g_a is drained by pf_a's thread
+        g_eval = PatchGenerator(self.a_cache, self.patch, self.batch,
+                                seed=sc.seed + 303, augment=False,
+                                start_step=non_warm * sc.val_steps)
+        pf_w = Prefetcher(g_w, self.device, depth=2)
+        pf_a = Prefetcher(g_a, self.device, depth=2)
+        genotype = None
+        try:
+            for epoch in range(start_epoch, epochs):
+                warm = epoch < sc.warmup_epochs
+                t0 = time.perf_counter()
+                tr: List[torch.Tensor] = []
+                va: List[torch.Tensor] = []
+                for _ in range(spe):
+                    x_tr, y_tr = pf_w.next()
+                    if warm:
+                        m = self.warmup_step(x_tr, y_tr)
+                    else:
+                        x_val, y_val = pf_a.next()
+                        m = self.search_step(x_tr, y_tr, x_val, y_val)
+                    self.step += 1
+                    tr.append(m["train_loss"])
+                    va.append(m["val_loss"])
+                tr[-1].item()               # waits for the epoch's steps
+                pps = spe * self.batch / (time.perf_counter() - t0)
+                genotype = parse_alphas(_numpy(self.alphas), n)
+                rec = dict(event="epoch", epoch=epoch, warmup=warm,
+                           augment_val=self.augment_val,
+                           train_loss=float(np.mean([v.item() for v in tr])),
+                           val_loss=float(np.mean([v.item() for v in va])),
+                           patches_per_sec=pps, **alpha_summary(self.alphas))
+                if not warm:
+                    val = self.evaluate(g_eval, sc.val_steps)
+                    rec.update(eval_loss=val["loss"], dice_wt=val["dice_wt"],
+                               dice_tc=val["dice_tc"], dice_et=val["dice_et"])
+                self.logger.log(**rec)
+                if (epoch + 1) % sc.checkpoint_every == 0 \
+                        or epoch == epochs - 1:
+                    save_checkpoint(
+                        sc.checkpoint_dir, self.step, self.state(),
+                        metadata={"epoch": epoch, "steps_per_epoch": spe,
+                                  "val_steps": sc.val_steps,
+                                  "warmup_epochs": sc.warmup_epochs,
+                                  "config": self.cfg.to_dict()})
+                    if is_primary_process():
+                        genotype.save(os.path.join(sc.checkpoint_dir,
+                                                   "genotype.json"))
+        finally:
+            pf_w.close()
+            pf_a.close()
+        return self.state(), genotype
+
+    def evaluate(self, gen: PatchGenerator,
+                 val_steps: int) -> Dict[str, float]:
+        """Frozen-α supernet eval on the α-split: mean loss and per-region
+        Dice over `val_steps` batches."""
+        with torch.no_grad():
+            self.bound.arch_weights = arch_weights_from_alphas(self.alphas)
+        accum: Dict[str, list] = {}
+        for _ in range(val_steps):
+            x, y = gen.next()
+            m = self.eval_step(torch.from_numpy(x).to(self.device),
+                               torch.from_numpy(y).to(self.device))
+            for k, v in m.items():
+                accum.setdefault(k, []).append(float(v))
+        return {k: float(np.mean(v)) for k, v in accum.items()}

@@ -11,6 +11,10 @@ is a flat dict of numpy arrays, never a pickle:
     step                   the global step
     rng/augment            the augmentation generator's `get_state()` bytes
 
+A search checkpoint (`search/bilevel.py`) adds α and its AdamW state:
+`alphas/<group>`, `a_opt/mu/<group>`, `a_opt/nu/<group>`, `a_opt/count`,
+`a_opt/lr`.
+
 A params-only file with the same `params/...` keys (what
 `export_flax_params.py` writes from a JAX checkpoint) loads through
 `load_params` too.
@@ -91,17 +95,38 @@ def _cpu(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy().copy()
 
 
+def optimizer_state(opt: AdamW, keys, prefix: str) -> Dict[str, np.ndarray]:
+    """AdamW's moments (by `keys`, one a parameter, in order), count and lr
+    as `<prefix>/mu/<key>`, `<prefix>/nu/<key>`, `<prefix>/count`,
+    `<prefix>/lr`."""
+    keys = list(keys)
+    if len(keys) != len(opt.params):
+        raise ValueError("the optimizer does not hold these parameters")
+    out = {}
+    for name, moments in (("mu", opt.mu), ("nu", opt.nu)):
+        out.update({f"{prefix}/{name}/{k}": _cpu(m)
+                    for k, m in zip(keys, moments)})
+    out[f"{prefix}/count"] = np.asarray(opt.count, np.int64)
+    out[f"{prefix}/lr"] = np.asarray(opt.lr, np.float64)
+    return out
+
+
+def restore_optimizer_state(arrays: Mapping[str, np.ndarray], opt: AdamW,
+                            keys, prefix: str) -> None:
+    """Load `optimizer_state`'s arrays back into `opt`."""
+    with torch.no_grad():
+        for name, moments in (("mu", opt.mu), ("nu", opt.nu)):
+            for k, m in zip(keys, moments):
+                m.copy_(torch.from_numpy(arrays[f"{prefix}/{name}/{k}"]))
+    opt.count = int(arrays[f"{prefix}/count"])
+    opt.lr = float(arrays[f"{prefix}/lr"])
+
+
 def train_state(net: nn.Module, opt: AdamW, step: int,
                 gen: torch.Generator) -> Dict[str, np.ndarray]:
     """The arrays of a training checkpoint (see the module docstring)."""
-    keys = list(net.state_dict())
-    if len(keys) != len(opt.params):
-        raise ValueError("the optimizer does not hold the net's parameters")
     out = {f"params/{k}": _cpu(v) for k, v in net.state_dict().items()}
-    for name, moments in (("mu", opt.mu), ("nu", opt.nu)):
-        out.update({f"opt/{name}/{k}": _cpu(m) for k, m in zip(keys, moments)})
-    out["opt/count"] = np.asarray(opt.count, np.int64)
-    out["opt/lr"] = np.asarray(opt.lr, np.float64)
+    out.update(optimizer_state(opt, net.state_dict(), "opt"))
     out["step"] = np.asarray(step, np.int64)
     out["rng/augment"] = _cpu(gen.get_state())
     return out
@@ -112,13 +137,7 @@ def restore_train_state(arrays: Mapping[str, np.ndarray], net: nn.Module,
     """Load a training checkpoint into `net`, `opt` and `gen` (strictly);
     returns its step."""
     load_params(net, arrays)
-    keys = list(net.state_dict())
-    with torch.no_grad():
-        for name, moments in (("mu", opt.mu), ("nu", opt.nu)):
-            for k, m in zip(keys, moments):
-                m.copy_(torch.from_numpy(arrays[f"opt/{name}/{k}"]))
-    opt.count = int(arrays["opt/count"])
-    opt.lr = float(arrays["opt/lr"])
+    restore_optimizer_state(arrays, opt, list(net.state_dict()), "opt")
     gen.set_state(torch.from_numpy(arrays["rng/augment"]))
     return int(arrays["step"])
 

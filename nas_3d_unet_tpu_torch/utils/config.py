@@ -8,10 +8,13 @@ the JAX package accepts is accepted here, so one configuration loads in both.
 
 Values that ask for something the port does not do are refused when the
 dataclass is built, with the `ROADMAP.md` item that would bring it:
-`model.norm` other than "group", `model.remat` / `model.remat_edges` true,
+`model.remat` / `model.remat_edges` true,
 `train.steps_per_call` > 1, `parallel.data_parallel` or
 `parallel.spatial_parallel` > 1.  `model.packed` is read and has no effect:
-it selects a TPU layout that the port runs as logical NDHWC.
+it selects a TPU layout that the port runs as logical NDHWC.  The search
+settings the port does not run yet (`search.unrolled`,
+`search.partial_channels` > 1) load here and are refused by the
+`Searcher` (`search/bilevel.py`).
 """
 
 from __future__ import annotations
@@ -70,7 +73,7 @@ class ModelConfig:
     base_channels: int = 16                   # node channels at full resolution
     depth: int = 3                            # number of down cells (and up cells)
     n_nodes: int = 3                          # intermediate nodes per cell
-    norm: str = "group"                       # only "group" is ported
+    norm: str = "group"                       # "group" | "instance" | "none"
     gn_groups: int = 8
     remat: bool = False
     remat_edges: bool | None = None
@@ -81,8 +84,6 @@ class ModelConfig:
     packed: bool = True                       # a TPU layout: read, no effect
 
     def __post_init__(self):
-        _refuse(self.norm != "group", f"model.norm={self.norm!r}",
-                "ROADMAP.md queue 1, item 7")
         _refuse(bool(self.remat) or bool(self.remat_edges),
                 "model.remat / model.remat_edges",
                 "ROADMAP.md queue 1, item 10")
@@ -90,7 +91,7 @@ class ModelConfig:
 
 @dataclass(frozen=True)
 class SearchConfig:
-    """DARTS bilevel search (read; the search is ROADMAP.md queue 1, item 8)."""
+    """DARTS bilevel search (`search/bilevel.py`)."""
 
     epochs: int = 50
     steps_per_epoch: int = 250

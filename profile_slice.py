@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
-"""Where one patient's serving time, or one train step's time, goes, on
-one NVIDIA GPU.
+"""Where one patient's serving time, one train step's or one search
+step's time goes, on one NVIDIA GPU.
 
-    python3 profile_slice.py [--train] [--use-pallas]
+    python3 profile_slice.py [--train | --search] [--use-pallas]
 
 Serving: one synthetic 160x192x152x4 patient with the flagship net (the
 settings of `chip_smoke.py`) under `torch.profiler`, after one warm-up
 patient and three timed unprofiled ones.  --train: one train step of the
 bf16 flagship at 128^3, batch 2, microbatch 1 (chip_smoke.py's phase
 "train"), after three warm-up and three timed unprofiled steps.
---use-pallas: the same with `DerivedNet(use_pallas=True)` (chip_smoke.py's
-phases "pallas_slice" and "pallas_train").  Every
+--search: one bilevel step (an α-step, then a w-step) of the shipped
+supernet at 128^3, batch 1 (chip_smoke.py's phase "search"), after two
+warm-up and three timed unprofiled steps.  --use-pallas: serving or
+training with `DerivedNet(use_pallas=True)` (chip_smoke.py's phases
+"pallas_slice" and "pallas_train").  Every
 device activity (kernel, memcpy, memset) is attributed to the innermost op
 module whose forward launched it (forward hooks open a `record_function`
 range per module; a kernel belongs to the range around its launch call;
@@ -103,8 +106,9 @@ def kernel_class(name: str, cat: str) -> str:
 
 
 def module_tag(m) -> str | None:
-    from nas_3d_unet_tpu_torch.models.unet import DerivedNet
-    from nas_3d_unet_tpu_torch.ops.primitives import (ConvNormAct, SepConv,
+    from nas_3d_unet_tpu_torch.models.unet import DerivedNet, SuperNet
+    from nas_3d_unet_tpu_torch.ops.primitives import (ConvNormAct, Pool,
+                                                      SepConv, UpSampleConv,
                                                       UpTranspose)
     if isinstance(m, ConvNormAct):
         return (f"ConvNormAct k{m.kernel} s{m.stride}"
@@ -113,8 +117,14 @@ def module_tag(m) -> str | None:
         return f"SepConv s{m.stride}"
     if isinstance(m, UpTranspose):
         return "UpTranspose"
+    if isinstance(m, Pool):
+        return f"Pool {m.kind} s{m.stride}"
+    if isinstance(m, UpSampleConv):
+        return "UpSampleConv (the upsample)"
     if isinstance(m, DerivedNet):
         return "DerivedNet (node sums, head)"
+    if isinstance(m, SuperNet):
+        return "SuperNet (edge terms, node sums, head)"
     return None
 
 
@@ -253,10 +263,44 @@ def _training(dev, use_pallas):
     return walls[2:], lambda: step(x, y)
 
 
+def _search(dev, use_pallas):
+    """(walls, profiled callable) for one bilevel search step."""
+    from chip_smoke import AUGMENT, search_supernet, synthetic_batch
+    from nas_3d_unet_tpu_torch.search.bilevel import make_search_step
+    from nas_3d_unet_tpu_torch.train.optim import make_optimizer
+
+    if use_pallas:
+        raise SystemExit("--search profiles the shipped (default) path")
+    net, alphas, cfg = search_supernet(0)
+    net = net.to(dev)
+    annotate_modules(net)
+    alphas = {k: v.to(dev).requires_grad_() for k, v in alphas.items()}
+    sc = cfg.search
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    step = make_search_step(
+        net, make_optimizer(net.parameters(), sc.w_lr, sc.w_weight_decay),
+        make_optimizer(alphas.values(), sc.alpha_lr, sc.alpha_weight_decay),
+        alphas, AUGMENT, gen=gen)
+    x, y = synthetic_batch(dev, 0)               # train patch, val patch
+    batches = (x[:1], y[:1], x[1:], y[1:])
+    walls = []
+    for _ in range(5):                           # two warm-up, three timed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(*batches)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return walls[1:], lambda: step(*batches)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--train", action="store_true",
-                    help="profile one train step instead of one patient")
+    kind = ap.add_mutually_exclusive_group()
+    kind.add_argument("--train", action="store_true",
+                      help="profile one train step instead of one patient")
+    kind.add_argument("--search", action="store_true",
+                      help="profile one bilevel search step")
     ap.add_argument("--use-pallas", action="store_true",
                     help="the use_pallas configuration (K6/K7/K4, K3)")
     args = ap.parse_args()
@@ -268,10 +312,11 @@ def main() -> int:
     from nas_3d_unet_tpu_torch.utils.precision import strict_fp32
 
     dev = torch.device("cuda", 0)
-    window = "step" if args.train else "patient"
+    window = "step" if args.train or args.search else "patient"
+    setup = _search if args.search else _training if args.train \
+        else _serving
     with strict_fp32():
-        walls, run = (_training if args.train else _serving)(
-            dev, args.use_pallas)
+        walls, run = setup(dev, args.use_pallas)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             with record_function(window):
@@ -287,6 +332,7 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     out = {"card": smi, "window": window, "use_pallas": args.use_pallas,
+           "search": args.search,
            "wall_s_unprofiled": walls[1:],
            **attribute(trace, window)}
     print(json.dumps(out, indent=1))

@@ -1,7 +1,7 @@
 """The port's CLI (`python -m nas_3d_unet_tpu_torch`) end to end on the
 CPU: preprocess → train → predict with `--device cpu` on raw BraTS-layout
 NIfTI patients; without `--device cpu` and without a card a command fails;
-`search` is not a command yet.  Then the port's `predict` against the JAX
+`search` writes a genotype that `train` then builds.  Then the port's `predict` against the JAX
 CLI's on the same raw data and the same weights, brought over by
 `export_flax_params.py`: the stitched probabilities within 1e-5, and the
 written labels equal wherever every JAX region probability is more than
@@ -35,7 +35,7 @@ from nas_3d_unet_tpu_torch import bridge, cli
 from nas_3d_unet_tpu_torch.data.preprocess import load_patient
 from nas_3d_unet_tpu_torch.infer.sliding import SlidingWindowPredictor
 from nas_3d_unet_tpu_torch.io.nifti import read_nifti
-from nas_3d_unet_tpu_torch.models.genotype import default_genotype
+from nas_3d_unet_tpu_torch.models.genotype import Genotype, default_genotype
 from nas_3d_unet_tpu_torch.models.unet import make_derived
 from nas_3d_unet_tpu_torch.train import checkpoint as ck
 from nas_3d_unet_tpu_torch.utils.config import load_config
@@ -144,7 +144,7 @@ def test_sequential_predict_equals_the_pipelined_one(run, tmp_path,
 def test_without_a_card_a_command_fails(run, monkeypatch):
     _, cfg, _ = run
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for cmd in ("preprocess", "train", "predict"):
+    for cmd in ("preprocess", "search", "train", "predict"):
         with pytest.raises(RuntimeError, match="--device cpu"):
             cli.main([cmd, "-c", str(cfg)])
 
@@ -170,11 +170,38 @@ def test_debug_nans_trains_under_anomaly_detection(run, tmp_path,
     assert (tmp_path / "ckpt_1.npz").exists()
 
 
-def test_search_is_not_a_command(run, capsys):
+def test_search_is_a_command(run, tmp_path, capsys):
+    """`search` on the tiny store: one warmup epoch, one bilevel epoch; it
+    writes its metrics, checkpoints and a valid genotype.json, and `train`
+    builds that genotype (no fallback warning)."""
     _, cfg, _ = run
-    with pytest.raises(SystemExit):
-        cli.main(["search", "-c", str(cfg), "--device", "cpu"])
-    assert "invalid choice: 'search'" in capsys.readouterr().err
+    ck_dir = tmp_path / "search"
+    assert cli.main(["search", "-c", str(cfg), "--device", "cpu",
+                     "-o", "search.epochs=2", "-o", "search.warmup_epochs=1",
+                     "-o", "search.steps_per_epoch=2",
+                     "-o", "search.val_steps=1",
+                     "-o", f"search.checkpoint_dir={ck_dir}"]) == 0
+    out = [json.loads(l) for l in capsys.readouterr().out.splitlines()
+           if l.startswith("{")]
+    assert out[-1] == {"event": "search_done",
+                       "genotype": str(ck_dir / "genotype.json")}
+    epochs = [e for e in out if e["event"] == "epoch"]
+    assert [(e["epoch"], e["warmup"]) for e in epochs] == [(0, True),
+                                                           (1, False)]
+    assert np.isfinite(epochs[1]["eval_loss"])
+    assert {"ckpt_2.npz", "ckpt_4.npz", "genotype.json", "metadata.json",
+            "metrics.jsonl"} <= set(os.listdir(ck_dir))
+    geno = Genotype.load(str(ck_dir / "genotype.json"))
+    geno.validate()
+    assert geno.n_nodes == 2
+    assert cli.main(["train", "-c", str(cfg), "--device", "cpu",
+                     "-o", f"train.genotype_path={ck_dir / 'genotype.json'}",
+                     "-o", "train.epochs=1", "-o", "train.steps_per_epoch=1",
+                     "-o", f"train.checkpoint_dir={tmp_path / 'train'}"]) == 0
+    train = [json.loads(l) for l in capsys.readouterr().out.splitlines()
+             if l.startswith("{")]
+    assert not any(e["event"] == "warn" for e in train)
+    assert train[-1]["event"] == "train_done"
 
 
 def test_predict_matches_the_jax_cli(run, tmp_path, monkeypatch):

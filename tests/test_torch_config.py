@@ -1,7 +1,7 @@
 """The port's JSON config (nas_3d_unet_tpu_torch/utils/config.py) against
 the JAX package's YAML config: the same values, defaults and overrides,
-compared exactly as dicts (tuples and lists normalised), and the settings
-the port refuses."""
+compared exactly as dicts (tuples and lists normalised), the norms it
+accepts, and the settings the port refuses."""
 
 import json
 
@@ -62,9 +62,7 @@ def test_unknown_keys_raise(bad):
         jcfg.load_config(None, bad)
 
 
-REFUSED = [({"model.norm": "instance"}, "item 7"),
-           ({"model.norm": "none"}, "item 7"),
-           ({"model.remat": True}, "item 10"),
+REFUSED = [({"model.remat": True}, "item 10"),
            ({"model.remat_edges": True}, "item 10"),
            ({"train.steps_per_call": 2}, "not ported by decision"),
            ({"parallel.data_parallel": 2}, "item 9"),
@@ -78,6 +76,13 @@ def test_unported_settings_are_refused(ov, item):
     jcfg.load_config(None, ov)
     with pytest.raises(ValueError, match=item):
         tcfg.load_config(None, ov)
+
+
+@pytest.mark.parametrize("norm", ["group", "instance", "none"])
+def test_every_norm_loads(norm):
+    """`model.norm` takes the JAX package's three norms."""
+    assert tcfg.load_config(None, {"model.norm": norm}).model.norm == norm
+    assert jcfg.load_config(None, {"model.norm": norm}).model.norm == norm
 
 
 def test_label_mode_checks_match():

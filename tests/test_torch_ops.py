@@ -132,12 +132,13 @@ def test_merged_op_slices_equal_separate_ops():
                                        atol=GN_ATOL)
 
 
-def test_make_op_refuses_unported_ops():
-    for name in ("none", "identity", "avg_pool3", "max_pool3",
-                 "down_avg_pool", "down_max_pool", "up_conv3",
-                 "up_sep_conv3"):
-        with pytest.raises(NotImplementedError):
-            tp.make_op(name, 4, 4)
+def test_make_op_builds_every_registered_op():
+    """Every name of NORMAL_OPS, DOWN_OPS and UP_OPS builds (the same
+    registry as the JAX package's); an unknown name raises KeyError."""
+    assert set(tp._FACTORIES) == set(jp._FACTORIES) == {
+        *tp.NORMAL_OPS, *tp.DOWN_OPS, *tp.UP_OPS}
+    for name in (*tp.NORMAL_OPS, *tp.DOWN_OPS, *tp.UP_OPS):
+        assert isinstance(tp.make_op(name, 4, 4), torch.nn.Module)
     with pytest.raises(KeyError):
         tp.make_op("conv7", 4, 4)
     assert set(tp.NORMAL_OPS) == set(jp.NORMAL_OPS)
