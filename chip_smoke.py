@@ -91,7 +91,26 @@ Phases, each printed as JSON lines:
      memory, launches equal to the count from the modules
      (`_search_per_step`) x steps; the genotype `parse_alphas` decodes,
      whose derived net runs one forward.
-  7. pallas_kernels: the `use_pallas` configuration's kernels against their
+  6e. search_unrolled: the second-order step (`search.unrolled`, ξ =
+     `search.w_lr` as config.json leaves `search.xi` 0) on phase 6d's
+     supernet: its kernels against their twins at every geometry one step
+     hands them (SU_ tables: three forwards, K1-dx also differentiated,
+     K5a and K5b in every GroupNorm's differentiable backward); one
+     step's α gradient and val loss on the kernel path against the twin
+     path at ξ = PARITY_XI (100× search.w_lr, so that the second-order
+     term is most of it; UNROLLED_ALPHA_LIMITS, from grad_parity.py
+     --search), with that term's share; then one step noted (its geometries
+     against the tables) and SU_STEPS timed at 128^3: s a step,
+     patches/s, peak memory, finite losses, α moved, launches equal to
+     the tables' × steps, the genotype.
+ 6f. search_pc: `search.partial_channels` 2 (the supernet rebuilt with
+     pc_k 2, weights from --seed): its kernels at every geometry a
+     first-order step (SPC_) and an unrolled step (SB_) hand them; a
+     first-order step's α (PC_ALPHA_LIMITS) and w gradients and the
+     unrolled α gradient (as 6e) against the twin path; then, as 6e,
+     SPC_STEPS timed
+     first-order steps and SB_STEPS timed unrolled steps (both settings).
+ 7. pallas_kernels: the `use_pallas` configuration's kernels against their
      twins at every geometry it gives them: K6 conv3d (stride 1 and 2) in
      fp32 at batch 2 (the FMA conv tile) and in bf16 at batch 1 (the
      tensor-core conv), plus off the path a
@@ -153,8 +172,9 @@ Phases, each printed as JSON lines:
      plan with any field one off `ops/stats.py`'s.  A trace that comes
      back holding no kernel at all is taken again (up to 3 times; the
      record lists the retakes under "trace_retakes").
-The "done" line also holds the search's s a step, patches/s, peak memory
-and the new phases' seconds, and the whole script's.
+The "done" line also holds each search phase's s a step, patches/s, peak
+memory and launches a step, the search phases' seconds, and the whole
+script's.
 Then the nvidia-smi line, the kernels summary line and, last,
 `{"ok": true, "device": {...}}`.  In the kernels line a serving kernel's
 `ms`, `plain_ms`, `library_ms` and `bound_ms` are one flagship forward's
@@ -357,6 +377,98 @@ S_K5B = [(16, 64, 2), (16, 128, 20), (32, 32, 2), (32, 64, 40),
          (192, 32, 14), (256, 16, 4), (384, 16, 8)]
 SEARCH_BATCH = 1
 SEARCH_WARMUP_STEPS, SEARCH_STEPS = 1, 3
+S_TABLES = [("conv3x3x3_stats", S_K1), ("conv3x3x3", S_K1DX),
+            ("gemm_stats", S_K2), ("moments", S_K5A), ("weighted_sums", S_K5B)]
+# Phase "search_unrolled": launches per second-order step (SU_), the
+# virtual step's forward and its backward with a graph, the val forward
+# on the virtual weights and the α gradient back through both, then the
+# w-step.  Three forwards where the first-order step runs two: K1 and K2
+# launch 3/2 as often at the same geometries.  Under the graph every
+# GroupNorm backward runs K5a (its statistics rebuilt) and K5b, and K1-dx
+# is differentiated: K1-dx again with the other flip, (Cin, Cout) as K1's.
+# Phase "search_pc": a first-order step with search.partial_channels 2
+# (SPC_: the candidates at C/2, K1 from Cin = 8), and an unrolled step of
+# that supernet (SB_: both settings, K1 and K2 3/2 of SPC_'s).
+SU_K1DX = [(16, 16, 128, 1, 5), (16, 16, 128, 2, 5), (16, 32, 128, 1, 1),
+           (16, 32, 128, 2, 1), (16, 48, 128, 1, 2), (16, 48, 128, 2, 1),
+           (32, 16, 128, 1, 4), (32, 16, 128, 2, 4), (32, 32, 64, 1, 10),
+           (32, 32, 64, 2, 10), (32, 64, 64, 1, 2), (32, 64, 64, 2, 2),
+           (32, 96, 64, 1, 2), (32, 96, 64, 2, 1), (48, 16, 128, 1, 7),
+           (48, 16, 128, 2, 3), (64, 32, 64, 1, 8), (64, 32, 64, 2, 8),
+           (64, 64, 32, 1, 10), (64, 64, 32, 2, 10), (64, 128, 32, 1, 2),
+           (64, 128, 32, 2, 2), (64, 192, 32, 1, 2), (64, 192, 32, 2, 1),
+           (96, 32, 64, 1, 8), (96, 32, 64, 2, 4), (128, 64, 32, 1, 8),
+           (128, 64, 32, 2, 8), (128, 128, 16, 1, 5), (128, 128, 16, 2, 5),
+           (128, 256, 16, 1, 1), (128, 256, 16, 2, 1), (192, 64, 32, 1, 8),
+           (192, 64, 32, 2, 4), (256, 128, 16, 1, 4), (256, 128, 16, 2, 4)]
+SU_K5A = [(16, 64, 1), (16, 128, 39), (32, 32, 1), (32, 64, 77), (32, 128, 4),
+          (48, 128, 8), (64, 16, 1), (64, 32, 77), (64, 64, 9), (96, 64, 23),
+          (128, 16, 38), (128, 32, 9), (192, 32, 23), (256, 16, 2),
+          (384, 16, 16)]
+SU_K5B = [(16, 64, 4), (16, 128, 44), (32, 32, 4), (32, 64, 86),
+          (32, 128, 14), (48, 128, 17), (64, 16, 4), (64, 32, 89),
+          (64, 64, 23), (96, 64, 28), (128, 16, 44), (128, 32, 24),
+          (192, 32, 30), (256, 16, 8), (384, 16, 16)]
+SPC_K1 = [(4, 48, 128, 1, 2), (8, 8, 128, 1, 2), (8, 8, 128, 2, 2),
+          (8, 16, 128, 1, 2), (8, 16, 128, 2, 2), (8, 24, 128, 1, 4),
+          (8, 24, 128, 2, 2), (16, 16, 64, 1, 4), (16, 16, 64, 2, 4),
+          (16, 32, 64, 1, 4), (16, 32, 64, 2, 4), (16, 48, 64, 1, 4),
+          (16, 48, 64, 2, 2), (32, 32, 32, 1, 4), (32, 32, 32, 2, 4),
+          (32, 64, 32, 1, 4), (32, 64, 32, 2, 4), (32, 96, 32, 1, 4),
+          (32, 96, 32, 2, 2), (64, 64, 16, 1, 2), (64, 64, 16, 2, 2),
+          (64, 128, 16, 1, 2), (64, 128, 16, 2, 2)]
+SPC_K1DX = [(8, 8, 128, 1, 2), (8, 8, 128, 2, 2), (16, 8, 128, 1, 2),
+            (16, 8, 128, 2, 2), (16, 16, 64, 1, 4), (16, 16, 64, 2, 4),
+            (24, 8, 128, 1, 3), (24, 8, 128, 2, 1), (32, 16, 64, 1, 4),
+            (32, 16, 64, 2, 4), (32, 32, 32, 1, 4), (32, 32, 32, 2, 4),
+            (48, 16, 64, 1, 4), (48, 16, 64, 2, 2), (64, 32, 32, 1, 4),
+            (64, 32, 32, 2, 4), (64, 64, 16, 1, 2), (64, 64, 16, 2, 2),
+            (96, 32, 32, 1, 4), (96, 32, 32, 2, 2), (128, 64, 16, 1, 2),
+            (128, 64, 16, 2, 2)]
+SPC_K2 = [(48, 16, 128, 2), (48, 32, 128, 4), (96, 16, 64, 2),
+          (96, 32, 64, 2), (96, 64, 64, 2), (192, 32, 32, 2),
+          (192, 64, 32, 2), (192, 128, 32, 2), (384, 64, 16, 2)]
+SPC_K5A = [(8, 128, 18), (16, 64, 36), (24, 128, 2), (32, 32, 36),
+           (48, 64, 10), (64, 16, 18), (64, 64, 2), (96, 32, 10),
+           (128, 32, 2), (192, 16, 8)]
+SPC_K5B = [(8, 128, 19), (16, 64, 40), (16, 128, 5), (24, 128, 6),
+           (32, 32, 43), (32, 64, 10), (32, 128, 2), (48, 64, 12),
+           (48, 128, 1), (64, 16, 24), (64, 32, 10), (64, 64, 3),
+           (96, 32, 14), (128, 16, 4), (128, 32, 4), (192, 16, 8)]
+SB_K1DX = [(8, 8, 128, 1, 5), (8, 8, 128, 2, 5), (8, 16, 128, 1, 1),
+           (8, 16, 128, 2, 1), (8, 24, 128, 1, 2), (8, 24, 128, 2, 1),
+           (16, 8, 128, 1, 4), (16, 8, 128, 2, 4), (16, 16, 64, 1, 10),
+           (16, 16, 64, 2, 10), (16, 32, 64, 1, 2), (16, 32, 64, 2, 2),
+           (16, 48, 64, 1, 2), (16, 48, 64, 2, 1), (24, 8, 128, 1, 7),
+           (24, 8, 128, 2, 3), (32, 16, 64, 1, 8), (32, 16, 64, 2, 8),
+           (32, 32, 32, 1, 10), (32, 32, 32, 2, 10), (32, 64, 32, 1, 2),
+           (32, 64, 32, 2, 2), (32, 96, 32, 1, 2), (32, 96, 32, 2, 1),
+           (48, 16, 64, 1, 8), (48, 16, 64, 2, 4), (64, 32, 32, 1, 8),
+           (64, 32, 32, 2, 8), (64, 64, 16, 1, 5), (64, 64, 16, 2, 5),
+           (64, 128, 16, 1, 1), (64, 128, 16, 2, 1), (96, 32, 32, 1, 8),
+           (96, 32, 32, 2, 4), (128, 64, 16, 1, 4), (128, 64, 16, 2, 4)]
+SB_K5A = [(8, 128, 38), (16, 64, 77), (16, 128, 3), (24, 128, 7),
+          (32, 32, 77), (32, 64, 5), (32, 128, 2), (48, 64, 23), (48, 128, 1),
+          (64, 16, 39), (64, 32, 5), (64, 64, 5), (96, 32, 23), (128, 16, 2),
+          (128, 32, 5), (192, 16, 16)]
+SB_K5B = [(8, 128, 41), (16, 64, 86), (16, 128, 11), (24, 128, 14),
+          (32, 32, 89), (32, 64, 20), (32, 128, 6), (48, 64, 28),
+          (48, 128, 3), (64, 16, 48), (64, 32, 20), (64, 64, 7), (96, 32, 30),
+          (128, 16, 8), (128, 32, 8), (192, 16, 16)]
+SU_K1 = [(*r[:-1], r[-1] * 3 // 2) for r in S_K1]
+SU_K2 = [(*r[:-1], r[-1] * 3 // 2) for r in S_K2]
+SB_K1 = [(*r[:-1], r[-1] * 3 // 2) for r in SPC_K1]
+SB_K2 = [(*r[:-1], r[-1] * 3 // 2) for r in SPC_K2]
+SU_TABLES = [("conv3x3x3_stats", SU_K1), ("conv3x3x3", SU_K1DX),
+             ("gemm_stats", SU_K2), ("moments", SU_K5A),
+             ("weighted_sums", SU_K5B)]
+SPC_TABLES = [("conv3x3x3_stats", SPC_K1), ("conv3x3x3", SPC_K1DX),
+              ("gemm_stats", SPC_K2), ("moments", SPC_K5A),
+              ("weighted_sums", SPC_K5B)]
+SB_TABLES = [("conv3x3x3_stats", SB_K1), ("conv3x3x3", SB_K1DX),
+             ("gemm_stats", SB_K2), ("moments", SB_K5A),
+             ("weighted_sums", SB_K5B)]
+SU_STEPS, SPC_STEPS, SB_STEPS = 2, 3, 1    # timed, after one noted step
 # phase "cli"'s search: 2 steps an epoch, 1 warmup epoch (run 1), then
 # resumed for 1 bilevel epoch with 1 eval batch (run 2)
 CLI_SEARCH = ["search.steps_per_epoch=2", "search.warmup_epochs=1",
@@ -381,6 +493,20 @@ GRAD_COS = 0.95              # per leaf cosine of g_k and g_t: 0.978 / 0.908
 P_GRAD_REL_L2 = 0.35
 P_GRAD_REL_L2_MEDIAN = 0.08
 P_GRAD_COS = 0.95
+GRAD_LIMITS = (GRAD_REL_L2, GRAD_REL_L2_MEDIAN, GRAD_COS)
+P_GRAD_LIMITS = (P_GRAD_REL_L2, P_GRAD_REL_L2_MEDIAN, P_GRAD_COS)
+# The search's α gradients (grad_parity.py --search, H100, seeds 0-3 and
+# planted α faults), see PERF.md: a first-order step of the shipped
+# supernet (ALPHA_) and of its pc_k 2 twin (PC_ALPHA_), and the
+# second-order step of either at PARITY_XI (UNROLLED_ALPHA_).  PARITY_XI
+# is 100× search.w_lr: the second-order term is then ~3/4 of the α
+# gradient, where at ξ = w_lr (2 %) bf16 rounding hides it.
+# Each is (rel. L2 max, its median, cosine min), between the sound worst
+# and the planted faults' nearest; PERF.md §6 has the readings.
+ALPHA_LIMITS = (0.02, 0.015, 0.9998)
+PC_ALPHA_LIMITS = (0.1, 0.012, 0.995)
+UNROLLED_ALPHA_LIMITS = (0.15, 0.06, 0.99)
+PARITY_XI = 0.03
 N_PATIENTS = 3               # timed patients, after one warm-up patient
 SHAPE = (160, 192, 152)      # a cropped BraTS volume, as bench.py serves
 PATCH, OVERLAP, PATCH_BATCH = (128, 128, 128), 0.5, 2
@@ -1342,12 +1468,12 @@ def synthetic_batch(dev, seed):
     return x, torch.stack([wt, wt, wt], dim=-1)
 
 
-def leaf_stats(names, kernel, twin, use_pallas=False):
+def leaf_stats(names, kernel, twin, limits=None):
     """Gradients of the kernel path against the twin path, leaf by leaf:
     the relative L2 distance ‖g_k − g_t‖ / ‖g_t‖ (its largest and its
     median), the cosine, and the relative difference of the norms.  `ok`
-    holds all but the last to their limits (the use_pallas
-    configuration's own with use_pallas)."""
+    holds all but the last to `limits` (rel. L2, its median, cosine;
+    default the derived net's weight limits)."""
     rel, cos, norm_rel = [], [], []
     for gk, gt in zip(kernel, twin):
         gk, gt = gk.double(), gt.double()
@@ -1358,9 +1484,7 @@ def leaf_stats(names, kernel, twin, use_pallas=False):
         norm_rel.append(abs(nk - nt) / max(nt, 1e-30))
     worst, least = int(np.argmax(rel)), int(np.argmin(cos))
     vals = rel + cos + norm_rel
-    lim_rel, lim_med, lim_cos = (
-        (P_GRAD_REL_L2, P_GRAD_REL_L2_MEDIAN, P_GRAD_COS) if use_pallas
-        else (GRAD_REL_L2, GRAD_REL_L2_MEDIAN, GRAD_COS))
+    lim_rel, lim_med, lim_cos = limits or GRAD_LIMITS
     return {"leaves": len(rel), "grad_rel_l2_max": rel[worst],
             "rel_l2_worst_leaf": names[worst],
             "grad_rel_l2_median": float(np.median(rel)),
@@ -1388,7 +1512,7 @@ def grad_parity(net, x, y, kernel_ctx=None, use_pallas=False):
     net.zero_grad(set_to_none=True)
     return {"loss_kernel": out["kernel"][0], "loss_twin": out["twin"][0],
             **leaf_stats(names, out["kernel"][1], out["twin"][1],
-                         use_pallas)}
+                         P_GRAD_LIMITS if use_pallas else GRAD_LIMITS)}
 
 
 def phase_train(dev, seed, use_pallas=False):
@@ -1449,32 +1573,38 @@ def phase_train(dev, seed, use_pallas=False):
     return launches, rec
 
 
+def check_step_kernels(phase, dev, gen, summary, groups):
+    """Each kernel of a search step at every geometry of its table
+    (`groups`: (kernel, rows) as `_table` takes them), bf16, batch 1,
+    against its twin; per_unit = launches per step, summed in `summary`."""
+    bf16 = torch.bfloat16
+    for name, rows in groups:
+        for *geom, n in rows:
+            if name.startswith("conv3x3x3"):
+                _run_check(phase, f"{name}_bf16", check_conv, summary, n,
+                           dev, gen, *geom, SEARCH_BATCH, bf16,
+                           name == "conv3x3x3_stats")
+            elif name == "gemm_stats":
+                _run_check(phase, f"{name}_bf16", check_gemm, summary, n,
+                           dev, gen, *geom, SEARCH_BATCH, bf16)
+            else:
+                _run_check(phase, f"{name}_bf16", check_stats, summary, n,
+                           dev, gen, name, *geom, SEARCH_BATCH, bf16)
+    return {f"{name}_bf16": summary.entry(f"{name}_bf16")
+            for name, rows in groups if rows}
+
+
 def phase_search_kernels(dev, gen, summary):
     """The search's kernels at every geometry one full-width bilevel step
     hands them (bf16, batch 1); per_unit = launches per bilevel step, summed
     in `summary` (the search's own: the kernels line keeps the other
     paths')."""
     t0 = time.perf_counter()
-    bf16 = torch.bfloat16
-    for cin, cout, v, dil, n in S_K1:
-        _run_check("search_kernel", "conv3x3x3_stats_bf16", check_conv,
-                   summary, n, dev, gen, cin, cout, v, dil, SEARCH_BATCH,
-                   bf16, True)
-    for cin, cout, v, dil, n in S_K1DX:
-        _run_check("search_kernel", "conv3x3x3_bf16", check_conv, summary, n,
-                   dev, gen, cin, cout, v, dil, SEARCH_BATCH, bf16, False)
-    for k, nn, v, n in S_K2:
-        _run_check("search_kernel", "gemm_stats_bf16", check_gemm, summary,
-                   n, dev, gen, k, nn, v, SEARCH_BATCH, bf16)
-    for name, rows in (("moments", S_K5A), ("weighted_sums", S_K5B)):
-        for c, v, n in rows:
-            _run_check("search_kernel", f"{name}_bf16", check_stats, summary,
-                       n, dev, gen, name, c, v, SEARCH_BATCH, bf16)
+    per_step = check_step_kernels("search_kernel", dev, gen, summary,
+                                  S_TABLES)
     seconds = time.perf_counter() - t0
-    emit({"phase": "search_kernels", "seconds": seconds, "per_step": {
-        n: summary.entry(n) for n in
-        ("conv3x3x3_stats_bf16", "conv3x3x3_bf16", "gemm_stats_bf16",
-         "moments_bf16", "weighted_sums_bf16")}})
+    emit({"phase": "search_kernels", "seconds": seconds,
+          "per_step": per_step})
     return seconds
 
 
@@ -1539,7 +1669,8 @@ class _Recorder:
         self.grads = [g.detach().clone() for g in grads]
 
 
-def search_grad_parity(net, alphas, batches, kernel_ctx):
+def search_grad_parity(net, alphas, batches, kernel_ctx,
+                       alpha_limits=ALPHA_LIMITS):
     """One bilevel step's α gradients (the α-step's) and w gradients (the
     w-step's) on the kernel path (inside `kernel_ctx`) and on the twin
     path, no update in between (`_Recorder`), leaf by leaf."""
@@ -1555,7 +1686,7 @@ def search_grad_parity(net, alphas, batches, kernel_ctx):
     net.zero_grad(set_to_none=True)
     (mk, wk, ak), (mt, wt, at) = out["kernel"], out["twin"]
     rec = {"losses_kernel": mk, "losses_twin": mt,
-           "alpha": leaf_stats(list(alphas), ak, at),
+           "alpha": leaf_stats(list(alphas), ak, at, alpha_limits),
            "w": leaf_stats([n for n, _ in net.named_parameters()], wk, wt)}
     rec["ok"] = rec["alpha"]["ok"] and rec["w"]["ok"]
     return rec
@@ -1582,9 +1713,7 @@ def phase_search(dev, seed):
     # one step's gradients, kernel path (noting the shapes) then twin path
     seen = collections.Counter()
     rec = search_grad_parity(net, alphas, batches, noting_kernels(seen))
-    tables = _table(("conv3x3x3_stats", S_K1), ("conv3x3x3", S_K1DX),
-                    ("gemm_stats", S_K2), ("moments", S_K5A),
-                    ("weighted_sums", S_K5B))
+    tables = _table(*S_TABLES)
     emit({"phase": "search_parity", **rec,
           "geometries_match_search_kernels": seen == tables})
     if not rec["ok"]:
@@ -1673,6 +1802,192 @@ def phase_search(dev, seed):
     if not derived_ok:
         raise AssertionError("the searched genotype's net gave bad logits")
     return rec
+
+
+def unrolled_parity(net, alphas, batches, kernel_ctx=None, xi=PARITY_XI):
+    """The second-order α-step's val loss and α gradients (at ξ = `xi`) on
+    the kernel path (inside `kernel_ctx`) and on the twin path, leaf by
+    leaf (UNROLLED_ALPHA_LIMITS), and the second-order term's share,
+    ‖g − g₁‖ / ‖g₁‖ on the kernel path, g₁ the first-order α gradient of
+    the same val batch."""
+    from nas_3d_unet_tpu_torch.metrics.losses import dice_ce_loss
+    from nas_3d_unet_tpu_torch.models.unet import arch_weights_from_alphas
+    from nas_3d_unet_tpu_torch.search.bilevel import unrolled_alpha_grads
+
+    a_params = list(alphas.values())
+    out = {}
+    for path, ctx in (("kernel", kernel_ctx or contextlib.nullcontext()),
+                      ("twin", twin_path())):
+        with ctx:
+            loss, grads = unrolled_alpha_grads(net, alphas, a_params, xi,
+                                               *batches, dice_ce_loss)
+        out[path] = (loss.item(), [g.double() for g in grads])
+    first = torch.autograd.grad(
+        dice_ce_loss(net(batches[2], arch_weights_from_alphas(alphas)),
+                     batches[3]), a_params)
+    net.zero_grad(set_to_none=True)
+    g = torch.cat([t.flatten() for t in out["kernel"][1]])
+    g1 = torch.cat([t.double().flatten() for t in first])
+    rec = {"loss_kernel": out["kernel"][0], "loss_twin": out["twin"][0],
+           "second_order_share": ((g - g1).norm() / g1.norm()).item(),
+           "alpha": leaf_stats(list(alphas), out["kernel"][1],
+                               out["twin"][1], UNROLLED_ALPHA_LIMITS)}
+    rec["ok"] = rec["alpha"]["ok"] and math.isfinite(rec["loss_kernel"])
+    return rec
+
+
+def search_inputs(dev, seed, pc_k=1):
+    """The shipped supernet (`search_supernet`, rebuilt with `pc_k` as the
+    Searcher does, its weights drawn again from `seed`) and its α on the
+    card, the batches (patch 0 trains, patch 1 is the val batch) and the
+    config."""
+    from nas_3d_unet_tpu_torch import bridge
+
+    net, alphas, cfg = search_supernet(seed)
+    if pc_k > 1:
+        net = net.clone(pc_k=pc_k)
+        bridge.load_flax_params(net, bridge.random_flax_params(net, seed))
+    x, y = synthetic_batch(dev, seed)
+    return (net.to(dev), {k: v.to(dev).requires_grad_()
+                          for k, v in alphas.items()},
+            (x[:1], y[:1], x[1:], y[1:]), cfg)
+
+
+def timed_search_steps(phase, dev, seed, net, alphas, cfg, batches,
+                       make_step, groups, steps, **extra):
+    """One step noted (`noting_kernels`: the geometries it hands the
+    kernels against `groups`, the tables the phase checked), then `steps`
+    timed ones from fresh AdamW states: s a step, patches/s, finite losses,
+    peak memory (over all of them), α moved, launches equal to the tables'
+    per step × steps, the genotype the α decodes.  `make_step(w_opt,
+    a_opt, gen)` builds the step."""
+    from nas_3d_unet_tpu_torch.models.genotype import parse_alphas
+    from nas_3d_unet_tpu_torch.ops import _cuda
+    from nas_3d_unet_tpu_torch.train.optim import make_optimizer
+
+    sc = cfg.search
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    step = make_step(
+        make_optimizer(net.parameters(), sc.w_lr, sc.w_weight_decay),
+        make_optimizer(alphas.values(), sc.alpha_lr, sc.alpha_weight_decay),
+        gen)
+    tables = _table(*groups)
+    per_step = {f"{k}_bf16": sum(r[-1] for r in rows) for k, rows in groups}
+    seen = collections.Counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with noting_kernels(seen):
+        noted = {k: v.item() for k, v in step(*batches).items()}
+    a0 = {k: v.detach().clone() for k, v in alphas.items()}
+    _cuda.LAUNCHES.clear()
+    torch.cuda.synchronize()
+    steps_s, losses = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        m = step(*batches)
+        torch.cuda.synchronize()
+        steps_s.append(time.perf_counter() - t0)
+        losses.append({k: v.item() for k, v in m.items()})
+    launches = dict(_cuda.LAUNCHES)
+    expected = {k: n * steps for k, n in per_step.items()}
+    alpha_moved = any(not torch.equal(alphas[k], a0[k]) for k in alphas)
+    genotype = parse_alphas({k: v.detach().cpu().numpy()
+                             for k, v in alphas.items()}, cfg.model.n_nodes)
+    step_s = float(np.mean(steps_s))
+    rec = {"phase": phase, "patch": TRAIN_PATCH, "batch": SEARCH_BATCH,
+           "dtype": cfg.model.dtype,
+           "params": sum(p.numel() for p in net.parameters()), **extra,
+           "noted_step_losses": noted, "step_s_each": steps_s,
+           "step_s": step_s, "patches_per_s": SEARCH_BATCH / step_s,
+           "losses": losses,
+           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+           "alpha_moved": alpha_moved, "launches_per_step": per_step,
+           "launches": launches, "expected_launches": expected,
+           "geometries_match_tables": seen == tables,
+           "genotype": json.loads(genotype.to_json())}
+    emit(rec)
+    values = list(noted.values()) + [v for m in losses for v in m.values()]
+    if not all(map(math.isfinite, values)):
+        raise AssertionError(f"{phase}: non-finite search loss {values}")
+    if seen != tables:
+        raise AssertionError(f"{phase}: the step's kernel shapes {dict(seen)}"
+                             " are not the geometries its phase checked")
+    if launches != expected or not alpha_moved:
+        raise AssertionError(f"{phase}: launches {launches} != {expected}, "
+                             f"α moved {alpha_moved}")
+    genotype.validate()
+    return rec
+
+
+def _parity_check(phase, rec, **extra):
+    emit({"phase": phase, **extra, **rec})
+    if not rec["ok"]:
+        raise AssertionError(f"{phase}: the kernel-path gradients disagree "
+                             "with the twin path")
+
+
+def phase_search_unrolled(dev, gen, seed):
+    """The second-order step (`search.unrolled`) on the shipped supernet:
+    its kernels at every geometry it hands them (SU_ tables), its α
+    gradient on the kernel path against the twin path, then one noted and
+    SU_STEPS timed steps, all at 128^3."""
+    from nas_3d_unet_tpu_torch.search.bilevel import \
+        make_search_step_unrolled
+
+    t_phase = time.perf_counter()
+    per_step = check_step_kernels("search_unrolled_kernel", dev, gen,
+                                  Summary(), SU_TABLES)
+    emit({"phase": "search_unrolled_kernels", "per_step": per_step,
+          "seconds": time.perf_counter() - t_phase})
+    net, alphas, batches, cfg = search_inputs(dev, seed)
+    xi = cfg.search.xi or cfg.search.w_lr
+    _parity_check("search_unrolled_parity",
+                  unrolled_parity(net, alphas, batches), xi=PARITY_XI)
+    rec = timed_search_steps(
+        "search_unrolled", dev, seed, net, alphas, cfg, batches,
+        lambda w_opt, a_opt, g: make_search_step_unrolled(
+            net, w_opt, a_opt, alphas, xi, AUGMENT, gen=g),
+        SU_TABLES, SU_STEPS, xi=xi)
+    return rec, time.perf_counter() - t_phase
+
+
+def phase_search_pc(dev, gen, seed):
+    """PC-DARTS (`search.partial_channels` 2) on the shipped supernet: its
+    kernels at every geometry a first-order step (SPC_) and an unrolled
+    step (SB_) hand them; one first-order step's α and w gradients and the
+    unrolled α gradient on the kernel path against the twin path; then
+    one noted and SPC_STEPS timed first-order steps, and one noted and
+    SB_STEPS timed unrolled steps, all at 128^3."""
+    from nas_3d_unet_tpu_torch.search.bilevel import (
+        make_search_step, make_search_step_unrolled)
+
+    t_phase = time.perf_counter()
+    per_step = check_step_kernels("search_pc_kernel", dev, gen, Summary(),
+                                  SPC_TABLES)
+    per_step_both = check_step_kernels("search_pc_kernel", dev, gen,
+                                       Summary(), SB_TABLES)
+    emit({"phase": "search_pc_kernels", "per_step": per_step,
+          "per_unrolled_step": per_step_both,
+          "seconds": time.perf_counter() - t_phase})
+    net, alphas, batches, cfg = search_inputs(dev, seed, pc_k=2)
+    xi = cfg.search.xi or cfg.search.w_lr
+    _parity_check("search_pc_parity", search_grad_parity(
+        net, alphas, batches, contextlib.nullcontext(), PC_ALPHA_LIMITS),
+        pc_k=2)
+    _parity_check("search_pc_unrolled_parity",
+                  unrolled_parity(net, alphas, batches), pc_k=2,
+                  xi=PARITY_XI)
+    pc = timed_search_steps(
+        "search_pc", dev, seed, net, alphas, cfg, batches,
+        lambda w_opt, a_opt, g: make_search_step(net, w_opt, a_opt, alphas,
+                                                 AUGMENT, gen=g),
+        SPC_TABLES, SPC_STEPS, pc_k=2)
+    both = timed_search_steps(
+        "search_pc_unrolled", dev, seed, net, alphas, cfg, batches,
+        lambda w_opt, a_opt, g: make_search_step_unrolled(
+            net, w_opt, a_opt, alphas, xi, AUGMENT, gen=g),
+        SB_TABLES, SB_STEPS, pc_k=2, xi=xi)
+    return pc, both, time.perf_counter() - t_phase
 
 
 def write_raw_patients(raw_dir, seed):
@@ -2504,6 +2819,8 @@ def main() -> int:
         cli = phase_cli(dev, args.seed, s_per_patient, train)
         search_kernels_s = phase_search_kernels(dev, gen, Summary())
         search = phase_search(dev, args.seed)
+        unrolled, unrolled_s = phase_search_unrolled(dev, gen, args.seed)
+        pc, both, pc_s = phase_search_pc(dev, gen, args.seed)
         phase_pallas_kernels(dev, gen, summary)
         p_serve_launches, p_s_per_patient = phase_slice(dev, args.seed, True)
         p_train_launches, p_train = phase_train(dev, args.seed, True)
@@ -2526,6 +2843,12 @@ def main() -> int:
           "search_kernels_s": search_kernels_s,
           "search_s": search["seconds"],
           "search_launches_per_step": search["launches_per_bilevel_step"],
+          **{f"{name}_{key}": rec[key] for name, rec in (
+              ("search_unrolled", unrolled), ("search_pc", pc),
+              ("search_pc_unrolled", both))
+             for key in ("step_s", "patches_per_s", "peak_mem_gb",
+                         "launches_per_step")},
+          "search_unrolled_s": unrolled_s, "search_pc_s": pc_s,
           "script_s": time.perf_counter() - t_script,
           "card": smi, "build_s": build_s})
     # each kernel's launches in the run of its path: the default path's

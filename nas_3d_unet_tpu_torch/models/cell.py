@@ -17,7 +17,13 @@ w·0), which in bf16 is the rounding order.  Two equivalent forms:
     the terms accumulate in op order;
   * merge_ops=False (`MixedOp`): the literal per-edge chain, the oracle.
 The nodes accumulate in the reference's order: in0, in1, then the earlier
-nodes (down cell); below, skip, then the earlier nodes (up cell).  The
+nodes (down cell); below, skip, then the earlier nodes (up cell).
+Partial channels (PC-DARTS, `pc_k` > 1, search only): each edge runs its
+candidates on the first C/pc_k channels of its source, at that width
+(GroupNorm groups as `_gn_groups_for` gives them there); the other
+channels bypass (a stride-2 max pool on down edges, the trilinear 2×
+upsample on up edges), are concatenated after the candidates' sum and
+channel-shuffled (`_pc_shuffle`).  The
 reference's per-edge and per-source remat is not ported (`ROADMAP.md`
 queue 1, item 10).
 
@@ -50,6 +56,7 @@ from typing import Dict, List, Sequence, Tuple
 import torch
 from torch import nn
 
+from ..ops import pool
 from ..ops.primitives import (DOWN_OPS, NORMAL_OPS, UP_OPS, ConvNormAct,
                               _gn_groups_for, make_op)
 from .genotype import mid_index
@@ -189,37 +196,82 @@ def _weighted(w: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return w.to(y.dtype) * y
 
 
+# ---------------------------------------------------------------------------
+# Partial channels (PC-DARTS, the reference's `cell.py:70-143`), search only.
+# With pc_k = K > 1 an edge sends the first C/K channels of its input
+# through the candidate ops; the other (K−1)/K bypass them, matched to the
+# output's resolution, and a channel shuffle remixes the two so the next
+# edge samples other channels.  K = 1 is full DARTS.
+# ---------------------------------------------------------------------------
+
+
+def _pc_shuffle(t: torch.Tensor, k: int) -> torch.Tensor:
+    """The channel shuffle over k groups, out[i·k+g] = in[g·(C/k)+i]: the
+    reference's unpacked reshape-transpose, as an explicit copy (the port
+    has no packed layout whose metadata could permute instead)."""
+    *lead, c = t.shape
+    return t.reshape(*lead, k, c // k).transpose(-2, -1).reshape(*lead, c)
+
+
+def _pc_bypass(xb: torch.Tensor, op_names: Sequence[str]) -> torch.Tensor:
+    """The bypassed channels at the candidates' output resolution: a
+    stride-2 max pool on down edges (the reference's `Pool("max", 2)`),
+    the trilinear 2× upsample on up edges, as they are on normal edges."""
+    if any(n.startswith("down_") for n in op_names):
+        return pool.max_pool3(xb, 2)
+    if any(n.startswith("up_") for n in op_names):
+        return pool.upsample2x(xb)
+    return xb
+
+
+def _pc_split(x: torch.Tensor, cp: int):
+    """(the active first cp channels, the bypassed rest)."""
+    return x[..., :cp], x[..., cp:]
+
+
 class MixedOp(_Named):
     """One supernet edge, literally: Σ_o w_o · op_o(x) over `op_names`, a
-    chain of multiply-adds in registry order."""
+    chain of multiply-adds in registry order; with `pc_k` > 1 on the first
+    C/pc_k channels, the rest bypassed and shuffled back in."""
 
     def __init__(self, features: int, op_names: Sequence[str],
                  norm: str = "group", gn_groups: int = 8,
-                 use_pallas: bool = False):
+                 use_pallas: bool = False, pc_k: int = 1):
         super().__init__()
-        self.ops = [self._add(make_op(name, features, features, gn_groups,
-                                      use_pallas, norm))
+        self.op_names, self.pc_k = tuple(op_names), pc_k
+        self.cp = cp = features // pc_k
+        self.ops = [self._add(make_op(name, cp, cp, gn_groups, use_pallas,
+                                      norm))
                     for name in op_names]
 
     def forward(self, x: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
         """weights: the edge's softmax(α) row (n_ops,)."""
+        if self.pc_k > 1:
+            x, xb = _pc_split(x, self.cp)
+            xb = _pc_bypass(xb, self.op_names)
         acc = None
         for o, name in enumerate(self.ops):
             term = _weighted(weights[o], getattr(self, name)(x))
             acc = term if acc is None else acc + term
+        if self.pc_k > 1:
+            return _pc_shuffle(torch.cat([acc, xb], dim=-1), self.pc_k)
         return acc
 
 
 class _SourceOps(_Named):
     """Every outgoing supernet edge of one source state, source-major: the
-    same sums as one `MixedOp` per edge (see the module docstring)."""
+    same sums as one `MixedOp` per edge (see the module docstring).  With
+    `pc_k` > 1 the ops run at C/pc_k channels and the bypass is computed
+    once for every edge."""
 
     def __init__(self, op_names: Sequence[str], features: int, n_edges: int,
                  norm: str = "group", gn_groups: int = 8,
-                 use_pallas: bool = False):
+                 use_pallas: bool = False, pc_k: int = 1):
         super().__init__()
-        c, k = features, n_edges
-        self.features, self.n_edges = c, k
+        k = n_edges
+        cp = features // pc_k
+        self.op_names, self.pc_k = tuple(op_names), pc_k
+        self.cp, self.n_edges = cp, k
         # (op index, "shared" | "wide" | "edges", child name(s))
         self.plan: List[tuple] = []
         for o, name in enumerate(op_names):
@@ -227,21 +279,24 @@ class _SourceOps(_Named):
                 continue
             if name in _NONPARAM:
                 self.plan.append((o, "shared", self._add(
-                    make_op(name, c, c, gn_groups, use_pallas, norm))))
+                    make_op(name, cp, cp, gn_groups, use_pallas, norm))))
             elif name in _MERGEABLE:
-                g_eff = _wide_groups(c, gn_groups, norm)
+                g_eff = _wide_groups(cp, gn_groups, norm)
                 self.plan.append((o, "wide", self._add(
-                    make_op(name, c, k * c, k * g_eff, use_pallas, norm))))
+                    make_op(name, cp, k * cp, k * g_eff, use_pallas, norm))))
             else:   # per-edge parameters (separable convs)
                 self.plan.append((o, "edges", [
-                    self._add(make_op(name, c, c, gn_groups, use_pallas,
+                    self._add(make_op(name, cp, cp, gn_groups, use_pallas,
                                       norm)) for _ in range(k)]))
 
     def forward(self, x: torch.Tensor,
                 weights: torch.Tensor) -> List[torch.Tensor]:
         """weights: (k, n_ops) softmax(α) rows, one per outgoing edge.
         Returns the k edge contributions, in edge order."""
-        c, k = self.features, self.n_edges
+        c, k = self.cp, self.n_edges
+        if self.pc_k > 1:
+            x, xb = _pc_split(x, c)
+            xb = _pc_bypass(xb, self.op_names)    # once, for every edge
         outs: List[torch.Tensor | None] = [None] * k
 
         def acc(e: int, term: torch.Tensor) -> None:
@@ -260,6 +315,9 @@ class _SourceOps(_Named):
             else:
                 for e, name in enumerate(names):
                     acc(e, _weighted(weights[e, o], getattr(self, name)(x)))
+        if self.pc_k > 1:
+            outs = [_pc_shuffle(torch.cat([t, xb], dim=-1), self.pc_k)
+                    for t in outs]
         return outs
 
 
@@ -276,7 +334,7 @@ class _SuperCell(_Named):
                  pre_strides: Tuple[int, int], features: int, n_nodes: int,
                  in_srcs: Tuple[str, str], in_ops: Tuple[Sequence[str], ...],
                  norm: str, gn_groups: int, merge_ops: bool,
-                 use_pallas: bool):
+                 use_pallas: bool, pc_k: int):
         super().__init__()
         self.n_nodes, self.merge_ops = n_nodes, merge_ops
         self.in_srcs = in_srcs
@@ -284,7 +342,8 @@ class _SuperCell(_Named):
                                           use_pallas, pallas_conv=False,
                                           norm=norm))
                     for ci, s in zip(in_channels, pre_strides)]
-        op_kw = dict(norm=norm, gn_groups=gn_groups, use_pallas=use_pallas)
+        op_kw = dict(norm=norm, gn_groups=gn_groups, use_pallas=use_pallas,
+                     pc_k=pc_k)
         n = n_nodes
         if merge_ops:
             for src, ops in zip(in_srcs, in_ops):
@@ -347,10 +406,10 @@ class SuperDownCell(_SuperCell):
     def __init__(self, c_pp: int, c_p: int, features: int, n_nodes: int,
                  norm: str = "group", gn_groups: int = 8,
                  merge_ops: bool = True, s0_stride: int = 1,
-                 use_pallas: bool = False):
+                 use_pallas: bool = False, pc_k: int = 1):
         super().__init__((c_pp, c_p), (s0_stride, 1), features, n_nodes,
                          ("in0", "in1"), (DOWN_OPS, DOWN_OPS), norm,
-                         gn_groups, merge_ops, use_pallas)
+                         gn_groups, merge_ops, use_pallas, pc_k)
 
     def forward(self, s0: torch.Tensor, s1: torch.Tensor, w_in: torch.Tensor,
                 w_mid: torch.Tensor) -> torch.Tensor:
@@ -365,10 +424,11 @@ class SuperUpCell(_SuperCell):
 
     def __init__(self, c_skip: int, c_below: int, features: int,
                  n_nodes: int, norm: str = "group", gn_groups: int = 8,
-                 merge_ops: bool = True, use_pallas: bool = False):
+                 merge_ops: bool = True, use_pallas: bool = False,
+                 pc_k: int = 1):
         super().__init__((c_skip, c_below), (1, 1), features, n_nodes,
                          ("below", "skip"), (UP_OPS, NORMAL_OPS), norm,
-                         gn_groups, merge_ops, use_pallas)
+                         gn_groups, merge_ops, use_pallas, pc_k)
 
     def forward(self, skip: torch.Tensor, below: torch.Tensor,
                 w_skip: torch.Tensor, w_below: torch.Tensor,

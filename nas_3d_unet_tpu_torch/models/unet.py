@@ -123,15 +123,25 @@ class DerivedNet(_UNet):
 
 class SuperNet(_UNet):
     """The DARTS supernet: every edge holds every candidate op of its set,
-    weighted by softmax(α)."""
+    weighted by softmax(α).  `pc_k` > 1: partial channels (PC-DARTS,
+    `models/cell.py`), C/pc_k channels of each edge through its candidate
+    ops; it must divide `base_channels` (`unet.py:131-134`)."""
 
     def __init__(self, in_channels: int = 4, num_classes: int = 3,
                  base_channels: int = 16, depth: int = 3, n_nodes: int = 3,
                  gn_groups: int = 8, merge_ops: bool = True,
                  dtype: str = "float32", use_pallas: bool = False,
-                 norm: str = "group"):
+                 norm: str = "group", pc_k: int = 1):
+        if pc_k > 1 and base_channels % pc_k:
+            raise ValueError(f"partial_channels={pc_k} must divide "
+                             f"base_channels={base_channels}")
+        settings = dict(in_channels=in_channels, num_classes=num_classes,
+                        base_channels=base_channels, depth=depth,
+                        n_nodes=n_nodes, gn_groups=gn_groups,
+                        merge_ops=merge_ops, dtype=dtype,
+                        use_pallas=use_pallas, norm=norm, pc_k=pc_k)
         kw = dict(norm=norm, gn_groups=gn_groups, merge_ops=merge_ops,
-                  use_pallas=use_pallas)
+                  use_pallas=use_pallas, pc_k=pc_k)
         super().__init__(
             "Super",
             lambda c_pp, c_p, c, s: SuperDownCell(c_pp, c_p, c, n_nodes,
@@ -140,6 +150,12 @@ class SuperNet(_UNet):
                                                    n_nodes, **kw),
             in_channels, num_classes, base_channels, depth, n_nodes,
             gn_groups, norm, dtype, use_pallas)
+        self.settings = settings
+
+    def clone(self, **overrides) -> "SuperNet":
+        """A new supernet with this one's settings but `overrides` (flax's
+        `Module.clone`), its parameters fresh."""
+        return SuperNet(**{**self.settings, **overrides})
 
     def forward(self, x: torch.Tensor,
                 arch_weights: Mapping[str, torch.Tensor]) -> torch.Tensor:
@@ -158,7 +174,8 @@ def arch_weights_from_alphas(
 
 def make_supernet(model_cfg, num_classes: int) -> SuperNet:
     """The supernet of a `ModelConfig` (`utils/config.py`).  `packed` has
-    no effect."""
+    no effect; the `Searcher` rebuilds it with `search.partial_channels`
+    (`SuperNet.clone`)."""
     return SuperNet(in_channels=model_cfg.in_channels,
                     num_classes=num_classes,
                     base_channels=model_cfg.base_channels,

@@ -18,6 +18,16 @@ dtype.  The ReLU mask is recomputed from the affine, so y is not kept.  The
 moments' gradients are zero by contract (`packed.py:888-891`): the
 backward through dy is already complete.
 
+That backward is exact to first order although mean and inv are saved as
+constants: the formula folds their share into c1 and c2 by hand.  A
+second derivative (the second-order search step, which runs the backward
+with `create_graph`) also needs dx's dependence on x through them, so
+with grad mode on the backward rebuilds mean and inv from x through K5a's
+autograd Function and writes dx from differentiable ops
+(`_differentiable_backward`); the ReLU mask is the forward's.  Without a
+graph the backward is the first-order one above, launch for launch and
+bit for bit.
+
 `pallas_group_norm` is the `use_pallas` path's GroupNorm (K3), the
 counterpart of `nas_3d_unet_tpu/ops/pallas/groupnorm.py` `group_norm`
 (:184): forward Σx, Σx² (K5a, or the producer's moments), the fold, and
@@ -37,6 +47,7 @@ from __future__ import annotations
 import torch
 
 from . import _cuda, stats
+from .stats import _bcast
 
 EPS = 1e-6
 
@@ -84,7 +95,7 @@ class _GroupNorm(torch.autograd.Function):
         if relu:
             y = y.relu_()
         ctx.save_for_backward(x, scale, bias, mean, inv)
-        ctx.gsize, ctx.n, ctx.relu = gsize, n, relu
+        ctx.gsize, ctx.n, ctx.relu, ctx.eps = gsize, n, relu, eps
         return y
 
     @staticmethod
@@ -94,24 +105,56 @@ class _GroupNorm(torch.autograd.Function):
         bsz = x.shape[0]
         dy = dy.contiguous()
         if ctx.relu:
-            a0, b0 = _affine(x, mean, inv, scale, bias, gsize)
-            dy = torch.where(_normalize(x, a0, b0) > 0, dy, 0)
+            with torch.no_grad():   # the forward's mask, from its statistics
+                a0, b0 = _affine(x, mean, inv, scale, bias, gsize)
+                keep = _normalize(x, a0, b0) > 0
+            dy = torch.where(keep, dy, 0)
+        if torch.is_grad_enabled():     # create_graph: dx is differentiated
+            return (*_differentiable_backward(dy, x, scale, gsize, n,
+                                              ctx.eps),
+                    None, None, None, None, None)
         r1, r2 = stats.weighted_sums(dy, x)                  # K5b, (B, C)
-        t1 = (scale * r1).view(bsz, -1, gsize).sum(-1)       # Σ γ·dy
-        t2 = (scale * r2).view(bsz, -1, gsize).sum(-1)       # Σ γ·dy·x
-        s_tx = inv * (t2 - mean * t1)                        # Σ γ·dy·x̂
-        c2 = -(inv * inv) * s_tx / n
-        c1 = -inv * t1 / n - c2 * mean
+        c1, c2, inv_c, dgamma = _dx_terms(r1, r2, scale, mean, inv, gsize,
+                                          n)
         shape = (bsz,) + (1,) * (x.dim() - 2) + (x.shape[-1],)
-        inv_c, mean_c = _by_channel(inv, gsize), _by_channel(mean, gsize)
-        a = (inv_c * scale).view(shape)
         # one pass in fp32, rounded once: dy·a + x·c2 + c1
-        dx = dy * a
-        dx.addcmul_(x, _by_channel(c2, gsize).view(shape))
-        dx += _by_channel(c1, gsize).view(shape)
-        dgamma = (inv_c * (r2 - mean_c * r1)).sum(0)
-        dbeta = r1.sum(0)
-        return dx.to(x.dtype), dgamma, dbeta, None, None, None, None, None
+        dx = dy * (inv_c * scale).view(shape)
+        dx.addcmul_(x, c2.view(shape))
+        dx += c1.view(shape)
+        return dx.to(x.dtype), dgamma, r1.sum(0), None, None, None, None, None
+
+
+def _dx_terms(r1, r2, scale, mean, inv, gsize: int, n: int):
+    """The backward's (B, C) algebra from K5b's Σdy, Σdy·x: c1 and c2 by
+    channel (dx = dy·inv·γ + x·c2 + c1), inv by channel, and dγ."""
+    bsz = r1.shape[0]
+    t1 = (scale * r1).view(bsz, -1, gsize).sum(-1)           # Σ γ·dy
+    t2 = (scale * r2).view(bsz, -1, gsize).sum(-1)           # Σ γ·dy·x
+    s_tx = inv * (t2 - mean * t1)                            # Σ γ·dy·x̂
+    c2 = -(inv * inv) * s_tx / n
+    c1 = -inv * t1 / n - c2 * mean
+    inv_c, mean_c = _by_channel(inv, gsize), _by_channel(mean, gsize)
+    dgamma = (inv_c * (r2 - mean_c * r1)).sum(0)
+    return (_by_channel(c1, gsize), _by_channel(c2, gsize), inv_c, dgamma)
+
+
+def _grad_statistics(x, groups: int, n: int, eps: float):
+    """Per-(batch, group) mean and inverse std of x as differentiable
+    functions of x: K5a's moments through its autograd Function."""
+    return _fold(*stats.moments(x), groups, n, eps)
+
+
+def _differentiable_backward(dy, x, scale, gsize: int, n: int, eps: float):
+    """(dx, dγ, dβ) of the GroupNorm from differentiable ops: the
+    first-order formula with mean and inv rebuilt from x
+    (`_grad_statistics`) and K5b through its Function, so that autograd
+    also sees dx's dependence on x through the statistics.  dy is masked
+    already."""
+    mean, inv = _grad_statistics(x, x.shape[-1] // gsize, n, eps)
+    r1, r2 = stats.weighted_sums(dy, x)                      # K5b, (B, C)
+    c1, c2, inv_c, dgamma = _dx_terms(r1, r2, scale, mean, inv, gsize, n)
+    dx = dy * _bcast(inv_c * scale, x) + x * _bcast(c2, x) + _bcast(c1, x)
+    return dx.to(x.dtype), dgamma, r1.sum(0)
 
 
 def group_norm_from_moments(x: torch.Tensor, s1: torch.Tensor,
@@ -143,11 +186,6 @@ def _vec_ok(c: int, *ts: torch.Tensor) -> int:
     """1 when the 8-wide kernel variant applies: C % 8 == 0 and every
     tensor 16-byte aligned."""
     return int(c % 8 == 0 and all(t.data_ptr() % 16 == 0 for t in ts))
-
-
-def _bcast(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """(B, C) → broadcastable against x (B, ..., C)."""
-    return v.view((x.shape[0],) + (1,) * (x.dim() - 2) + (x.shape[-1],))
 
 
 def group_norm_apply_twin(x: torch.Tensor, s: torch.Tensor, t: torch.Tensor,

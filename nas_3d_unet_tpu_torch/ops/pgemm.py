@@ -33,8 +33,15 @@ Gradients (autograd Functions, as the reference's custom VJPs):
   K1: dx = K1-dx on dy with the flip-transposed kernel
       `w.flip(0, 1, 2).transpose(3, 4)` at the same dilation, skipped when x
       needs no gradient (the stem); dW is the plain weight gradient of the
-      conv (cuDNN), as the reference leaves it to XLA.
-  K2: dx = dy @ wᵀ and dW = Σ x3ᵀ dy, plain matmuls.
+      conv (cuDNN), as the reference leaves it to XLA.  When the backward
+      runs with `create_graph` (the second-order search step), K1-dx runs
+      as a Function of its own (`_Conv3x3x3`: its backward is K1-dx with
+      the other flip, and the weight gradient) and dW is cuDNN's weight
+      gradient recorded by autograd, so both can be differentiated.
+      Without a graph the backward is the first-order one, launch for
+      launch.
+  K2: dx = dy @ wᵀ and dW = Σ x3ᵀ dy, plain matmuls, which autograd
+      differentiates again.
   The moments' cotangents are dropped by contract (`packed.py:410-413`):
   s1 and s2 are non-differentiable outputs.  Their consumer, the GroupNorm
   Function of `ops/groupnorm.py`, returns the complete gradient through y.
@@ -128,6 +135,30 @@ def flip_transpose(w: torch.Tensor) -> torch.Tensor:
     return w.flip(0, 1, 2).transpose(3, 4).contiguous()
 
 
+def _conv_backward(ctx, dy):
+    """(dx, dw) of the stride-1 SAME 3³ conv y = conv(x, w), x and w saved
+    in `ctx`, each None where its input needs no gradient.  dx is K1-dx on
+    dy with the flip-transposed kernel; dw the plain weight gradient
+    (cuDNN), OIDHW → DHWIO.  With grad mode on (a backward run with
+    `create_graph`), both are recorded so that they can be differentiated:
+    dx through `_Conv3x3x3`, dw through cuDNN's weight gradient, which
+    autograd differentiates itself."""
+    x, w = ctx.saved_tensors
+    d = ctx.dilation
+    dx = dw = None
+    dy = dy.contiguous()
+    if ctx.needs_input_grad[0]:
+        wt = flip_transpose(w)
+        dx = (_Conv3x3x3.apply(dy, wt, d) if torch.is_grad_enabled()
+              else _k1(dy, wt, d, False))
+    if ctx.needs_input_grad[1]:
+        dw = torch.nn.grad.conv3d_weight(
+            x.permute(0, 4, 1, 2, 3), w.permute(4, 3, 0, 1, 2).shape,
+            dy.permute(0, 4, 1, 2, 3), padding=d, dilation=d)
+        dw = dw.permute(2, 3, 4, 1, 0)
+    return dx, dw
+
+
 class _ConvStats(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, dilation):
@@ -139,33 +170,42 @@ class _ConvStats(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy, _ds1, _ds2):   # stats cotangents dropped
-        x, w = ctx.saved_tensors
-        d = ctx.dilation
-        dx = dw = None
-        dy = dy.contiguous()
-        if ctx.needs_input_grad[0]:
-            dx = _k1(dy, flip_transpose(w), d, False)
-        if ctx.needs_input_grad[1]:
-            # plain weight gradient of the SAME conv (cuDNN), OIDHW → DHWIO
-            dw = torch.nn.grad.conv3d_weight(
-                x.permute(0, 4, 1, 2, 3), w.permute(4, 3, 0, 1, 2).shape,
-                dy.permute(0, 4, 1, 2, 3), padding=d, dilation=d)
-            dw = dw.permute(2, 3, 4, 1, 0)
-        return dx, dw, None
+        return (*_conv_backward(ctx, dy), None)
+
+
+class _Conv3x3x3(torch.autograd.Function):
+    """K1-dx as a Function of its own: the conv without the moments, whose
+    backward is K1-dx again with the other flip (∂/∂x) and the weight
+    gradient (∂/∂w).  `_ConvStats`'s backward runs it where its own dx is
+    to be differentiated."""
+
+    @staticmethod
+    def forward(ctx, x, w, dilation):
+        ctx.save_for_backward(x, w)
+        ctx.dilation = dilation
+        return _k1(x, w, dilation, False)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return (*_conv_backward(ctx, dy), None)
 
 
 def conv3x3x3_stats(x: torch.Tensor, w: torch.Tensor, dilation: int = 1):
     """K1 (y, Σy, Σy²): x (B, D, H, W, Cin), w (3, 3, 3, Cin, Cout) in one
     dtype → y (B, D, H, W, Cout) in that dtype, moments (B, Cout) fp32.
-    Differentiable in x and w (see the module docstring)."""
+    Differentiable in x and w, twice (see the module docstring)."""
     _check_conv("conv3x3x3_stats", x, w, dilation)
     return _ConvStats.apply(x, w, dilation)
 
 
 def conv3x3x3(x: torch.Tensor, w: torch.Tensor, dilation: int = 1):
-    """K1-dx: the conv alone, y (B, D, H, W, Cout) in x's dtype.  Not
-    differentiable: it is the backward of K1."""
+    """K1-dx: the conv alone, y (B, D, H, W, Cout) in x's dtype.  K1's
+    backward runs it for dx.  Where a graph is recorded (grad mode on and
+    x or w needs a gradient) it runs as `_Conv3x3x3`, differentiable in x
+    and w; elsewhere the launch alone."""
     _check_conv("conv3x3x3", x, w, dilation)
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _Conv3x3x3.apply(x, w, dilation)
     return _k1(x, w, dilation, False)
 
 

@@ -12,8 +12,8 @@ W, pad with −inf by lax's SAME pads (the odd pad on the high side at stride
 `torch.maximum`'s gradient splits a tie 0.5 / 0.5 as `lax.max`'s does,
 where `F.max_pool3d` routes it to the first maximum; ties are common on
 post-ReLU zero plateaus (`PARITY.md` §2b).  The pool is recomputed in the
-backward (`torch.utils.checkpoint`), as the reference's `jax.checkpoint`
-does: the chain would otherwise keep every padded slice and partial
+backward (`torch.utils.checkpoint`, non-reentrant: a second derivative
+goes through it), as the reference's `jax.checkpoint` does: the chain would otherwise keep every padded slice and partial
 maximum, ~4 full-size buffers a pool.  The shipped packed path
 (`packed.py:1097 packed_max_pool3`) takes W first, then D, then H: the
 same forward, another split of tied gradients (`ROADMAP.md` queue 3).
@@ -24,7 +24,8 @@ the per-axis counts.  The sum runs in fp32 (W, then D, then H) and is
 rounded once to the input's dtype after the division, as the shipped
 packed path (`packed.py:1025 packed_avg_pool3`) does; the unpacked flax
 pool sums bf16 in bf16 first (`primitives.py:424-431`), which the port
-does not follow.
+does not follow.  float64 input stays float64 (for the tests that hold
+exact math in float64); fp32 and bf16 sum in fp32.
 
 Upsample: `F.interpolate(..., mode="trilinear", align_corners=False)` on
 the NCDHW view, which is `jax.image.resize`'s half-pixel trilinear with
@@ -39,6 +40,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from .conv3d import same_pad
+from .stats import _acc
 
 
 def _shifted(x: torch.Tensor, axis: int, stride: int, fill: float):
@@ -82,11 +84,11 @@ def avg_pool3(x: torch.Tensor, stride: int = 1) -> torch.Tensor:
     """3³ SAME average pool of NDHWC x, stride 1 or 2, without counting
     the pad: fp32 sums, one division, rounded once to x's dtype."""
     dims = x.shape[1:4]
-    s = x.float()
+    s = _acc(x)
     for axis in (3, 1, 2):
         p0, p1, p2 = _shifted(s, axis, stride, 0.0)
         s = p0 + p1 + p2
-    cd, ch, cw = (torch.tensor(_counts(n, stride), dtype=torch.float32,
+    cd, ch, cw = (torch.tensor(_counts(n, stride), dtype=s.dtype,
                                device=x.device) for n in dims)
     div = cd.view(-1, 1, 1, 1) * ch.view(1, -1, 1, 1) * cw.view(1, 1, -1, 1)
     return (s / div).to(x.dtype)
@@ -95,6 +97,6 @@ def avg_pool3(x: torch.Tensor, stride: int = 1) -> torch.Tensor:
 def upsample2x(x: torch.Tensor) -> torch.Tensor:
     """Trilinear 2× upsample of NDHWC x (half-pixel, edges clamped), in
     fp32, rounded once to x's dtype; NDHWC contiguous."""
-    y = F.interpolate(x.float().permute(0, 4, 1, 2, 3), scale_factor=2,
+    y = F.interpolate(_acc(x).permute(0, 4, 1, 2, 3), scale_factor=2,
                       mode="trilinear", align_corners=False)
     return y.to(x.dtype).permute(0, 2, 3, 4, 1).contiguous()

@@ -49,6 +49,12 @@ side, here, is one `torch.empty` and one `_cuda.run`:
       hold it against float64 sums and the JAX functions, which checks the
       plan's tiling where no card is.
 
+Gradients: where a graph is recorded (a GroupNorm backward that is itself
+differentiated, as the second-order search step does), `moments` and
+`weighted_sums` run as autograd Functions (`_Moments`, `_WeightedSums`):
+the same launch forward, and closed-form backwards as elementwise
+broadcasts.  Elsewhere they launch without a Function.
+
 Dispatch: a CPU tensor takes the twin; a CUDA tensor launches the kernel or
 raises.
 """
@@ -73,19 +79,26 @@ def _dims(x: torch.Tensor):
     return tuple(range(1, x.dim() - 1))
 
 
+def _acc(t: torch.Tensor) -> torch.Tensor:
+    """t in the sums' dtype: fp32 for fp32 and bf16 (the kernels' inputs),
+    float64 kept (the tests that check exact math in float64)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
 def moments_twin(x: torch.Tensor):
-    """Plain (Σx, Σx²) in fp32."""
-    xf = x.float()
+    """Plain (Σx, Σx²) in fp32 (float64 for float64 x)."""
+    xf = _acc(x)
     return xf.sum(_dims(x)), (xf * xf).sum(_dims(x))
 
 
 def weighted_sums_twin(g: torch.Tensor, x: torch.Tensor,
                        y: torch.Tensor | None = None):
-    """Plain (Σg, Σg·x) in fp32; with y, g counts only where y > 0."""
-    gf = g.float()
+    """Plain (Σg, Σg·x) in fp32 (float64 for float64 inputs); with y, g
+    counts only where y > 0."""
+    gf = _acc(g)
     if y is not None:
         gf = torch.where(y > 0, gf, 0.0)
-    return gf.sum(_dims(g)), (gf * x.float()).sum(_dims(g))
+    return gf.sum(_dims(g)), (gf * _acc(x)).sum(_dims(g))
 
 
 def unroll(ntensors: int) -> int:
@@ -215,30 +228,19 @@ def _launch(name: str, *ts: torch.Tensor):
     return buf[0], buf[1]
 
 
-def moments(x: torch.Tensor):
-    """K5a: x (B, ..., C) → (Σx, Σx²), (B, C) fp32.  Not differentiable.
+def _bcast(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """(B, C) → broadcastable against x (B, ..., C)."""
+    return v.view((x.shape[0],) + (1,) * (x.dim() - 2) + (x.shape[-1],))
 
-    On the card it runs on the current stream.  Every K5 call of a device
-    shares `stats.cu`'s tickets, so two K5 calls that overlap on two
-    streams would return wrong sums, without an error: order them with
-    events."""
-    if x.dim() < 3:
-        raise ValueError(f"moments: x {tuple(x.shape)}")
+
+def _moments(x: torch.Tensor):
     if _cuda.dispatch("moments", x):
         return moments_twin(x)
     return _launch("moments", x)
 
 
-def weighted_sums(g: torch.Tensor, x: torch.Tensor,
-                  y: torch.Tensor | None = None):
-    """K5b: g, x (B, ..., C) → (Σg, Σg·x), (B, C) fp32; with y (same
-    shape), g counts only where y > 0 (`weighted_sums_masked`).  Not
-    differentiable.  Streams: as `moments`; no two K5 calls may overlap
-    on two streams."""
-    if x.dim() < 3 or g.shape != x.shape or (y is not None
-                                             and y.shape != x.shape):
-        raise ValueError(f"weighted_sums: g {tuple(g.shape)} "
-                         f"x {tuple(x.shape)}")
+def _weighted_sums(g: torch.Tensor, x: torch.Tensor,
+                   y: torch.Tensor | None):
     if y is None:
         if _cuda.dispatch("weighted_sums", g, x):
             return weighted_sums_twin(g, x)
@@ -246,3 +248,79 @@ def weighted_sums(g: torch.Tensor, x: torch.Tensor,
     if _cuda.dispatch("weighted_sums_masked", g, x, y):
         return weighted_sums_twin(g, x, y)
     return _launch("weighted_sums_masked", g, x, y)
+
+
+class _Moments(torch.autograd.Function):
+    """K5a where a graph is recorded: the same launch, and the closed-form
+    backward ∂Σx/∂x = 1, ∂Σx²/∂x = 2x, in the sums' dtype, rounded once
+    to x's."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return _moments(x)
+
+    @staticmethod
+    def backward(ctx, d1, d2):
+        (x,) = ctx.saved_tensors
+        return (_bcast(d1, x) + 2 * _acc(x) * _bcast(d2, x)).to(x.dtype)
+
+
+class _WeightedSums(torch.autograd.Function):
+    """K5b (masked K5b with y) where a graph is recorded: the same launch,
+    and the closed-form backward ∂Σg/∂g = 1, ∂Σg·x/∂g = x, ∂Σg·x/∂x = g
+    (g where y > 0), in the sums' dtype, rounded once to the inputs'."""
+
+    @staticmethod
+    def forward(ctx, g, x, y):
+        ctx.save_for_backward(g, x, y)
+        return _weighted_sums(g, x, y)
+
+    @staticmethod
+    def backward(ctx, d1, d2):
+        g, x, y = ctx.saved_tensors
+        dg = dx = None
+        if ctx.needs_input_grad[0]:
+            dg = _bcast(d1, x) + _acc(x) * _bcast(d2, x)
+            if y is not None:
+                dg = torch.where(y > 0, dg, 0.0)
+            dg = dg.to(g.dtype)
+        if ctx.needs_input_grad[1]:
+            gm = _acc(g) if y is None else torch.where(y > 0, _acc(g), 0.0)
+            dx = (gm * _bcast(d2, x)).to(x.dtype)
+        return dg, dx, None
+
+
+def moments(x: torch.Tensor):
+    """K5a: x (B, ..., C) → (Σx, Σx²), (B, C) fp32.  Where a graph is
+    recorded (grad mode on and x needs a gradient: a backward that is
+    itself differentiated), through `_Moments`, whose backward has the
+    closed form; elsewhere the launch alone.  The sums' bits are the same
+    either way.
+
+    On the card it runs on the current stream.  Every K5 call of a device
+    shares `stats.cu`'s tickets, so two K5 calls that overlap on two
+    streams would return wrong sums, without an error: order them with
+    events."""
+    if x.dim() < 3:
+        raise ValueError(f"moments: x {tuple(x.shape)}")
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Moments.apply(x)
+    return _moments(x)
+
+
+def weighted_sums(g: torch.Tensor, x: torch.Tensor,
+                  y: torch.Tensor | None = None):
+    """K5b: g, x (B, ..., C) → (Σg, Σg·x), (B, C) fp32; with y (same
+    shape), g counts only where y > 0 (`weighted_sums_masked`).  Where a
+    graph is recorded (grad mode on and g or x needs a gradient), through
+    `_WeightedSums`, whose backward has the closed form; elsewhere the
+    launch alone, with the same bits.  Streams: as `moments`; no two K5
+    calls may overlap on two streams."""
+    if x.dim() < 3 or g.shape != x.shape or (y is not None
+                                             and y.shape != x.shape):
+        raise ValueError(f"weighted_sums: g {tuple(g.shape)} "
+                         f"x {tuple(x.shape)}")
+    if torch.is_grad_enabled() and (g.requires_grad or x.requires_grad):
+        return _WeightedSums.apply(g, x, y)
+    return _weighted_sums(g, x, y)

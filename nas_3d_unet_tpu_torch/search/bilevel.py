@@ -21,10 +21,19 @@ bf16 and the sum once more; the port accumulates the sum in fp32 (the JAX
 package on the CPU accumulates it in bf16, which the port does not
 follow).
 
+`make_search_step_unrolled` (:102) is the second-order step
+(`search.unrolled`): the α-step takes ∇_α L_val(w − ξ·∇_w L_train(w, α), α)
+through the virtual weights, every supernet parameter moved by ξ times its
+train gradient with no optimizer in between, then the w-step runs as
+above.  The inner gradient is taken with `create_graph`, so the α
+gradient differentiates the backwards of the default path's Functions (K1
+and K1-dx, K2, the GroupNorm with its K5 sums): each is twice
+differentiable.  The `use_pallas` Functions (K6, K7, K4, K3) are not, and
+the step refuses a net that holds them (`ROADMAP.md` queue 1, item 14).
+`search.partial_channels` > 1 (PC-DARTS) builds the `Searcher`'s supernet
+with that `pc_k` (`models/cell.py`).
+
 The model runs eagerly on one device; there is no jit, donation or mesh.
-`search.unrolled` (the second-order step) and `search.partial_channels` > 1
-(PC-DARTS) load in the config and are refused here, by the `Searcher`
-(`ROADMAP.md` queue 1, items 12 and 13).
 """
 
 from __future__ import annotations
@@ -38,6 +47,7 @@ from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.func import functional_call
 
 from .. import bridge
 from ..data.augment import augment_batch, draw_augment
@@ -149,6 +159,63 @@ def make_search_step(net: nn.Module, w_opt: AdamW, a_opt: AdamW,
     return step
 
 
+def unrolled_alpha_grads(net: nn.Module, alphas: Mapping[str, torch.Tensor],
+                         a_params: Sequence[torch.Tensor], xi: float,
+                         x_tr, y_tr, x_val, y_val, loss_fn: Callable
+                         ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """(L_val(w − ξ·∇_w L_train(w, α), α), its gradient in each of
+    `a_params`, the leaf α tensors `alphas` holds): the JAX step's
+    `val_after_virtual_step` (`bilevel.py:128-132`) and its gradient.
+    The virtual weights cover every parameter of `net`, which runs on them
+    through `functional_call`; the inner gradient keeps its graph, so the
+    α gradient holds the Hessian-vector term."""
+    names, params = zip(*net.named_parameters())
+    aw = arch_weights_from_alphas(alphas)
+    g_w = torch.autograd.grad(loss_fn(net(x_tr, aw), y_tr), params,
+                              create_graph=True)
+    w_virt = {n: p - xi * g for n, p, g in zip(names, params, g_w)}
+    val_loss = loss_fn(functional_call(net, w_virt, (x_val, aw)), y_val)
+    a_grads = torch.autograd.grad(val_loss, a_params, allow_unused=True,
+                                  materialize_grads=True)
+    return val_loss.detach(), list(a_grads)
+
+
+def make_search_step_unrolled(net: nn.Module, w_opt: AdamW, a_opt: AdamW,
+                              alphas: Mapping[str, torch.Tensor], xi: float,
+                              augment: Optional[dict] = None,
+                              label_mode: str = "regions",
+                              augment_val: bool = False,
+                              gen: Optional[torch.Generator] = None):
+    """The second-order DARTS step (`search.unrolled`): as
+    `make_search_step`, but the α-step's gradient is that of the val loss
+    after a virtual w-step of size `xi` (`unrolled_alpha_grads`); the
+    w-step then runs under the updated α.  Refuses a `use_pallas` net,
+    whose kernels' Functions are not twice differentiable."""
+    if any(getattr(m, "use_pallas", False) or getattr(m, "k6", False)
+           for m in net.modules()):
+        raise ValueError(
+            "search.unrolled with model.use_pallas (the second-order step "
+            "through the use_pallas kernels) is not supported by the "
+            "PyTorch port (ROADMAP.md queue 1, item 14)")
+    loss_fn = get_loss_fn(label_mode)
+    aug = _augmenter(augment, gen)
+    bound = ArchBound(net)
+
+    def step(x_tr, y_tr, x_val, y_val) -> Dict[str, torch.Tensor]:
+        x_tr, y_tr = aug(x_tr, y_tr)
+        if augment_val:
+            x_val, y_val = aug(x_val, y_val)
+        # (1) architecture step on the unrolled objective
+        val_loss, a_grads = unrolled_alpha_grads(
+            net, alphas, a_opt.params, xi, x_tr, y_tr, x_val, y_val, loss_fn)
+        a_opt.step(a_grads)
+        # (2) weight step on the train batch, under the updated α
+        train_loss = _w_update(bound, w_opt, x_tr, y_tr, loss_fn, alphas)
+        return {"train_loss": train_loss, "val_loss": val_loss}
+
+    return step
+
+
 def make_warmup_step(net: nn.Module, w_opt: AdamW,
                      alphas: Mapping[str, torch.Tensor],
                      augment: Optional[dict] = None,
@@ -189,7 +256,10 @@ class Searcher:
 
     `supernet`: a `SuperNet`, moved to `device` (None: the card); `cfg`: a
     `Config`; `data_paths`: the patients' `.npz` files, split into a
-    w-part and an α-part (`split_patients`).  The train batch is flipped
+    w-part and an α-part (`split_patients`).  `search.partial_channels`
+    > 1 rebuilds the supernet with that `pc_k` (`SuperNet.clone`);
+    `search.unrolled` takes the second-order step, with ξ = `search.xi`,
+    or `search.w_lr` where that is 0.  The train batch is flipped
     and jittered inside the step, with draws from the Searcher's generator
     (saved in every checkpoint); the patch streams never augment on the
     host."""
@@ -198,15 +268,10 @@ class Searcher:
                  log_path: Optional[str] = None,
                  device: torch.device | str | None = None):
         sc, dc = cfg.search, cfg.data
-        if sc.unrolled:
-            raise ValueError(
-                "search.unrolled (the second-order DARTS step) is not "
-                "supported by the PyTorch port (ROADMAP.md queue 1, item 12)")
+        # partial channels: the supernet rebuilt with that pc_k, so that
+        # every consumer below (steps, eval, init) sees one architecture
         if sc.partial_channels > 1:
-            raise ValueError(
-                f"search.partial_channels={sc.partial_channels} (PC-DARTS) "
-                "is not supported by the PyTorch port (ROADMAP.md queue 1, "
-                "item 13)")
+            supernet = supernet.clone(pc_k=sc.partial_channels)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.net = supernet.to(self.device)
@@ -222,9 +287,15 @@ class Searcher:
         aug = dict(flip_prob=dc.flip_prob, intensity_shift=dc.intensity_shift,
                    intensity_scale=dc.intensity_scale)
         self.augment_val = bool(sc.augment_val)
-        self.search_step = make_search_step(
-            self.net, self.w_opt, self.a_opt, self.alphas, aug,
-            dc.label_mode, self.augment_val, gen=self.gen)
+        if sc.unrolled:
+            xi = sc.xi if sc.xi > 0 else sc.w_lr        # `bilevel.py:221`
+            self.search_step = make_search_step_unrolled(
+                self.net, self.w_opt, self.a_opt, self.alphas, xi, aug,
+                dc.label_mode, self.augment_val, gen=self.gen)
+        else:
+            self.search_step = make_search_step(
+                self.net, self.w_opt, self.a_opt, self.alphas, aug,
+                dc.label_mode, self.augment_val, gen=self.gen)
         self.warmup_step = make_warmup_step(self.net, self.w_opt,
                                             self.alphas, aug, dc.label_mode,
                                             gen=self.gen)

@@ -11,9 +11,8 @@ dataclass is built, with the `ROADMAP.md` item that would bring it:
 `model.remat` / `model.remat_edges` true,
 `train.steps_per_call` > 1, `parallel.data_parallel` or
 `parallel.spatial_parallel` > 1.  `model.packed` is read and has no effect:
-it selects a TPU layout that the port runs as logical NDHWC.  The search
-settings the port does not run yet (`search.unrolled`,
-`search.partial_channels` > 1) load here and are refused by the
+it selects a TPU layout that the port runs as logical NDHWC.
+`search.unrolled` with `model.use_pallas` loads here and is refused by the
 `Searcher` (`search/bilevel.py`).
 """
 

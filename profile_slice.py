@@ -2,7 +2,8 @@
 """Where one patient's serving time, one train step's or one search
 step's time goes, on one NVIDIA GPU.
 
-    python3 profile_slice.py [--train | --search] [--use-pallas]
+    python3 profile_slice.py [--train | --search [--unrolled]
+                             [--partial-channels K]] [--use-pallas]
 
 Serving: one synthetic 160x192x152x4 patient with the flagship net (the
 settings of `chip_smoke.py`) under `torch.profiler`, after one warm-up
@@ -11,7 +12,10 @@ bf16 flagship at 128^3, batch 2, microbatch 1 (chip_smoke.py's phase
 "train"), after three warm-up and three timed unprofiled steps.
 --search: one bilevel step (an α-step, then a w-step) of the shipped
 supernet at 128^3, batch 1 (chip_smoke.py's phase "search"), after two
-warm-up and three timed unprofiled steps.  --use-pallas: serving or
+warm-up and three timed unprofiled steps; with --unrolled the
+second-order step (phase "search_unrolled"), after one warm-up and two
+timed ones; with --partial-channels K the supernet with pc_k K (phase
+"search_pc").  --use-pallas: serving or
 training with `DerivedNet(use_pallas=True)` (chip_smoke.py's phases
 "pallas_slice" and "pallas_train").  Every
 device activity (kernel, memcpy, memset) is attributed to the innermost op
@@ -263,29 +267,31 @@ def _training(dev, use_pallas):
     return walls[2:], lambda: step(x, y)
 
 
-def _search(dev, use_pallas):
-    """(walls, profiled callable) for one bilevel search step."""
-    from chip_smoke import AUGMENT, search_supernet, synthetic_batch
-    from nas_3d_unet_tpu_torch.search.bilevel import make_search_step
+def _search(dev, use_pallas, unrolled=False, pc_k=1):
+    """(walls, profiled callable) for one bilevel search step (`unrolled`:
+    the second-order one; `pc_k`: partial channels)."""
+    from chip_smoke import AUGMENT, search_inputs
+    from nas_3d_unet_tpu_torch.search.bilevel import (
+        make_search_step, make_search_step_unrolled)
     from nas_3d_unet_tpu_torch.train.optim import make_optimizer
 
     if use_pallas:
         raise SystemExit("--search profiles the shipped (default) path")
-    net, alphas, cfg = search_supernet(0)
-    net = net.to(dev)
+    net, alphas, batches, cfg = search_inputs(dev, 0, pc_k)
     annotate_modules(net)
-    alphas = {k: v.to(dev).requires_grad_() for k, v in alphas.items()}
     sc = cfg.search
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    step = make_search_step(
-        net, make_optimizer(net.parameters(), sc.w_lr, sc.w_weight_decay),
-        make_optimizer(alphas.values(), sc.alpha_lr, sc.alpha_weight_decay),
-        alphas, AUGMENT, gen=gen)
-    x, y = synthetic_batch(dev, 0)               # train patch, val patch
-    batches = (x[:1], y[:1], x[1:], y[1:])
+    opts = (make_optimizer(net.parameters(), sc.w_lr, sc.w_weight_decay),
+            make_optimizer(alphas.values(), sc.alpha_lr,
+                           sc.alpha_weight_decay))
+    if unrolled:
+        step = make_search_step_unrolled(net, *opts, alphas,
+                                         sc.xi or sc.w_lr, AUGMENT, gen=gen)
+    else:
+        step = make_search_step(net, *opts, alphas, AUGMENT, gen=gen)
     walls = []
-    for _ in range(5):                           # two warm-up, three timed
+    for _ in range(4 if unrolled else 5):        # warm-up, then timed
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         step(*batches)
@@ -303,6 +309,10 @@ def main() -> int:
                       help="profile one bilevel search step")
     ap.add_argument("--use-pallas", action="store_true",
                     help="the use_pallas configuration (K6/K7/K4, K3)")
+    ap.add_argument("--unrolled", action="store_true",
+                    help="with --search: the second-order step")
+    ap.add_argument("--partial-channels", type=int, default=1,
+                    help="with --search: PC-DARTS with this pc_k")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_slice: no CUDA device; nothing measured",
@@ -313,10 +323,13 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     window = "step" if args.train or args.search else "patient"
-    setup = _search if args.search else _training if args.train \
-        else _serving
     with strict_fp32():
-        walls, run = setup(dev, args.use_pallas)
+        if args.search:
+            walls, run = _search(dev, args.use_pallas, args.unrolled,
+                                 args.partial_channels)
+        else:
+            setup = _training if args.train else _serving
+            walls, run = setup(dev, args.use_pallas)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             with record_function(window):
@@ -332,7 +345,8 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     out = {"card": smi, "window": window, "use_pallas": args.use_pallas,
-           "search": args.search,
+           "search": args.search, "unrolled": args.unrolled,
+           "partial_channels": args.partial_channels,
            "wall_s_unprofiled": walls[1:],
            **attribute(trace, window)}
     print(json.dumps(out, indent=1))

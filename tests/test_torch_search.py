@@ -17,8 +17,9 @@ the CPU, at base 4, depth 2, 2 nodes, 8³ patches, fp32:
     them), bitwise;
   * a resumed search equals an uninterrupted one bit for bit: weights,
     both AdamW states, α, step, the augmentation generator, the genotype;
-  * `search.unrolled` and `search.partial_channels` > 1 load in the config
-    and are refused by the `Searcher`, naming their ROADMAP.md items.
+  * `search.unrolled` and `search.partial_channels` > 1 run in the
+    `Searcher` and emit a genotype; `search.unrolled` with
+    `model.use_pallas` is refused, naming its ROADMAP.md item.
 """
 
 import json
@@ -271,9 +272,24 @@ def test_search_resume_is_trajectory_exact(stores, tmp_path):
             meta["val_steps"], meta["warmup_epochs"]) == (6, 1, 3, 2, 1)
 
 
-@pytest.mark.parametrize("ov,item", [({"search.unrolled": True}, "item 12"),
-                                     ({"search.partial_channels": 2},
-                                      "item 13")])
+@pytest.mark.parametrize("ov", [{"search.unrolled": True},
+                                {"search.partial_channels": 2}],
+                         ids=["unrolled", "partial_channels"])
+def test_ported_search_settings_run_in_the_searcher(stores, tmp_path, ov):
+    """The second-order step and PC-DARTS, which the Searcher once
+    refused, search a warmup and a bilevel epoch and emit a genotype."""
+    _, npzs = stores
+    state, geno = _searcher(npzs, tmp_path, **ov).search(epochs=2,
+                                                         steps_per_epoch=2)
+    assert int(state["step"]) == 4
+    geno.validate()
+    assert json.loads(open(tmp_path / "genotype.json").read()) == \
+        json.loads(geno.to_json())
+
+
+@pytest.mark.parametrize("ov,item", [({"search.unrolled": True,
+                                       "model.use_pallas": True}, "item 14")],
+                         ids=["unrolled_use_pallas"])
 def test_unported_search_settings_are_refused_by_the_searcher(stores,
                                                              tmp_path, ov,
                                                              item):
