@@ -110,6 +110,38 @@ Phases, each printed as JSON lines:
      unrolled α gradient (as 6e) against the twin path; then, as 6e,
      SPC_STEPS timed
      first-order steps and SB_STEPS timed unrolled steps (both settings).
+ 6g. remat: activation checkpointing (`model.remat` on the cells,
+     `model.remat_edges` on the supernet's edges) at full width on one
+     rank, under cuDNN's deterministic algorithms: the derived bf16 train
+     step (batch 2 of 128^3, microbatch 1; remat off and on the cells),
+     the shipped supernet's first-order and second-order steps (128^3,
+     batch 1; off, cells, cells and edges), one step's gradients each
+     (nothing updated).  Gradients bit-equal to remat off's; where they differ, remat off is run again:
+     if it repeats, the setting is run again (up to REMAT_RERUNS times)
+     and must give off's bits (else "remat changes the bits" fails the
+     phase; the step alone lands on another pattern now and then), if it
+     does not, the gradients must lie within the step's limits; the
+     reason is printed.  Launches equal to remat off's plus the
+     checkpointed regions' forward kernels (K1, K2, K5a, counted from the
+     modules, `remat_per_forward`) once per backward through them (2 a
+     train step, 2 a first-order step, 4 a second-order one), peak memory
+     and seconds of each.
+ 6h. dp: data parallelism, DP_WORLD ranks (processes of this script,
+     `--dp-rank`) on card 0 over gloo, which carries CUDA tensors (NCCL
+     refuses two ranks on one device), global batch 2: the first step's
+     averaged gradients of the derived train step, the first-order and
+     pc_k 2 search steps at 128^3 and the second-order step (remat on the
+     cells and edges, ξ = PARITY_XI, the rows' masks of different
+     density) at DP_UNROLLED_PATCH^3 against this process's one-process
+     step at the global batch (the per-leaf limits of phases 6, 6d, 6f
+     and 6e), both ranks' bit-equal; the second-order step with a planted
+     fault, its inner gradient not averaged, must fail those limits; DP_STEPS train steps with
+     AdamW and augmentation (the ranks' parameters bit-equal, launches
+     per rank equal to the modules' count); a Trainer epoch and
+     `predict_dataset` over phase "cli"'s store (the ranks' histories and
+     parameters equal, every patient's labels bit-equal to phase "cli"'s
+     one-process predictions); then the `train` command under torchrun at
+     world 1 on this card (NCCL), and at 2 ranks where there are 2 cards.
  7. pallas_kernels: the `use_pallas` configuration's kernels against their
      twins at every geometry it gives them: K6 conv3d (stride 1 and 2) in
      fp32 at batch 2 (the FMA conv tile) and in bf16 at batch 1 (the
@@ -173,8 +205,9 @@ Phases, each printed as JSON lines:
      back holding no kernel at all is taken again (up to 3 times; the
      record lists the retakes under "trace_retakes").
 The "done" line also holds each search phase's s a step, patches/s, peak
-memory and launches a step, the search phases' seconds, and the whole
-script's.
+memory and launches a step, the search phases' seconds, each remat
+setting's s a step and peak memory, phase "dp"'s seconds, world, backend
+and s a train step per rank, and the whole script's.
 Then the nvidia-smi line, the kernels summary line and, last,
 `{"ok": true, "device": {...}}`.  In the kernels line a serving kernel's
 `ms`, `plain_ms`, `library_ms` and `bound_ms` are one flagship forward's
@@ -204,6 +237,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from unittest import mock
 
@@ -1990,6 +2024,578 @@ def phase_search_pc(dev, gen, seed):
     return pc, both, time.perf_counter() - t_phase
 
 
+# ---------------------------------------------------------------------------
+# Phases "remat" and "dp": activation checkpointing and data parallelism
+# ---------------------------------------------------------------------------
+
+REMAT_SETTINGS = {"off": (False, False), "cells": (True, False),
+                  "cells_edges": (True, True)}
+REMAT_KERNELS = ("conv3x3x3_stats", "gemm_stats", "moments")
+# under cuDNN's deterministic algorithms the first-order step's gradients
+# still land on another of a few bit patterns now and then, with remat off
+# too (`grad_parity.py --remat-repeats`, PERF.md); a setting that differs
+# from remat off while remat off repeats is run again up to this many times
+REMAT_RERUNS = 2
+
+
+def _set_remat(net, cells, edges):
+    """Checkpoint `net`'s cells (`cells`) and the supernet's edges
+    (`edges`) from the next forward on: the flags `checkpointed` reads."""
+    net.remat = cells
+    for name in (*net._down, *net._up):
+        cell = getattr(net, name)
+        if hasattr(cell, "remat_edges"):
+            cell.remat_edges = edges
+
+
+def remat_per_forward(net):
+    """Forward kernel launches (K1, K2, K5a) one forward makes inside the
+    cells and inside the supernet's edges (`_SourceOps` or `MixedOp`),
+    counted from the modules: what one backward through a checkpointed
+    region launches again."""
+    cells = [getattr(net, n) for n in (*net._down, *net._up)]
+    edges = [m for c in cells for n, m in c.named_children()
+             if n.startswith(("src_", "CheckpointMixedOp"))]
+
+    def fwd(mods):
+        per = _modules_per_forward(torch.nn.ModuleList(mods))
+        return {k: per.get(k, 0) for k in REMAT_KERNELS}
+
+    return fwd(cells), fwd(edges)
+
+
+def _remat_expected(base, cells, edges, passes, on_cells, on_edges):
+    """`base` launches plus, per backward through them (`passes`), the
+    forward kernels of the checkpointed cells and edges again."""
+    out = dict(base)
+    for k in REMAT_KERNELS:
+        extra = passes * (cells[k] * on_cells + edges[k] * on_edges)
+        if extra:
+            out[f"{k}_bf16"] = out.get(f"{k}_bf16", 0) + extra
+    return out
+
+
+def _remat_grads(kind, net, alphas, batches, xi):
+    """One step's gradients, nothing updated: the derived train step's
+    (`loss_and_grads`, microbatch MICRO), or a first-order or second-order
+    search step's α then w gradients (`_Recorder`s); with the losses."""
+    from nas_3d_unet_tpu_torch.metrics.losses import dice_ce_loss
+    from nas_3d_unet_tpu_torch.search.bilevel import (
+        make_search_step, make_search_step_unrolled)
+    from nas_3d_unet_tpu_torch.train.loop import loss_and_grads
+
+    if kind == "derived":
+        loss, grads = loss_and_grads(net, *batches, dice_ce_loss, MICRO)
+        return [loss.item()], [], [g.clone() for g in grads]
+    w_rec, a_rec = _Recorder(net.parameters()), _Recorder(alphas.values())
+    if kind == "first":
+        step = make_search_step(net, w_rec, a_rec, alphas)
+    else:
+        step = make_search_step_unrolled(net, w_rec, a_rec, alphas, xi)
+    m = step(*batches)
+    return [v.item() for v in m.values()], a_rec.grads, w_rec.grads
+
+
+def _same(a, b):
+    return len(a) == len(b) and all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+def phase_remat(dev, seed):
+    """Activation checkpointing at full width on one rank, under cuDNN's
+    deterministic algorithms: the derived bf16 train step (batch 2 of
+    128^3, microbatch 1), the shipped supernet's first-order and second-
+    order steps (128^3, batch 1), each with remat off, on the cells, and
+    on the cells and the edges (the derived net has no edges: off and
+    cells).  Gradients bit-equal to remat off (else within the step's
+    limits where remat off itself does not repeat; where it does, a
+    setting that differs must give off's bits on one of REMAT_RERUNS more
+    runs), launches equal to remat off's plus the checkpointed regions'
+    forward kernels once per backward through them, and each setting's
+    peak memory and s a step."""
+    from nas_3d_unet_tpu_torch.ops import _cuda
+
+    t_phase = time.perf_counter()
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic
+    cudnn.deterministic = True
+    out = {}
+    try:
+        x, y = synthetic_batch(dev, seed)
+        derived = flagship_net(seed, "bfloat16").to(dev)
+        slices = TRAIN_BATCH // MICRO
+        per = _modules_per_forward(derived)
+        steps = [("derived", derived, None, (x, y),
+                  {f"{k}_bf16": n * slices for k, n in per.items()},
+                  slices, GRAD_LIMITS)]
+        net, alphas, batches, cfg = search_inputs(dev, seed)
+        xi = cfg.search.xi or cfg.search.w_lr
+        first = {f"{k}_bf16": n for k, n in _search_per_step(net)[1].items()}
+        second = {f"{k}_bf16": sum(r[-1] for r in rows)
+                  for k, rows in SU_TABLES}
+        # first-order: the α-step's backward and the w-step's; second-
+        # order: the α-step's inner and outer backwards (the train
+        # forward's regions twice, the val forward's once), the w-step's
+        steps += [("first", net, alphas, batches, first, 2, ALPHA_LIMITS),
+                  ("second", net, alphas, batches, second, 4,
+                   UNROLLED_ALPHA_LIMITS)]
+        for kind, model, al, b, base, passes, a_limits in steps:
+            cells, edges = remat_per_forward(model)
+            names = [n for n, _ in model.named_parameters()]
+
+            def run(name):
+                """One step at remat setting `name`."""
+                _set_remat(model, *REMAT_SETTINGS[name])
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(dev)
+                _cuda.LAUNCHES.clear()
+                t0 = time.perf_counter()
+                losses, ga, gw = _remat_grads(kind, model, al, b, xi)
+                torch.cuda.synchronize()
+                r = {"step_s": time.perf_counter() - t0,
+                     "peak_mem_gb": torch.cuda.max_memory_allocated(dev)
+                     / 2 ** 30,
+                     "losses": losses, "launches": dict(_cuda.LAUNCHES),
+                     "digest": _digest([*ga, *gw])[:16]}
+                _set_remat(model, False, False)
+                model.zero_grad(set_to_none=True)
+                return r, (ga, gw)
+
+            settings = (["off", "cells"] if kind == "derived"
+                        else list(REMAT_SETTINGS))
+            runs, grads = {}, {}
+            for name in settings:
+                runs[name], grads[name] = run(name)
+                runs[name]["expected_launches"] = _remat_expected(
+                    base, cells, edges, passes, *REMAT_SETTINGS[name])
+            rec = {"phase": "remat", "step": kind,
+                   "per_forward_in_cells": cells,
+                   "per_forward_in_edges": edges,
+                   "backwards_through_regions": passes}
+            off = grads["off"]
+            repeats = None              # does remat off repeat its bits?
+            for name, r in runs.items():
+                bit = _same(grads[name][0], off[0]) and _same(
+                    grads[name][1], off[1]) \
+                    and r["losses"] == runs["off"]["losses"]
+                r["bit_equal_to_off"] = bit
+                if bit:
+                    continue
+                r["w"] = leaf_stats(names, grads[name][1], off[1])
+                r["alpha"] = (leaf_stats(list(al), grads[name][0], off[0],
+                                         a_limits) if al else None)
+                if repeats is None:
+                    r2, g2 = run("off")
+                    repeats = _same(g2[0], off[0]) and _same(g2[1], off[1])
+                    rec["off_rerun_digest"] = r2["digest"]
+                if not repeats:
+                    r["reason"] = "remat off does not repeat bit for bit"
+                    continue
+                # remat off repeated: the setting must give off's bits
+                # again within REMAT_RERUNS runs, else remat changes them
+                r["rerun_digests"] = []
+                for _ in range(REMAT_RERUNS):
+                    r2, g2 = run(name)
+                    r["rerun_digests"].append(r2["digest"])
+                    r["rerun_bit_equal_to_off"] = _same(g2[0], off[0]) \
+                        and _same(g2[1], off[1])
+                    if r["rerun_bit_equal_to_off"]:
+                        break
+                r["reason"] = ("a rerun is bit-equal to off: the step did "
+                               "not repeat once"
+                               if r["rerun_bit_equal_to_off"]
+                               else "remat changes the bits")
+            del grads
+            emit(rec | runs)
+            out[kind] = rec | runs
+            for name, r in runs.items():
+                if r["launches"] != r["expected_launches"]:
+                    raise AssertionError(
+                        f"remat {kind} {name}: launches {r['launches']} != "
+                        f"{r['expected_launches']}")
+                if not all(map(math.isfinite, r["losses"])):
+                    raise AssertionError(f"remat {kind} {name}: losses "
+                                         f"{r['losses']}")
+                if r.get("reason") == "remat changes the bits":
+                    raise AssertionError(
+                        f"remat {kind} {name}: remat off repeats its bits, "
+                        "remat does not give them")
+                if not r["bit_equal_to_off"] and not (
+                        r["w"]["ok"] and (r["alpha"] is None
+                                          or r["alpha"]["ok"])):
+                    raise AssertionError(f"remat {kind} {name}: gradients "
+                                         "off remat off's limits")
+            del runs
+        del derived, net, alphas, batches
+    finally:
+        cudnn.deterministic = saved
+    torch.cuda.empty_cache()
+    return out, time.perf_counter() - t_phase
+
+
+DP_WORLD = 2
+DP_STEPS = 3
+# the second-order step at 64^3: at 128^3 two ranks fit (26.6 GB each
+# with remat on the cells and edges), but the phase took 214 s, 185 of
+# them in the one-process reference and the ranks, which the second-order
+# step dominates (chip_smoke.py on an H100 80GB HBM3 at 700 W)
+DP_UNROLLED_PATCH = 64
+# the second-order step's rows: row i's WT mask is modality 1 above
+# DP_THRESHOLDS[i] (31 % and 69 % of the voxels), so that the ranks'
+# gradients differ and a rank that leaves out the other's terms shows
+DP_THRESHOLDS = (0.5, -0.5)
+DP_TIMEOUT = 900
+
+
+def _dp_batch(dev, seed, edge, batch):
+    """A synthetic batch of `batch` x edge^3 as `synthetic_batch` makes
+    it, row i's mask from DP_THRESHOLDS[i]."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal(
+        (batch, edge, edge, edge, 4)).astype(np.float32)).to(dev)
+    t = torch.tensor(DP_THRESHOLDS[:batch], device=dev).view(-1, 1, 1, 1)
+    wt = (x[..., 1] > t).float()
+    return x, torch.stack([wt, wt, wt], dim=-1)
+
+
+def _inner_not_reduced(mesh):
+    """`mesh` with a planted fault: the differentiable mean returns this
+    rank's tensors, so the second-order step's inner gradient is not
+    averaged (each rank's virtual step from its own rows, its α gradient
+    without the other ranks' Hessian-vector terms); every other
+    collective as `mesh`'s."""
+    class InnerNotReduced(type(mesh)):
+        def all_reduce_mean(self, tensors):
+            return list(tensors)
+
+    return InnerNotReduced(rank=mesh.rank, world=mesh.world)
+
+
+def _rows(mesh, *tensors):
+    """This rank's rows of global-batch tensors (all of them without a
+    mesh)."""
+    if mesh is None:
+        return tensors
+    n = tensors[0].shape[0] // mesh.world
+    return tuple(t[mesh.rank * n:(mesh.rank + 1) * n] for t in tensors)
+
+
+def dp_gradients(dev, seed, mesh):
+    """The first step's gradients at global batch 2, averaged over
+    `mesh`'s ranks (one process: None): the derived bf16 train step at
+    128^3, the shipped supernet's first-order step and its pc_k 2 twin's
+    at 128^3, and its second-order step at ξ = PARITY_XI, remat on the
+    cells and edges, at DP_UNROLLED_PATCH^3; with a mesh, that step again
+    with the inner gradient not averaged (`_inner_not_reduced`, kind
+    "second_fault").  Nothing is updated (`_Recorder`s)."""
+    from nas_3d_unet_tpu_torch.search.bilevel import (
+        make_search_step, make_search_step_unrolled)
+    from nas_3d_unet_tpu_torch.train.loop import make_train_step
+
+    out = {}
+    x, y = synthetic_batch(dev, seed)
+    net = flagship_net(seed, "bfloat16").to(dev)
+    rec = _Recorder(net.parameters())
+    make_train_step(net, rec, mesh=mesh)(*_rows(mesh, x, y))
+    out["derived"] = ([], [g.cpu() for g in rec.grads])
+    del net, rec
+    xv, yv = synthetic_batch(dev, seed + 1)
+    kinds = [("first", 1, TRAIN_PATCH), ("pc", 2, TRAIN_PATCH),
+             ("second", 1, DP_UNROLLED_PATCH)]
+    if mesh is not None:
+        kinds.append(("second_fault", 1, DP_UNROLLED_PATCH))
+    for kind, pc_k, edge in kinds:
+        net, alphas, _, _ = search_inputs(dev, seed, pc_k)
+        if edge == TRAIN_PATCH:
+            b = (x, y, xv, yv)
+        else:
+            b = (*_dp_batch(dev, seed, edge, DP_WORLD),
+                 *_dp_batch(dev, seed + 1, edge, DP_WORLD))
+        w_rec, a_rec = _Recorder(net.parameters()), _Recorder(alphas.values())
+        if kind.startswith("second"):
+            _set_remat(net, True, True)
+            step = make_search_step_unrolled(
+                net, w_rec, a_rec, alphas, PARITY_XI,
+                mesh=_inner_not_reduced(mesh) if kind == "second_fault"
+                else mesh)
+        else:
+            step = make_search_step(net, w_rec, a_rec, alphas, mesh=mesh)
+        step(*_rows(mesh, *b))
+        out[kind] = ([g.cpu() for g in a_rec.grads],
+                     [g.cpu() for g in w_rec.grads])
+        del net, alphas, w_rec, a_rec, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def _digest(tensors):
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().view(torch.uint8).numpy()
+                 .tobytes())
+    return h.hexdigest()
+
+
+def dp_rank_main(args) -> int:
+    """One rank of phase "dp" (`--dp-rank`): joins a gloo group of
+    DP_WORLD ranks on the parent's card (`--dp-device`) through the port's
+    `maybe_initialize_distributed`, and writes its results to
+    <dp-dir>/rank<r>.pt: `dp_gradients`, DP_STEPS train steps (the
+    parameters' digest, the launches), a Trainer epoch and
+    `predict_dataset` over phase "cli"'s store."""
+    from nas_3d_unet_tpu_torch import _build
+    from nas_3d_unet_tpu_torch.data.pipeline import dataset_paths
+    from nas_3d_unet_tpu_torch.infer.predict import predict_dataset
+    from nas_3d_unet_tpu_torch.infer.sliding import SlidingWindowPredictor
+    from nas_3d_unet_tpu_torch.models.genotype import default_genotype
+    from nas_3d_unet_tpu_torch.models.unet import make_derived
+    from nas_3d_unet_tpu_torch.ops import _cuda
+    from nas_3d_unet_tpu_torch.parallel import mesh as dp
+    from nas_3d_unet_tpu_torch.train.checkpoint import (load_checkpoint,
+                                                        load_params)
+    from nas_3d_unet_tpu_torch.train.loop import Trainer, make_train_step
+    from nas_3d_unet_tpu_torch.train.optim import make_optimizer
+    from nas_3d_unet_tpu_torch.utils.config import (load_config,
+                                                    parse_overrides)
+    from nas_3d_unet_tpu_torch.utils.precision import strict_fp32
+
+    dev = torch.device(args.dp_device)
+    dp.maybe_initialize_distributed(dev, backend="gloo")
+    mesh = dp.make_mesh()
+    _build.load()
+    res = {"rank": mesh.rank, "world": mesh.world,
+           "backend": str(torch.distributed.get_backend())}
+    with strict_fp32():
+        res["grads"] = dp_gradients(dev, args.seed, mesh)
+        # DP_STEPS train steps, AdamW and augmentation as phase "train"
+        net = flagship_net(args.seed, "bfloat16").to(dev)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(args.seed)
+        step = make_train_step(net, make_optimizer(net.parameters(), 3e-4,
+                                                   1e-4),
+                               augment=AUGMENT, gen=gen, mesh=mesh)
+        x, y = _rows(mesh, *synthetic_batch(dev, args.seed))
+        _cuda.LAUNCHES.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res["losses"] = [step(x, y).item() for _ in range(DP_STEPS)]
+        res["step_s"] = (time.perf_counter() - t0) / DP_STEPS
+        res["launches"] = dict(_cuda.LAUNCHES)
+        res["per_forward"] = _modules_per_forward(net)
+        res["params_digest"] = _digest(net.parameters())
+        del net, step
+        torch.cuda.empty_cache()
+        # a Trainer epoch and predict over phase "cli"'s store
+        root = os.path.dirname(os.path.abspath(__file__))
+        ov = parse_overrides(CLI_OVERRIDES + [
+            f"data.processed_dir={args.dp_store}",
+            f"train.checkpoint_dir={args.dp_dir}/trainer",
+            f"train.genotype_path={args.dp_dir}/absent.json",
+            "train.epochs=1", f"parallel.data_parallel={DP_WORLD}"])
+        cfg = load_config(os.path.join(root, "config.json"), ov)
+        paths = dataset_paths(cfg.data.processed_dir, mesh.rank, mesh.world)
+        tr = Trainer(make_derived(cfg.model, cfg.data.num_classes,
+                                  default_genotype(cfg.model.n_nodes)),
+                     cfg, paths, device=dev, mesh=mesh)
+        t0 = time.perf_counter()
+        state = tr.train()
+        res["trainer_s"] = time.perf_counter() - t0
+        res["trainer_history"] = tr.history
+        res["trainer_digest"] = _digest(torch.from_numpy(v) for k, v in
+                                        sorted(state.items())
+                                        if k.startswith("params/"))
+        del tr, state
+        torch.cuda.empty_cache()
+        net = make_derived(cfg.model, cfg.data.num_classes,
+                           default_genotype(cfg.model.n_nodes),
+                           dtype_override=cfg.infer.dtype)
+        load_params(net, load_checkpoint(f"{args.dp_ckpt}/best.npz"))
+        predictor = SlidingWindowPredictor(
+            net.to(dev), cfg.infer.patch_size, cfg.infer.overlap,
+            cfg.infer.batch_size, cfg.data.num_classes)
+        t0 = time.perf_counter()
+        res["predict"] = predict_dataset(predictor, cfg.data.processed_dir,
+                                         f"{args.dp_dir}/pred",
+                                         cfg.infer.threshold, mesh=mesh)
+        res["predict_s"] = time.perf_counter() - t0
+    torch.save(res, os.path.join(args.dp_dir, f"rank{mesh.rank}.pt"))
+    dp.destroy()
+    return 0
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _torchrun(nproc, args, log):
+    """The CLI under torchrun with `nproc` ranks on the cards (NCCL):
+    (exit code, seconds, the JSON lines it printed)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1",
+           "--nproc_per_node", str(nproc), "--master_addr", "127.0.0.1",
+           "--master_port", str(_free_port()), "-m", "nas_3d_unet_tpu_torch",
+           *args]
+    t0 = time.perf_counter()
+    with open(log, "w") as f:
+        rc = subprocess.run(cmd, cwd=root, stdout=f, stderr=subprocess.STDOUT,
+                            timeout=DP_TIMEOUT).returncode
+    secs = time.perf_counter() - t0
+    with open(log) as f:
+        lines = [json.loads(ln) for ln in f if ln.startswith("{")]
+    return rc, secs, lines
+
+
+def phase_dp(dev, seed, tmp):
+    """Data parallelism on the card: DP_WORLD ranks (processes of this
+    script, `dp_rank_main`) on card 0 over gloo, which carries CUDA
+    tensors (NCCL refuses two ranks on one device), global batch 2, held
+    against this process's one-process steps at the global batch; then
+    the CLI under torchrun at world 1 (NCCL), and at 2 ranks on 2 cards
+    where there are."""
+    from nas_3d_unet_tpu_torch.io.nifti import read_nifti
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    ref = dp_gradients(dev, seed, None)
+    ref_s = time.perf_counter() - t0
+    ddir = os.path.join(tmp, "dp")
+    os.makedirs(ddir)
+    port = _free_port()
+    procs = []
+    for r in range(DP_WORLD):
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(DP_WORLD),
+                   LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(port))
+        log = open(os.path.join(ddir, f"rank{r}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--seed", str(seed),
+             "--dp-rank", str(r), "--dp-dir", ddir, "--dp-device", str(dev),
+             "--dp-store", f"{tmp}/store", "--dp-ckpt", f"{tmp}/a"],
+            cwd=root, env=env, stdout=log, stderr=subprocess.STDOUT), log))
+    t0 = time.perf_counter()
+    rcs = []
+    try:
+        for p, log in procs:
+            rcs.append(p.wait(timeout=DP_TIMEOUT))
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+            log.close()
+    ranks_s = time.perf_counter() - t0
+    if any(rcs):
+        tails = [open(os.path.join(ddir, f"rank{r}.log")).read()[-3000:]
+                 for r in range(DP_WORLD)]
+        raise AssertionError(f"dp ranks exited {rcs}: {tails}")
+    res = [torch.load(os.path.join(ddir, f"rank{r}.pt"), weights_only=False)
+           for r in range(DP_WORLD)]
+
+    rec = {"phase": "dp", "world": DP_WORLD, "backend": res[0]["backend"],
+           "card": "one card, both ranks", "reference_s": ref_s,
+           "ranks_s": ranks_s, "unrolled_patch": DP_UNROLLED_PATCH,
+           "unrolled_patch_why": "time: two ranks fit at 128^3 with remat",
+           "unrolled_xi": PARITY_XI,
+           "step_s": [r["step_s"] for r in res],
+           "losses": [r["losses"] for r in res],
+           "trainer_s": [r["trainer_s"] for r in res],
+           "predict_s": [r["predict_s"] for r in res]}
+    ok = {}
+    # gradients: the ranks' averaged ones against the global-batch step's
+    for kind, a_limits in (("derived", None), ("first", ALPHA_LIMITS),
+                           ("pc", PC_ALPHA_LIMITS),
+                           ("second", UNROLLED_ALPHA_LIMITS)):
+        (ra, rw), (ga, gw) = ref[kind], res[0]["grads"][kind]
+        names = [f"w{i}" for i in range(len(rw))]
+        r = {"w": leaf_stats(names, [g.double() for g in gw],
+                             [g.double() for g in rw])}
+        if a_limits:
+            r["alpha"] = leaf_stats([f"a{i}" for i in range(len(ra))],
+                                    [g.double() for g in ga],
+                                    [g.double() for g in ra], a_limits)
+        r["ranks_bit_equal"] = all(
+            _same(a, b) for a, b in zip(res[0]["grads"][kind],
+                                         res[1]["grads"][kind]))
+        rec[f"grads_{kind}"] = r
+        ok[kind] = (r["w"]["ok"] and (not a_limits or r["alpha"]["ok"])
+                    and r["ranks_bit_equal"])
+    # the planted fault (the inner gradient not averaged) must fall
+    # outside the second-order limits that the sound step meets
+    fa, ra = res[0]["grads"]["second_fault"][0], ref["second"][0]
+    rec["grads_second_fault"] = {"alpha": leaf_stats(
+        [f"a{i}" for i in range(len(ra))], [g.double() for g in fa],
+        [g.double() for g in ra], UNROLLED_ALPHA_LIMITS)}
+    ok["second_fault_caught"] = not rec["grads_second_fault"]["alpha"]["ok"]
+    per = res[0]["per_forward"]
+    expected = {f"{k}_bf16": n * DP_STEPS for k, n in per.items()}
+    rec["launches"] = [r["launches"] for r in res]
+    rec["expected_launches"] = expected
+    rec["params_bit_equal_after_steps"] = len(
+        {r["params_digest"] for r in res}) == 1
+    rec["trainer_history"] = res[0]["trainer_history"]
+    rec["trainer_ranks_equal"] = (
+        res[0]["trainer_history"] == res[1]["trainer_history"]
+        and res[0]["trainer_digest"] == res[1]["trainer_digest"])
+    # predict: each rank its patients; labels bit-equal to phase cli's
+    # one-process predictions from the same checkpoint
+    pred = res[0]["predict"]
+    rec["predict_patients"] = [p["patient"] for p in pred]
+    rec["predict_labels_equal_one_process"] = (
+        pred == res[1]["predict"] and len(pred) == CLI_PATIENTS and all(
+            np.array_equal(read_nifti(p["output"]).data, read_nifti(
+                os.path.join(tmp, "pred", os.path.basename(p["output"])))
+                .data) for p in pred))
+
+    # the CLI under torchrun: world 1 on this card (NCCL), then 2 ranks on
+    # 2 cards where there are
+    cli_args = ["train", "-c", os.path.join(root, "config.json")]
+    for o in CLI_OVERRIDES + [f"data.processed_dir={tmp}/store",
+                              f"train.genotype_path={tmp}/absent.json",
+                              "train.epochs=1"]:
+        cli_args += ["-o", o]
+    runs = {}
+    for n in ((1, 2) if torch.cuda.device_count() >= 2 else (1,)):
+        rc, secs, lines = _torchrun(n, cli_args + [
+            "-o", f"train.checkpoint_dir={tmp}/torchrun{n}"],
+            os.path.join(ddir, f"torchrun{n}.log"))
+        done = [ln for ln in lines if ln.get("event") == "train_done"]
+        runs[n] = {"rc": rc, "seconds": secs, "done": done}
+    rec["torchrun"] = runs
+    if torch.cuda.device_count() < 2:
+        rec["torchrun_two_cards"] = "skipped: one card"
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit(rec)
+    for kind, good in ok.items():
+        if not good and kind == "second_fault_caught":
+            raise AssertionError("dp: the second-order step with its inner "
+                                 "gradient not averaged passes the limits")
+        if not good:
+            raise AssertionError(f"dp {kind}: gradients off the one-process "
+                                 "step's limits or ranks differ")
+    if any(r["launches"] != expected for r in res):
+        raise AssertionError(f"dp launches {rec['launches']} != {expected}")
+    if not rec["params_bit_equal_after_steps"] \
+            or not rec["trainer_ranks_equal"]:
+        raise AssertionError("dp: the ranks' parameters differ")
+    if not all(math.isfinite(v) for r in res for v in r["losses"]) \
+            or not all(math.isfinite(h["mean_dice"])
+                       for h in rec["trainer_history"]):
+        raise AssertionError("dp: non-finite loss or Dice")
+    if not rec["predict_labels_equal_one_process"]:
+        raise AssertionError("dp: predict labels differ from one rank's")
+    for n, r in runs.items():
+        if r["rc"] != 0 or len(r["done"]) != 1 \
+                or r["done"][0].get("backend") != "nccl" \
+                or r["done"][0].get("world") != n:
+            raise AssertionError(f"torchrun {n}: {r}")
+    return rec
+
+
 def write_raw_patients(raw_dir, seed):
     """CLI_PATIENTS BraTS-layout patients under raw_dir/HGG and LGG: four
     RAW_SHAPE fp32 modalities, zero outside an ellipsoid head, and a
@@ -2142,13 +2748,13 @@ def cudnn_backward_repeats(dev, seed):
     return out
 
 
-def phase_cli(dev, seed, slice_s_per_patient, train_rec):
+def phase_cli(dev, seed, slice_s_per_patient, train_rec, tmp):
     """The package's commands on patients written to disk (phase 6b):
     `preprocess`, `train` (twice more to hold a resume against the
     uninterrupted run) and `predict`, in-process through `cli.main`, from
-    the root config.json at full width.  Launches are read around the
+    the root config.json at full width, all under `tmp` (phase "dp" reads
+    its store, checkpoints and predictions).  Launches are read around the
     uninterrupted `train` and around `predict`, and checked last."""
-    import tempfile
 
     from nas_3d_unet_tpu_torch.infer.sliding import grid_coords
     from nas_3d_unet_tpu_torch.io.nifti import read_nifti
@@ -2163,124 +2769,123 @@ def phase_cli(dev, seed, slice_s_per_patient, train_rec):
 
     t_phase = time.perf_counter()
     root = os.path.dirname(os.path.abspath(__file__))
-    with tempfile.TemporaryDirectory() as tmp:
-        write_raw_patients(os.path.join(tmp, "raw"), seed)
-        write_s = time.perf_counter() - t_phase
-        overrides = CLI_OVERRIDES + [
-            f"data.raw_dir={tmp}/raw", f"data.processed_dir={tmp}/store",
-            f"train.genotype_path={tmp}/absent.json",
-            f"infer.output_dir={tmp}/pred"]
-        cfg = load_config(os.path.join(root, "config.json"),
-                          parse_overrides(overrides))
-        base = ["-c", os.path.join(root, "config.json"),
-                "--device", str(dev)]
-        for o in overrides:
-            base += ["-o", o]
+    write_raw_patients(os.path.join(tmp, "raw"), seed)
+    write_s = time.perf_counter() - t_phase
+    overrides = CLI_OVERRIDES + [
+        f"data.raw_dir={tmp}/raw", f"data.processed_dir={tmp}/store",
+        f"train.genotype_path={tmp}/absent.json",
+        f"infer.output_dir={tmp}/pred"]
+    cfg = load_config(os.path.join(root, "config.json"),
+                      parse_overrides(overrides))
+    base = ["-c", os.path.join(root, "config.json"),
+            "--device", str(dev)]
+    for o in overrides:
+        base += ["-o", o]
 
-        # preprocess
-        _, pre_s = _cli(["preprocess", *base])
-        store = sorted(os.listdir(cfg.data.processed_dir))
-        crops = []
-        for name in store:
-            with np.load(os.path.join(cfg.data.processed_dir, name)) as f:
-                if set(f.files) != NPZ_KEYS or f["image"].dtype != np.float32 \
-                        or f["image"].shape[-1] != 4 \
-                        or f["label"].dtype != np.uint8:
-                    raise AssertionError(f"{name}: {f.files}")
-                crops.append(f["image"].shape[:3])
-        if len(store) != CLI_PATIENTS:
-            raise AssertionError(f"preprocess wrote {store}")
+    # preprocess
+    _, pre_s = _cli(["preprocess", *base])
+    store = sorted(os.listdir(cfg.data.processed_dir))
+    crops = []
+    for name in store:
+        with np.load(os.path.join(cfg.data.processed_dir, name)) as f:
+            if set(f.files) != NPZ_KEYS or f["image"].dtype != np.float32 \
+                    or f["image"].shape[-1] != 4 \
+                    or f["label"].dtype != np.uint8:
+                raise AssertionError(f"{name}: {f.files}")
+            crops.append(f["image"].shape[:3])
+    if len(store) != CLI_PATIENTS:
+        raise AssertionError(f"preprocess wrote {store}")
 
-        # train, uninterrupted, with the launches read around it
-        def train(ckpt, epochs):
-            return _cli(["train", *base, "-o", f"train.epochs={epochs}",
-                         "-o", f"train.checkpoint_dir={tmp}/{ckpt}"])
+    # train, uninterrupted, with the launches read around it
+    def train(ckpt, epochs):
+        return _cli(["train", *base, "-o", f"train.epochs={epochs}",
+                     "-o", f"train.checkpoint_dir={tmp}/{ckpt}"])
 
-        _cuda.LAUNCHES.clear()
-        torch.cuda.synchronize()
-        _, train_s = train("a", cfg.train.epochs)
-        torch.cuda.synchronize()
-        train_launches = dict(_cuda.LAUNCHES)
-        epochs = [e for e in _jsonl(f"{tmp}/a/metrics.jsonl")
-                  if e["event"] == "epoch"]
-        with open(f"{tmp}/a/metadata.json") as f:
-            meta = json.load(f)
-        ok_train = (len(epochs) == cfg.train.epochs
-                    and all(math.isfinite(e[k]) for e in epochs
-                            for k in ("train_loss", "val_loss",
-                                      "mean_dice"))
-                    and os.path.exists(f"{tmp}/a/best.npz")
-                    and meta["step"] == cfg.train.epochs
-                    * cfg.train.steps_per_epoch)
+    _cuda.LAUNCHES.clear()
+    torch.cuda.synchronize()
+    _, train_s = train("a", cfg.train.epochs)
+    torch.cuda.synchronize()
+    train_launches = dict(_cuda.LAUNCHES)
+    epochs = [e for e in _jsonl(f"{tmp}/a/metrics.jsonl")
+              if e["event"] == "epoch"]
+    with open(f"{tmp}/a/metadata.json") as f:
+        meta = json.load(f)
+    ok_train = (len(epochs) == cfg.train.epochs
+                and all(math.isfinite(e[k]) for e in epochs
+                        for k in ("train_loss", "val_loss",
+                                  "mean_dice"))
+                and os.path.exists(f"{tmp}/a/best.npz")
+                and meta["step"] == cfg.train.epochs
+                * cfg.train.steps_per_epoch)
 
-        # resume: one epoch in a fresh dir, then resumed to the second
-        _, r1_s = train("b", cfg.train.epochs - 1)
-        _, r2_s = train("b", cfg.train.epochs)
-        spe = cfg.train.steps_per_epoch
-        resumes = [e["step"] for e in _jsonl(f"{tmp}/b/metrics.jsonl")
-                   if e["event"] == "resume"]
-        last = cfg.train.epochs * spe
-        full = ck.load_checkpoint(f"{tmp}/a/ckpt_{last}.npz")
-        resumed = ck.load_checkpoint(f"{tmp}/b/ckpt_{last}.npz")
-        params = [k for k in full if k.startswith("params/")]
-        deltas = {k[len("params/"):]: float(np.abs(
-            full[k].astype(np.float64) - resumed[k]).max()) for k in params}
-        bit_equal = sum(full[k].tobytes() == resumed[k].tobytes()
-                        for k in params)
-        # a checkpoint loaded onto the card and saved again is byte-equal
-        first = ck.load_checkpoint(f"{tmp}/b/ckpt_{spe}.npz")
-        net = make_derived(cfg.model, cfg.data.num_classes,
-                           default_genotype(cfg.model.n_nodes)).to(dev)
-        opt = make_optimizer(net.parameters(), cfg.train.lr,
-                             cfg.train.weight_decay)
-        gen = torch.Generator(device=dev)
-        step = ck.restore_train_state(first, net, opt, gen)
-        again = ck.load_checkpoint(ck.save_checkpoint(
-            f"{tmp}/c", step, ck.train_state(net, opt, step, gen)))
-        resave_equal = set(again) == set(first) and all(
-            again[k].tobytes() == first[k].tobytes() for k in first)
-        del net, opt, gen
-        repeat = grad_repeatability(dev, seed)
+    # resume: one epoch in a fresh dir, then resumed to the second
+    _, r1_s = train("b", cfg.train.epochs - 1)
+    _, r2_s = train("b", cfg.train.epochs)
+    spe = cfg.train.steps_per_epoch
+    resumes = [e["step"] for e in _jsonl(f"{tmp}/b/metrics.jsonl")
+               if e["event"] == "resume"]
+    last = cfg.train.epochs * spe
+    full = ck.load_checkpoint(f"{tmp}/a/ckpt_{last}.npz")
+    resumed = ck.load_checkpoint(f"{tmp}/b/ckpt_{last}.npz")
+    params = [k for k in full if k.startswith("params/")]
+    deltas = {k[len("params/"):]: float(np.abs(
+        full[k].astype(np.float64) - resumed[k]).max()) for k in params}
+    bit_equal = sum(full[k].tobytes() == resumed[k].tobytes()
+                    for k in params)
+    # a checkpoint loaded onto the card and saved again is byte-equal
+    first = ck.load_checkpoint(f"{tmp}/b/ckpt_{spe}.npz")
+    net = make_derived(cfg.model, cfg.data.num_classes,
+                       default_genotype(cfg.model.n_nodes)).to(dev)
+    opt = make_optimizer(net.parameters(), cfg.train.lr,
+                         cfg.train.weight_decay)
+    gen = torch.Generator(device=dev)
+    step = ck.restore_train_state(first, net, opt, gen)
+    again = ck.load_checkpoint(ck.save_checkpoint(
+        f"{tmp}/c", step, ck.train_state(net, opt, step, gen)))
+    resave_equal = set(again) == set(first) and all(
+        again[k].tobytes() == first[k].tobytes() for k in first)
+    del net, opt, gen
+    repeat = grad_repeatability(dev, seed)
 
-        # predict from the uninterrupted run's checkpoint dir (fp32 body)
-        _cuda.LAUNCHES.clear()
-        torch.cuda.synchronize()
-        lines, predict_s = _cli(["predict", *base,
-                                 "-o", f"infer.checkpoint_dir={tmp}/a"])
-        predict_launches = dict(_cuda.LAUNCHES)
-        patients = [ln for ln in lines if "patient" in ln]
-        done = lines[-1]
-        outputs = [read_nifti(p["output"]).data for p in patients]
+    # predict from the uninterrupted run's checkpoint dir (fp32 body)
+    _cuda.LAUNCHES.clear()
+    torch.cuda.synchronize()
+    lines, predict_s = _cli(["predict", *base,
+                             "-o", f"infer.checkpoint_dir={tmp}/a"])
+    predict_launches = dict(_cuda.LAUNCHES)
+    patients = [ln for ln in lines if "patient" in ln]
+    done = lines[-1]
+    outputs = [read_nifti(p["output"]).data for p in patients]
 
-        # search: one warmup epoch, then resumed for one bilevel epoch
-        def search(epochs):
-            args = ["search", *base, "-o", f"search.epochs={epochs}",
-                    "-o", f"search.checkpoint_dir={tmp}/s"]
-            for o in CLI_SEARCH:
-                args += ["-o", o]
-            return _cli(args)
+    # search: one warmup epoch, then resumed for one bilevel epoch
+    def search(epochs):
+        args = ["search", *base, "-o", f"search.epochs={epochs}",
+                "-o", f"search.checkpoint_dir={tmp}/s"]
+        for o in CLI_SEARCH:
+            args += ["-o", o]
+        return _cli(args)
 
-        scfg = load_config(os.path.join(root, "config.json"),
-                           parse_overrides(overrides + CLI_SEARCH)).search
-        _, search1_s = search(1)
-        search_lines, search2_s = search(2)
-        search_events = _jsonl(f"{tmp}/s/metrics.jsonl")
-        search_epochs = [e for e in search_events if e["event"] == "epoch"]
-        search_resumes = [e["step"] for e in search_events
-                          if e["event"] == "resume"]
-        genotype = Genotype.load(f"{tmp}/s/genotype.json")
-        genotype.validate()
-        ok_search = (
-            search_resumes == [scfg.steps_per_epoch]
-            and [(e["epoch"], e["warmup"]) for e in search_epochs]
-            == [(0, True), (1, False)]
-            and all(math.isfinite(e[k]) for e in search_epochs
-                    for k in ("train_loss", "val_loss"))
-            and math.isfinite(search_epochs[1]["eval_loss"])
-            and os.path.exists(f"{tmp}/s/ckpt_{2 * scfg.steps_per_epoch}"
-                               ".npz")
-            and search_lines[-1] == {"event": "search_done",
-                                     "genotype": f"{tmp}/s/genotype.json"})
+    scfg = load_config(os.path.join(root, "config.json"),
+                       parse_overrides(overrides + CLI_SEARCH)).search
+    _, search1_s = search(1)
+    search_lines, search2_s = search(2)
+    search_events = _jsonl(f"{tmp}/s/metrics.jsonl")
+    search_epochs = [e for e in search_events if e["event"] == "epoch"]
+    search_resumes = [e["step"] for e in search_events
+                      if e["event"] == "resume"]
+    genotype = Genotype.load(f"{tmp}/s/genotype.json")
+    genotype.validate()
+    ok_search = (
+        search_resumes == [scfg.steps_per_epoch]
+        and [(e["epoch"], e["warmup"]) for e in search_epochs]
+        == [(0, True), (1, False)]
+        and all(math.isfinite(e[k]) for e in search_epochs
+                for k in ("train_loss", "val_loss"))
+        and math.isfinite(search_epochs[1]["eval_loss"])
+        and os.path.exists(f"{tmp}/s/ckpt_{2 * scfg.steps_per_epoch}"
+                           ".npz")
+        and search_lines[-1] == {"event": "search_done",
+                                 "genotype": f"{tmp}/s/genotype.json"})
 
     stride = tuple(max(1, int(round(p * (1 - cfg.infer.overlap))))
                    for p in cfg.infer.patch_size)
@@ -2773,12 +3378,18 @@ def phase_probes(dev, seed, summary, functions):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    # one rank of phase "dp" (the script starts them itself)
+    for name in ("--dp-rank", "--dp-dir", "--dp-store", "--dp-ckpt",
+                 "--dp-device"):
+        ap.add_argument(name, default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     t_script = time.perf_counter()
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing measured", file=sys.stderr)
         return 2
+    if args.dp_rank is not None:
+        return dp_rank_main(args)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -2816,11 +3427,14 @@ def main() -> int:
         serve_launches, s_per_patient = phase_slice(dev, args.seed)
         phase_train_kernels(dev, gen, summary)
         train_launches, train = phase_train(dev, args.seed)
-        cli = phase_cli(dev, args.seed, s_per_patient, train)
-        search_kernels_s = phase_search_kernels(dev, gen, Summary())
-        search = phase_search(dev, args.seed)
-        unrolled, unrolled_s = phase_search_unrolled(dev, gen, args.seed)
-        pc, both, pc_s = phase_search_pc(dev, gen, args.seed)
+        with tempfile.TemporaryDirectory() as cli_tmp:
+            cli = phase_cli(dev, args.seed, s_per_patient, train, cli_tmp)
+            search_kernels_s = phase_search_kernels(dev, gen, Summary())
+            search = phase_search(dev, args.seed)
+            unrolled, unrolled_s = phase_search_unrolled(dev, gen, args.seed)
+            pc, both, pc_s = phase_search_pc(dev, gen, args.seed)
+            remat, remat_s = phase_remat(dev, args.seed)
+            dp = phase_dp(dev, args.seed, cli_tmp)
         phase_pallas_kernels(dev, gen, summary)
         p_serve_launches, p_s_per_patient = phase_slice(dev, args.seed, True)
         p_train_launches, p_train = phase_train(dev, args.seed, True)
@@ -2849,6 +3463,14 @@ def main() -> int:
              for key in ("step_s", "patches_per_s", "peak_mem_gb",
                          "launches_per_step")},
           "search_unrolled_s": unrolled_s, "search_pc_s": pc_s,
+          **{f"remat_{kind}_{name}_{key}": r[key]
+             for kind, rec in remat.items()
+             for name, r in rec.items()
+             if isinstance(r, dict) and "step_s" in r
+             for key in ("step_s", "peak_mem_gb")},
+          "remat_s": remat_s, "dp_s": dp["seconds"],
+          "dp_step_s": dp["step_s"], "dp_world": dp["world"],
+          "dp_backend": dp["backend"],
           "script_s": time.perf_counter() - t_script,
           "card": smi, "build_s": build_s})
     # each kernel's launches in the run of its path: the default path's

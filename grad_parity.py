@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Readings behind `chip_smoke.py`'s gradient limits, on one NVIDIA GPU.
 
-    python3 grad_parity.py [--seeds 0 1 2 3] [--use-pallas | --search]
+    python3 grad_parity.py [--seeds 0 1 2 3] [--use-pallas | --search |
+                            --remat-repeats]
 
 For each seed: the bf16 flagship at 128^3, batch 2, microbatch 1 (weights
 and batch from the seed, as chip_smoke.py's phase "train" makes them), one
@@ -38,6 +39,14 @@ planted on the kernel path:
   k1dx_raw          (second-order) K1's backward launching K1-dx outside
                     its Function, which autograd then cannot see.
 The second-order step runs at chip_smoke.py's PARITY_XI.
+--remat-repeats: whether a step repeats its own bits, behind chip_smoke.py's
+phase "remat" (cuDNN deterministic, the shipped supernet, the first seed):
+the first-order step, then the second-order step (ξ = search.w_lr, as the
+phase), with remat off, on the cells and on the cells and edges in
+REMAT_SEQUENCE's order; "_early": with PyTorch's early stop, which
+`models/cell.py` `checkpointed` turns off.  Per run its seconds, the
+digests of the α and w gradients and how many w leaves differ from the
+step's first run.
 Prints one JSON line per run: the largest per-leaf relative L2 distance,
 the smallest cosine, the largest relative difference of the norms, and
 whether chip_smoke.py's limits pass it.  Imports nothing of JAX.
@@ -194,6 +203,56 @@ def search_main(seeds, smi, dev) -> None:
             del net, alphas, batches
 
 
+REMAT_SEQUENCE = {"first": ("off", "off", "cells", "cells_early", "cells",
+                            "cells_early", "off", "cells_edges",
+                            "cells_edges_early", "cells", "cells_early",
+                            "off"),
+                  "second": ("off", "cells", "cells_early", "off")}
+
+
+def remat_repeats_main(seed, smi, dev) -> None:
+    """--remat-repeats: each run's gradient digests, in REMAT_SEQUENCE's
+    order, in one process."""
+    import time
+
+    from chip_smoke import (REMAT_SETTINGS, _digest, _remat_grads,
+                            _set_remat, search_inputs)
+    from nas_3d_unet_tpu_torch.models import cell
+
+    def early_stop_kept(enable):
+        return contextlib.nullcontext()
+
+    torch.backends.cudnn.deterministic = True
+    net, alphas, batches, cfg = search_inputs(dev, seed)
+    names = [n for n, _ in net.named_parameters()]
+    for kind, settings in REMAT_SEQUENCE.items():
+        first = None
+        for setting in settings:
+            _set_remat(net, *REMAT_SETTINGS[setting.split("_early")[0]])
+            early = (mock.patch.object(cell, "set_checkpoint_early_stop",
+                                       early_stop_kept)
+                     if setting.endswith("_early")
+                     else contextlib.nullcontext())
+            t0 = time.perf_counter()
+            with early:
+                _, ga, gw = _remat_grads(kind, net, alphas, batches,
+                                         cfg.search.w_lr)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            _set_remat(net, False, False)
+            net.zero_grad(set_to_none=True)
+            gw = [g.cpu() for g in gw]
+            first = first or gw
+            differ = [n for n, a, b in zip(names, gw, first)
+                      if not torch.equal(a, b)]
+            print(json.dumps({"step": kind, "remat": setting, "seed": seed,
+                              "s": secs, "alpha_digest": _digest(ga)[:16],
+                              "w_digest": _digest(gw)[:16],
+                              "w_leaves_differing_from_first": len(differ),
+                              "of": len(names), "first_differing":
+                              differ[:3], "card": smi}), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seeds", type=int, nargs="+", default=[0, 1, 2, 3])
@@ -201,6 +260,9 @@ def main() -> int:
                     help="the use_pallas configuration, faults in K3's dx")
     ap.add_argument("--search", action="store_true",
                     help="the search's α gradients, faults in α's terms")
+    ap.add_argument("--remat-repeats", action="store_true",
+                    help="the search steps' bits, run after run, remat "
+                    "off and on")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("grad_parity: no CUDA device; nothing measured", file=sys.stderr)
@@ -218,6 +280,10 @@ def main() -> int:
     if args.search:
         with strict_fp32():
             search_main(args.seeds, smi, dev)
+        return 0
+    if args.remat_repeats:
+        with strict_fp32():
+            remat_repeats_main(args.seeds[0], smi, dev)
         return 0
     runs = [(s, "none", None) for s in args.seeds]
     if args.use_pallas:

@@ -10,7 +10,8 @@ names mirror the JAX package's so each counterpart is easy to find:
               hand-written CUDA kernels (csrc/) with their plain PyTorch
               twins, ops/_cuda.py: their launch count and checks
     models/   α and genotype, supernet and derived cells, SuperNet and
-              DerivedNet (fp32 or bf16)
+              DerivedNet (fp32 or bf16), activation checkpointing
+    parallel/ data parallelism over torch.distributed (torchrun)
     search/   the bilevel search step, warmup step and the Searcher
     train/    train step, eval step, plateau LR, AdamW, the Trainer and
               its .npz checkpoints

@@ -13,6 +13,16 @@ overrides:
 `train.genotype_path` (the flagship's when there is none).  Every command
 runs on the card (`--device cuda`, the default) and fails where there is
 none; `--device cpu` runs it on the CPU.
+
+Data parallelism: launched by torchrun, one rank per card,
+
+    python -m torch.distributed.run --nproc_per_node N \
+        -m nas_3d_unet_tpu_torch train -c config.json
+
+every rank runs the command on `cuda:LOCAL_RANK` (with `--device cpu`, on
+the CPU over gloo) over its share of the patients, `parallel.data_parallel`
+-1 or N (`parallel/mesh.py`); rank 0 alone preprocesses, writes checkpoints
+and `genotype.json`, and prints the `*_done` events.
 """
 
 from __future__ import annotations
@@ -27,6 +37,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from .parallel import mesh as dp
 from .utils.config import load_config, parse_overrides
 from .utils.device import resolve_device
 
@@ -35,12 +46,27 @@ def _load_cfg(args):
     return load_config(args.config, parse_overrides(args.override))
 
 
+def _mesh(cfg):
+    return dp.make_mesh(cfg.parallel.data_parallel,
+                        cfg.parallel.spatial_parallel)
+
+
+def _done(record: dict) -> None:
+    """A `*_done` event, printed by rank 0; under a process group with
+    its world size and backend."""
+    if dp.is_initialized():
+        record.update(world=dp.world_size(),
+                      backend=str(torch.distributed.get_backend()))
+    if dp.is_main():
+        print(json.dumps(record))
+
+
 def _genotype(cfg, warn: bool):
     from .models.genotype import Genotype, default_genotype
 
     if os.path.exists(cfg.train.genotype_path):
         return Genotype.load(cfg.train.genotype_path)
-    if warn:
+    if warn and dp.is_main():
         print(json.dumps({"event": "warn",
                           "msg": f"genotype {cfg.train.genotype_path} not "
                                  "found; using default_genotype"}))
@@ -51,11 +77,13 @@ def cmd_preprocess(args, device) -> int:
     from .data.preprocess import preprocess_dataset
 
     cfg = _load_cfg(args)
-    outs = preprocess_dataset(cfg.data.raw_dir, cfg.data.processed_dir,
-                              cfg.data.modalities, cfg.data.seg_suffix,
-                              workers=args.workers)
-    print(json.dumps({"event": "preprocess_done", "patients": len(outs),
-                      "out_dir": cfg.data.processed_dir}))
+    if dp.is_main():
+        outs = preprocess_dataset(cfg.data.raw_dir, cfg.data.processed_dir,
+                                  cfg.data.modalities, cfg.data.seg_suffix,
+                                  workers=args.workers)
+        _done({"event": "preprocess_done", "patients": len(outs),
+               "out_dir": cfg.data.processed_dir})
+    dp.barrier()
     return 0
 
 
@@ -66,15 +94,16 @@ def cmd_search(args, device) -> int:
 
     cfg = _load_cfg(args)
     sc = cfg.search
+    mesh = _mesh(cfg)
     searcher = Searcher(make_supernet(cfg.model, cfg.data.num_classes), cfg,
-                        dataset_paths(cfg.data.processed_dir),
+                        dataset_paths(cfg.data.processed_dir, mesh.rank,
+                                      mesh.world),
                         log_path=os.path.join(sc.checkpoint_dir,
                                               "metrics.jsonl"),
-                        device=device)
+                        device=device, mesh=mesh)
     searcher.search()
-    print(json.dumps({"event": "search_done",
-                      "genotype": os.path.join(sc.checkpoint_dir,
-                                               "genotype.json")}))
+    _done({"event": "search_done",
+           "genotype": os.path.join(sc.checkpoint_dir, "genotype.json")})
     return 0
 
 
@@ -84,14 +113,15 @@ def cmd_train(args, device) -> int:
     from .train.loop import Trainer
 
     cfg = _load_cfg(args)
+    mesh = _mesh(cfg)
     net = make_derived(cfg.model, cfg.data.num_classes,
                        _genotype(cfg, warn=True))
     log = os.path.join(cfg.train.checkpoint_dir, "metrics.jsonl")
-    trainer = Trainer(net, cfg, dataset_paths(cfg.data.processed_dir),
-                      log_path=log, device=device)
+    trainer = Trainer(net, cfg, dataset_paths(cfg.data.processed_dir,
+                                              mesh.rank, mesh.world),
+                      log_path=log, device=device, mesh=mesh)
     trainer.train()
-    print(json.dumps({"event": "train_done",
-                      "ckpt_dir": cfg.train.checkpoint_dir}))
+    _done({"event": "train_done", "ckpt_dir": cfg.train.checkpoint_dir})
     return 0
 
 
@@ -119,13 +149,14 @@ def cmd_predict(args, device) -> int:
         cfg.infer.batch_size, cfg.data.num_classes,
         label_mode=cfg.data.label_mode)
     results = predict_dataset(predictor, cfg.data.processed_dir,
-                              cfg.infer.output_dir, cfg.infer.threshold)
+                              cfg.infer.output_dir, cfg.infer.threshold,
+                              mesh=_mesh(cfg))
     done = {"event": "predict_done", "patients": len(results)}
     dices = [r["dice"] for r in results if "dice" in r]
     if dices:
         done["mean_dice"] = {k: float(np.mean([d[k] for d in dices]))
                              for k in ("WT", "TC", "ET")}
-    print(json.dumps(done))
+    _done(done)
     return 0
 
 
@@ -155,11 +186,18 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
-    device = resolve_device(args.device)
-    ctx = (torch.autograd.detect_anomaly(check_nan=True) if args.debug_nans
-           else contextlib.nullcontext())
-    with ctx:
-        return args.fn(args, device)
+    started = not dp.is_initialized()
+    dp.maybe_initialize_distributed(args.device)
+    started = started and dp.is_initialized()
+    try:
+        device = resolve_device(args.device)
+        ctx = (torch.autograd.detect_anomaly(check_nan=True)
+               if args.debug_nans else contextlib.nullcontext())
+        with ctx:
+            return args.fn(args, device)
+    finally:
+        if started:                 # the group this call set up
+            dp.destroy()
 
 
 if __name__ == "__main__":

@@ -6,6 +6,11 @@ intensity jitter `x·scale + shift`.  The random draws are inputs here, so a
 test can hand in the very draws JAX made; `draw_augment` makes them from a
 `torch.Generator` in the reference's order and ranges (flip mask, shift,
 then scale).  JAX's random streams are not reproduced.
+
+Under data parallelism every rank draws the global batch's augmentation
+from the same generator state and applies its own rows (`rank_rows`): the
+augmented global batch is the one-process one, and the ranks' generators
+stay in lockstep, so one checkpointed state serves them all.
 """
 
 from __future__ import annotations
@@ -47,3 +52,10 @@ def augment_batch(x: torch.Tensor, y: torch.Tensor, flip: torch.Tensor,
         ys.append(lab)
     return torch.stack(xs) * scale.to(x.dtype) + shift.to(x.dtype), \
         torch.stack(ys)
+
+
+def rank_rows(draws: Tuple[torch.Tensor, ...], rank: int,
+              rows: int) -> Tuple[torch.Tensor, ...]:
+    """Rank `rank`'s `rows` consecutive rows of global-batch draws: the
+    rows of the global batch that rank holds."""
+    return tuple(t[rank * rows:(rank + 1) * rows] for t in draws)

@@ -262,7 +262,10 @@ class Prefetcher:
         self._thread.join(timeout=2.0)
 
 
-def dataset_paths(processed_dir: str) -> List[str]:
-    """Patient `.npz` paths, sorted (one process: the per-host split of
-    the JAX package waits for ROADMAP.md queue 1, item 9)."""
-    return sorted(glob.glob(os.path.join(processed_dir, "*.npz")))
+def dataset_paths(processed_dir: str, rank: int = 0,
+                  world: int = 1) -> List[str]:
+    """Patient `.npz` paths, sorted, then rank `rank`'s share
+    `[rank::world]` of `world` ranks (the JAX package's per-host split,
+    `pipeline.py:322-331`), taken before `split_patients`."""
+    paths = sorted(glob.glob(os.path.join(processed_dir, "*.npz")))
+    return paths[rank::world]

@@ -9,12 +9,17 @@ A record is a dict: "patient" (name), "image" ((D, H, W, C) fp32, numpy or
 tensor; "image_dev" may hold a copy already on the device), "crop_start",
 "orig_shape", and optionally "label" ("label_dev"), "affine".
 `predict_dataset` runs the loop over a directory of preprocessed patients,
-with a loader thread reading and staging the next patient.
+with a loader thread reading and staging the next patient.  Under data
+parallelism each rank serves its own patients, `[rank::world]` of them in
+name order, and the results are gathered.  This departs from the JAX
+package on purpose, which splits one patient's patch batches over the
+devices (`infer/sliding.py:93-97`): split by patient, the stitch needs no
+collective, so its fp32 order, and with it every patient's labels and
+probabilities, are bit for bit the one-process ones.
 """
 
 from __future__ import annotations
 
-import glob
 import json
 import os
 import queue
@@ -25,10 +30,11 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..data.pipeline import DeviceStager
+from ..data.pipeline import DeviceStager, dataset_paths
 from ..data.preprocess import load_patient
 from ..io.nifti import write_nifti
 from ..metrics.dice import labels_to_regions, region_dice
+from ..parallel.mesh import Mesh
 from .sliding import SlidingWindowPredictor
 
 
@@ -180,18 +186,28 @@ def _iter_patients_prefetched(paths: Sequence[str], device: torch.device
 
 def predict_dataset(predictor: SlidingWindowPredictor, processed_dir: str,
                     out_dir: Optional[str] = None, threshold: float = 0.5,
-                    overlap_output: bool = True) -> List[Dict]:
+                    overlap_output: bool = True,
+                    mesh: Optional[Mesh] = None) -> List[Dict]:
     """Every patient `.npz` under processed_dir, in name order; prints one
-    JSON line per patient.  A loader thread feeds `predict_records`'
-    dispatch/finalize overlap; `overlap_output=False` runs the patients
-    one after the other (`predict_patient`)."""
-    paths = sorted(glob.glob(os.path.join(processed_dir, "*.npz")))
+    JSON line per patient it serves.  A loader thread feeds
+    `predict_records`' dispatch/finalize overlap; `overlap_output=False`
+    runs the patients one after the other (`predict_patient`).  `mesh`:
+    this rank serves patients `[rank::world]`, and every rank returns all
+    ranks' results, in name order."""
+    rank, world = (0, 1) if mesh is None else (mesh.rank, mesh.world)
+    paths = dataset_paths(processed_dir, rank, world)
     records = _iter_patients_prefetched(paths, predictor.device)
     if overlap_output:
-        return predict_records(predictor, records, out_dir, threshold)
-    results = []
-    for _path, rec in records:
-        res = predict_patient(predictor, rec, out_dir, threshold)
-        print(json.dumps(res))
-        results.append(res)
-    return results
+        results = predict_records(predictor, records, out_dir, threshold)
+    else:
+        results = []
+        for _path, rec in records:
+            res = predict_patient(predictor, rec, out_dir, threshold)
+            print(json.dumps(res))
+            results.append(res)
+    if world == 1:
+        return results
+    # rank r served patients r, r + world, ...: interleave them back
+    per_rank = mesh.gather(results)
+    return [per_rank[i % world][i // world]
+            for i in range(sum(map(len, per_rank)))]

@@ -23,9 +23,12 @@ candidates on the first C/pc_k channels of its source, at that width
 (GroupNorm groups as `_gn_groups_for` gives them there); the other
 channels bypass (a stride-2 max pool on down edges, the trilinear 2×
 upsample on up edges), are concatenated after the candidates' sum and
-channel-shuffled (`_pc_shuffle`).  The
-reference's per-edge and per-source remat is not ported (`ROADMAP.md`
-queue 1, item 10).
+channel-shuffled (`_pc_shuffle`).
+Activation checkpointing (the reference's `nn.remat`, `cell.py:277-304`):
+with `remat_edges` every `MixedOp` and every merged `_SourceOps` runs
+under `checkpointed`, so only its inputs and its k edge contributions stay
+live and its ops run again inside the backward; the U-net wraps whole
+cells the same way (`model.remat`), and the two nest.
 
 `use_pallas` goes to the edge ops (`make_op`), as the reference passes it
 (`cell.py:288-290`, `:338-339`); the input projections take it for their
@@ -50,15 +53,19 @@ flax parameter paths.
 
 from __future__ import annotations
 
+import contextlib
 from collections import Counter
 from typing import Dict, List, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from ..ops import pool
 from ..ops.primitives import (DOWN_OPS, NORMAL_OPS, UP_OPS, ConvNormAct,
                               _gn_groups_for, make_op)
+from ..utils.precision import same_policy
 from .genotype import mid_index
 
 # Ops whose output channels can be widened so edges sharing (source, op) run
@@ -81,6 +88,38 @@ def _wide_groups(features: int, gn_groups: int, norm: str) -> int:
     """GroupNorm groups of one edge's slice of a merged op."""
     return _gn_groups_for(features, gn_groups) if norm != "none" \
         else gn_groups
+
+
+def checkpointed(mod: nn.Module, *args):
+    """`mod(*args)` with its activations recomputed in the backward
+    (non-reentrant `torch.utils.checkpoint`) when a graph is recorded; a
+    plain call otherwise, so serving is unchanged.
+
+    The parameters are inputs of the checkpoint, bound by
+    `functional_call`: the recompute then uses the tensors the forward
+    used, also where those were bound from outside (the second-order
+    step's virtual weights, `search/bilevel.py`), and the gradient flows
+    into them.  The recompute runs under the forward's precision settings
+    (`same_policy`) and in full: PyTorch's early stop, which ends it at
+    the last activation the backward needs, saved no step time beyond the
+    run-to-run spread on an H100 (PERF.md), and without it a region
+    launches every kernel of its forward again, on the same inputs, once
+    per backward through it.  The net draws no random numbers, so no RNG
+    state is kept."""
+    if not torch.is_grad_enabled():
+        return mod(*args)
+    named = list(mod.named_parameters())
+    names, n = [k for k, _ in named], len(named)
+    reinstate = same_policy()
+
+    def run(*flat):
+        return functional_call(mod, dict(zip(names, flat[:n])), flat[n:])
+
+    with set_checkpoint_early_stop(False):
+        return checkpoint(run, *(p for _, p in named), *args,
+                          use_reentrant=False, preserve_rng_state=False,
+                          context_fn=lambda: (contextlib.nullcontext(),
+                                              reinstate))
 
 
 class _Named(nn.Module):
@@ -334,9 +373,10 @@ class _SuperCell(_Named):
                  pre_strides: Tuple[int, int], features: int, n_nodes: int,
                  in_srcs: Tuple[str, str], in_ops: Tuple[Sequence[str], ...],
                  norm: str, gn_groups: int, merge_ops: bool,
-                 use_pallas: bool, pc_k: int):
+                 use_pallas: bool, pc_k: int, remat_edges: bool):
         super().__init__()
         self.n_nodes, self.merge_ops = n_nodes, merge_ops
+        self.remat_edges = remat_edges
         self.in_srcs = in_srcs
         self.pre = [self._add(ConvNormAct(ci, features, 1, s, 1, gn_groups,
                                           use_pallas, pallas_conv=False,
@@ -359,6 +399,13 @@ class _SuperCell(_Named):
                            for ops in (*in_ops, *[NORMAL_OPS] * i)]
                           for i in range(n)]
 
+    def _edge(self, name: str, x: torch.Tensor,
+              w: torch.Tensor):
+        """The `MixedOp` or `_SourceOps` child `name` on (x, w), under
+        `checkpointed` with remat_edges."""
+        mod = getattr(self, name)
+        return checkpointed(mod, x, w) if self.remat_edges else mod(x, w)
+
     def _cell(self, x0: torch.Tensor, x1: torch.Tensor,
               in_rows: Tuple[torch.Tensor, torch.Tensor],
               w_mid: torch.Tensor) -> torch.Tensor:
@@ -373,7 +420,7 @@ class _SuperCell(_Named):
                         *(w_mid[mid_index(i, j)] for j in range(i)))
                 acc = None
                 for name, x, w in zip(self.edges[i], srcs, rows):
-                    t = getattr(self, name)(x, w)
+                    t = self._edge(name, x, w)
                     acc = t if acc is None else acc + t
                 nodes.append(acc)
             return torch.cat(nodes, dim=-1)
@@ -384,7 +431,7 @@ class _SuperCell(_Named):
             accs[i] = t if accs[i] is None else accs[i] + t
 
         for src, x, rows in zip(self.in_srcs, (x0, x1), in_rows):
-            for e, t in enumerate(getattr(self, f"src_{src}")(x, rows)):
+            for e, t in enumerate(self._edge(f"src_{src}", x, rows)):
                 add(e, t)
         nodes = []
         for j in range(n):
@@ -393,7 +440,7 @@ class _SuperCell(_Named):
             tgts = range(j + 1, n)
             if tgts:
                 rows = torch.stack([w_mid[mid_index(i, j)] for i in tgts])
-                for i, t in zip(tgts, getattr(self, f"src_n{j}")(node, rows)):
+                for i, t in zip(tgts, self._edge(f"src_n{j}", node, rows)):
                     add(i, t)
         return torch.cat(nodes, dim=-1)
 
@@ -406,10 +453,11 @@ class SuperDownCell(_SuperCell):
     def __init__(self, c_pp: int, c_p: int, features: int, n_nodes: int,
                  norm: str = "group", gn_groups: int = 8,
                  merge_ops: bool = True, s0_stride: int = 1,
-                 use_pallas: bool = False, pc_k: int = 1):
+                 use_pallas: bool = False, pc_k: int = 1,
+                 remat_edges: bool = False):
         super().__init__((c_pp, c_p), (s0_stride, 1), features, n_nodes,
                          ("in0", "in1"), (DOWN_OPS, DOWN_OPS), norm,
-                         gn_groups, merge_ops, use_pallas, pc_k)
+                         gn_groups, merge_ops, use_pallas, pc_k, remat_edges)
 
     def forward(self, s0: torch.Tensor, s1: torch.Tensor, w_in: torch.Tensor,
                 w_mid: torch.Tensor) -> torch.Tensor:
@@ -425,10 +473,10 @@ class SuperUpCell(_SuperCell):
     def __init__(self, c_skip: int, c_below: int, features: int,
                  n_nodes: int, norm: str = "group", gn_groups: int = 8,
                  merge_ops: bool = True, use_pallas: bool = False,
-                 pc_k: int = 1):
+                 pc_k: int = 1, remat_edges: bool = False):
         super().__init__((c_skip, c_below), (1, 1), features, n_nodes,
                          ("below", "skip"), (UP_OPS, NORMAL_OPS), norm,
-                         gn_groups, merge_ops, use_pallas, pc_k)
+                         gn_groups, merge_ops, use_pallas, pc_k, remat_edges)
 
     def forward(self, skip: torch.Tensor, below: torch.Tensor,
                 w_skip: torch.Tensor, w_below: torch.Tensor,

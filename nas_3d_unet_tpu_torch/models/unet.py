@@ -14,6 +14,14 @@ group (`arch_weights_from_alphas`), shared by every cell of a kind.  α
 lives outside the module, so a supernet's `state_dict()` holds the same
 keys as the flax supernet's `params`.
 
+`remat` checkpoints every cell (the reference's per-cell `nn.remat`,
+`unet.py:46-71`): while a graph is recorded, a cell keeps only its inputs
+and output, and its forward runs again inside the backward
+(`cell.checkpointed`); the stem and the head are not wrapped.
+`remat_edges` (the supernet; None: follow `remat`) does the same per
+edge inside the cells.  Both change when the kernels run, never what they
+compute, and neither changes a parameter or its name.
+
 `use_pallas=True` is the reference's `packed=False, use_pallas=True`
 configuration (`config.py:88`): the cells' edge ops run the `use_pallas`
 kernels (K6, K7, K4) and every GroupNorm is K3 (`ops/primitives.py`); the
@@ -35,7 +43,8 @@ import torch
 from torch import nn
 
 from ..ops.primitives import ConvNormAct, Kernel
-from .cell import DerivedDownCell, DerivedUpCell, SuperDownCell, SuperUpCell
+from .cell import (DerivedDownCell, DerivedUpCell, SuperDownCell,
+                   SuperUpCell, checkpointed)
 from .genotype import Genotype
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -49,12 +58,12 @@ class _UNet(nn.Module):
     def __init__(self, kind: str, down: Callable, up: Callable,
                  in_channels: int, num_classes: int, base_channels: int,
                  depth: int, n_nodes: int, gn_groups: int, norm: str,
-                 dtype: str, use_pallas: bool):
+                 dtype: str, use_pallas: bool, remat: bool):
         super().__init__()
         if dtype not in DTYPES:
             raise ValueError(f"dtype {dtype!r} not in {sorted(DTYPES)}")
         self.compute_dtype = DTYPES[dtype]
-        self.depth = depth
+        self.depth, self.remat = depth, remat
         self._down = [f"Checkpoint{kind}DownCell_{i}" for i in range(depth)]
         self._up = [f"Checkpoint{kind}UpCell_{i}" for i in range(depth)]
         c_out = [n_nodes * base_channels]            # channels of each level
@@ -80,16 +89,20 @@ class _UNet(nn.Module):
         """x (B, D, H, W, in_channels) → fp32 logits (B, D, H, W,
         num_classes); D, H, W divisible by 2**depth.  The cells take their
         inputs, then `down_args` / `up_args`."""
+        def cell(name, *args):
+            mod = getattr(self, name)
+            return checkpointed(mod, *args) if self.remat else mod(*args)
+
         stem = self.ConvNormAct_0(x.to(self.compute_dtype))
         feats = [stem]
         s_pp = s_p = stem
         for name in self._down:
-            out = getattr(self, name)(s_pp, s_p, *down_args)
+            out = cell(name, s_pp, s_p, *down_args)
             s_pp, s_p = s_p, out
             feats.append(out)
         below = feats[-1]
         for name, level in zip(self._up, range(self.depth - 1, -1, -1)):
-            below = getattr(self, name)(feats[level], below, *up_args)
+            below = cell(name, feats[level], below, *up_args)
         head = self.Conv_0
         return below.float() @ head.kernel.view(below.shape[-1], -1) \
             + head.bias
@@ -102,7 +115,8 @@ class DerivedNet(_UNet):
                  num_classes: int = 3, base_channels: int = 16,
                  depth: int = 3, n_nodes: int = 3, gn_groups: int = 8,
                  merge_ops: bool = True, dtype: str = "float32",
-                 use_pallas: bool = False, norm: str = "group"):
+                 use_pallas: bool = False, norm: str = "group",
+                 remat: bool = False):
         if genotype.n_nodes != n_nodes:
             raise ValueError(f"genotype has {genotype.n_nodes} nodes, "
                              f"net {n_nodes}")
@@ -115,7 +129,7 @@ class DerivedNet(_UNet):
             lambda c_skip, c_below, c: DerivedUpCell(
                 c_skip, c_below, c, genotype.up, **kw),
             in_channels, num_classes, base_channels, depth, n_nodes,
-            gn_groups, norm, dtype, use_pallas)
+            gn_groups, norm, dtype, use_pallas, remat)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self._run(x, (), ())
@@ -125,13 +139,15 @@ class SuperNet(_UNet):
     """The DARTS supernet: every edge holds every candidate op of its set,
     weighted by softmax(α).  `pc_k` > 1: partial channels (PC-DARTS,
     `models/cell.py`), C/pc_k channels of each edge through its candidate
-    ops; it must divide `base_channels` (`unet.py:131-134`)."""
+    ops; it must divide `base_channels` (`unet.py:131-134`).
+    `remat_edges` None follows `remat` (`unet.py:47-50`)."""
 
     def __init__(self, in_channels: int = 4, num_classes: int = 3,
                  base_channels: int = 16, depth: int = 3, n_nodes: int = 3,
                  gn_groups: int = 8, merge_ops: bool = True,
                  dtype: str = "float32", use_pallas: bool = False,
-                 norm: str = "group", pc_k: int = 1):
+                 norm: str = "group", pc_k: int = 1, remat: bool = False,
+                 remat_edges: bool | None = None):
         if pc_k > 1 and base_channels % pc_k:
             raise ValueError(f"partial_channels={pc_k} must divide "
                              f"base_channels={base_channels}")
@@ -139,9 +155,11 @@ class SuperNet(_UNet):
                         base_channels=base_channels, depth=depth,
                         n_nodes=n_nodes, gn_groups=gn_groups,
                         merge_ops=merge_ops, dtype=dtype,
-                        use_pallas=use_pallas, norm=norm, pc_k=pc_k)
+                        use_pallas=use_pallas, norm=norm, pc_k=pc_k,
+                        remat=remat, remat_edges=remat_edges)
         kw = dict(norm=norm, gn_groups=gn_groups, merge_ops=merge_ops,
-                  use_pallas=use_pallas, pc_k=pc_k)
+                  use_pallas=use_pallas, pc_k=pc_k,
+                  remat_edges=remat if remat_edges is None else remat_edges)
         super().__init__(
             "Super",
             lambda c_pp, c_p, c, s: SuperDownCell(c_pp, c_p, c, n_nodes,
@@ -149,7 +167,7 @@ class SuperNet(_UNet):
             lambda c_skip, c_below, c: SuperUpCell(c_skip, c_below, c,
                                                    n_nodes, **kw),
             in_channels, num_classes, base_channels, depth, n_nodes,
-            gn_groups, norm, dtype, use_pallas)
+            gn_groups, norm, dtype, use_pallas, remat)
         self.settings = settings
 
     def clone(self, **overrides) -> "SuperNet":
@@ -182,7 +200,9 @@ def make_supernet(model_cfg, num_classes: int) -> SuperNet:
                     depth=model_cfg.depth, n_nodes=model_cfg.n_nodes,
                     gn_groups=model_cfg.gn_groups,
                     merge_ops=model_cfg.merge_ops, dtype=model_cfg.dtype,
-                    use_pallas=model_cfg.use_pallas, norm=model_cfg.norm)
+                    use_pallas=model_cfg.use_pallas, norm=model_cfg.norm,
+                    remat=model_cfg.remat,
+                    remat_edges=model_cfg.remat_edges)
 
 
 def make_derived(model_cfg, num_classes: int, genotype: Genotype,
@@ -197,4 +217,5 @@ def make_derived(model_cfg, num_classes: int, genotype: Genotype,
                       gn_groups=model_cfg.gn_groups,
                       merge_ops=model_cfg.merge_ops,
                       dtype=dtype_override or model_cfg.dtype,
-                      use_pallas=model_cfg.use_pallas, norm=model_cfg.norm)
+                      use_pallas=model_cfg.use_pallas, norm=model_cfg.norm,
+                      remat=model_cfg.remat)

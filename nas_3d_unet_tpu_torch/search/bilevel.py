@@ -33,7 +33,14 @@ the step refuses a net that holds them (`ROADMAP.md` queue 1, item 14).
 `search.partial_channels` > 1 (PC-DARTS) builds the `Searcher`'s supernet
 with that `pc_k` (`models/cell.py`).
 
-The model runs eagerly on one device; there is no jit, donation or mesh.
+The model runs eagerly; there is no jit or donation.  Data parallelism
+(`parallel/mesh.py`, the reference's `bilevel.py:254-300`): with a `Mesh`
+each rank runs its own rows of the global train and val batches, and both
+steps average their gradients (and losses) over the ranks before AdamW.
+In the second-order step the inner gradient is averaged inside the graph
+(`Mesh.all_reduce_mean`), so the virtual step is the global batch's and
+each rank's α gradient holds every rank's Hessian-vector terms; the α
+gradients are then averaged as the first-order ones are.
 """
 
 from __future__ import annotations
@@ -50,7 +57,6 @@ from torch import nn
 from torch.func import functional_call
 
 from .. import bridge
-from ..data.augment import augment_batch, draw_augment
 from ..data.pipeline import (PatchGenerator, PatientCache, Prefetcher,
                              split_patients)
 from ..metrics.losses import get_loss_fn
@@ -61,11 +67,12 @@ from ..train.checkpoint import (latest_checkpoint, load_checkpoint,
                                 optimizer_state, restore_optimizer_state,
                                 restore_train_state, save_checkpoint,
                                 train_state)
-from ..train.loop import (loss_and_grads, make_eval_step,
-                          warn_stream_geometry_mismatch)
+from ..parallel.mesh import Mesh, is_main, local_batch_size, make_mesh
+from ..train.loop import (augmenter, evaluate, loss_and_grads,
+                          make_eval_step, warn_stream_geometry_mismatch)
 from ..train.optim import AdamW, make_optimizer
 from ..utils.device import resolve_device
-from ..utils.logging import MetricsLogger, is_primary_process
+from ..utils.logging import MetricsLogger
 from ..utils.params import count_params
 
 
@@ -95,41 +102,46 @@ def _frozen(params: Sequence[torch.Tensor]):
             p.requires_grad_(True)
 
 
-def _augmenter(augment: Optional[dict],
-               gen: Optional[torch.Generator]) -> Callable:
-    """(x, y) → (x, y) augmented with draws from `gen`, which `augment`
-    needs; identity when `augment` is None."""
-    if augment is None:
-        return lambda x, y: (x, y)
-    if gen is None:
-        raise ValueError("augment needs a generator (gen=)")
-
-    def apply(x, y):
-        return augment_batch(x, y, *draw_augment(gen, x.shape[0],
-                                                 x.shape[-1], **augment))
-
-    return apply
-
-
 def _w_update(bound: ArchBound, w_opt: AdamW, x: torch.Tensor,
               y: torch.Tensor, loss_fn: Callable,
-              alphas: Mapping[str, torch.Tensor]) -> torch.Tensor:
-    """One w-step under `alphas` (no graph to α); returns the loss."""
+              alphas: Mapping[str, torch.Tensor],
+              mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """One w-step under `alphas` (no graph to α), its gradients averaged
+    over `mesh`'s ranks; returns the loss (averaged too)."""
     with torch.no_grad():
         bound.arch_weights = arch_weights_from_alphas(alphas)
     loss, grads = loss_and_grads(bound, x, y, loss_fn)
+    if mesh is not None:
+        mesh.all_reduce_mean_([*grads, loss])
     w_opt.step(grads)
     return loss
+
+
+def _alpha_update(a_opt: AdamW, a_grads: Sequence[torch.Tensor],
+                  val_loss: torch.Tensor,
+                  mesh: Optional[Mesh]) -> torch.Tensor:
+    """An AdamW step on α from `a_grads` (one per α leaf, zeros for the
+    leaves the loss does not reach), averaged over `mesh`'s ranks with the
+    val loss; returns the val loss, detached (averaged too)."""
+    a_grads = [g.contiguous() for g in a_grads]
+    val_loss = val_loss.detach().clone()
+    if mesh is not None:
+        mesh.all_reduce_mean_([*a_grads, val_loss])
+    a_opt.step(a_grads)
+    return val_loss
 
 
 def make_search_step(net: nn.Module, w_opt: AdamW, a_opt: AdamW,
                      alphas: Mapping[str, torch.Tensor],
                      augment: Optional[dict] = None,
                      label_mode: str = "regions", augment_val: bool = False,
-                     gen: Optional[torch.Generator] = None):
+                     gen: Optional[torch.Generator] = None,
+                     mesh: Optional[Mesh] = None):
     """(x_tr, y_tr, x_val, y_val) → {"train_loss", "val_loss"} (0-d fp32
     tensors); updates α (`alphas`, the leaf tensors `a_opt` holds, in
-    place) and then the weights (`w_opt`'s, the supernet's).
+    place) and then the weights (`w_opt`'s, the supernet's).  `mesh`: the
+    batches are this rank's rows of the global ones, and both steps
+    average over the ranks.
 
     `augment`: None, or dict(flip_prob=…, intensity_shift=…,
     intensity_scale=…) for the train batch; `augment_val` also augments
@@ -137,7 +149,7 @@ def make_search_step(net: nn.Module, w_opt: AdamW, a_opt: AdamW,
     from clean batches by default).  Draws come from `gen`, a generator on
     the net's device that the caller keeps, train batch first."""
     loss_fn = get_loss_fn(label_mode)
-    aug = _augmenter(augment, gen)
+    aug = augmenter(augment, gen, mesh)
     bound = ArchBound(net)
 
     def step(x_tr, y_tr, x_val, y_val) -> Dict[str, torch.Tensor]:
@@ -151,28 +163,34 @@ def make_search_step(net: nn.Module, w_opt: AdamW, a_opt: AdamW,
             a_grads = torch.autograd.grad(val_loss, a_opt.params,
                                           allow_unused=True,
                                           materialize_grads=True)
-        a_opt.step(list(a_grads))
+        val_loss = _alpha_update(a_opt, a_grads, val_loss, mesh)
         # (2) weight step on the train batch, under the updated α
-        train_loss = _w_update(bound, w_opt, x_tr, y_tr, loss_fn, alphas)
-        return {"train_loss": train_loss, "val_loss": val_loss.detach()}
+        train_loss = _w_update(bound, w_opt, x_tr, y_tr, loss_fn, alphas,
+                               mesh)
+        return {"train_loss": train_loss, "val_loss": val_loss}
 
     return step
 
 
 def unrolled_alpha_grads(net: nn.Module, alphas: Mapping[str, torch.Tensor],
                          a_params: Sequence[torch.Tensor], xi: float,
-                         x_tr, y_tr, x_val, y_val, loss_fn: Callable
+                         x_tr, y_tr, x_val, y_val, loss_fn: Callable,
+                         mesh: Optional[Mesh] = None
                          ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
     """(L_val(w − ξ·∇_w L_train(w, α), α), its gradient in each of
     `a_params`, the leaf α tensors `alphas` holds): the JAX step's
     `val_after_virtual_step` (`bilevel.py:128-132`) and its gradient.
     The virtual weights cover every parameter of `net`, which runs on them
     through `functional_call`; the inner gradient keeps its graph, so the
-    α gradient holds the Hessian-vector term."""
+    α gradient holds the Hessian-vector term.  `mesh`: the inner gradient
+    is the mean over the ranks, taken inside the graph; the loss and the α
+    gradients returned are this rank's (the step averages them)."""
     names, params = zip(*net.named_parameters())
     aw = arch_weights_from_alphas(alphas)
     g_w = torch.autograd.grad(loss_fn(net(x_tr, aw), y_tr), params,
                               create_graph=True)
+    if mesh is not None:
+        g_w = mesh.all_reduce_mean(g_w)
     w_virt = {n: p - xi * g for n, p, g in zip(names, params, g_w)}
     val_loss = loss_fn(functional_call(net, w_virt, (x_val, aw)), y_val)
     a_grads = torch.autograd.grad(val_loss, a_params, allow_unused=True,
@@ -185,7 +203,8 @@ def make_search_step_unrolled(net: nn.Module, w_opt: AdamW, a_opt: AdamW,
                               augment: Optional[dict] = None,
                               label_mode: str = "regions",
                               augment_val: bool = False,
-                              gen: Optional[torch.Generator] = None):
+                              gen: Optional[torch.Generator] = None,
+                              mesh: Optional[Mesh] = None):
     """The second-order DARTS step (`search.unrolled`): as
     `make_search_step`, but the α-step's gradient is that of the val loss
     after a virtual w-step of size `xi` (`unrolled_alpha_grads`); the
@@ -198,7 +217,7 @@ def make_search_step_unrolled(net: nn.Module, w_opt: AdamW, a_opt: AdamW,
             "through the use_pallas kernels) is not supported by the "
             "PyTorch port (ROADMAP.md queue 1, item 14)")
     loss_fn = get_loss_fn(label_mode)
-    aug = _augmenter(augment, gen)
+    aug = augmenter(augment, gen, mesh)
     bound = ArchBound(net)
 
     def step(x_tr, y_tr, x_val, y_val) -> Dict[str, torch.Tensor]:
@@ -207,10 +226,12 @@ def make_search_step_unrolled(net: nn.Module, w_opt: AdamW, a_opt: AdamW,
             x_val, y_val = aug(x_val, y_val)
         # (1) architecture step on the unrolled objective
         val_loss, a_grads = unrolled_alpha_grads(
-            net, alphas, a_opt.params, xi, x_tr, y_tr, x_val, y_val, loss_fn)
-        a_opt.step(a_grads)
+            net, alphas, a_opt.params, xi, x_tr, y_tr, x_val, y_val, loss_fn,
+            mesh)
+        val_loss = _alpha_update(a_opt, a_grads, val_loss, mesh)
         # (2) weight step on the train batch, under the updated α
-        train_loss = _w_update(bound, w_opt, x_tr, y_tr, loss_fn, alphas)
+        train_loss = _w_update(bound, w_opt, x_tr, y_tr, loss_fn, alphas,
+                               mesh)
         return {"train_loss": train_loss, "val_loss": val_loss}
 
     return step
@@ -220,16 +241,17 @@ def make_warmup_step(net: nn.Module, w_opt: AdamW,
                      alphas: Mapping[str, torch.Tensor],
                      augment: Optional[dict] = None,
                      label_mode: str = "regions",
-                     gen: Optional[torch.Generator] = None):
+                     gen: Optional[torch.Generator] = None,
+                     mesh: Optional[Mesh] = None):
     """(x_tr, y_tr) → {"train_loss", "val_loss" (0)}: the w-step alone,
     α frozen (the warmup epochs)."""
     loss_fn = get_loss_fn(label_mode)
-    aug = _augmenter(augment, gen)
+    aug = augmenter(augment, gen, mesh)
     bound = ArchBound(net)
 
     def step(x_tr, y_tr) -> Dict[str, torch.Tensor]:
         x_tr, y_tr = aug(x_tr, y_tr)
-        loss = _w_update(bound, w_opt, x_tr, y_tr, loss_fn, alphas)
+        loss = _w_update(bound, w_opt, x_tr, y_tr, loss_fn, alphas, mesh)
         return {"train_loss": loss, "val_loss": torch.zeros_like(loss)}
 
     return step
@@ -262,11 +284,15 @@ class Searcher:
     or `search.w_lr` where that is 0.  The train batch is flipped
     and jittered inside the step, with draws from the Searcher's generator
     (saved in every checkpoint); the patch streams never augment on the
-    host."""
+    host.  `mesh`: the data axis (None: `make_mesh` from `cfg.parallel`);
+    the search batch is the global one, each rank's streams are offset by
+    100003·rank, every rank starts from rank 0's state, the α-split eval
+    is averaged over the ranks and rank 0 writes `genotype.json`."""
 
     def __init__(self, supernet: nn.Module, cfg, data_paths: Sequence[str],
                  log_path: Optional[str] = None,
-                 device: torch.device | str | None = None):
+                 device: torch.device | str | None = None,
+                 mesh: Optional[Mesh] = None):
         sc, dc = cfg.search, cfg.data
         # partial channels: the supernet rebuilt with that pc_k, so that
         # every consumer below (steps, eval, init) sees one architecture
@@ -274,6 +300,8 @@ class Searcher:
             supernet = supernet.clone(pc_k=sc.partial_channels)
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = mesh or make_mesh(cfg.parallel.data_parallel,
+                                      cfg.parallel.spatial_parallel)
         self.net = supernet.to(self.device)
         self.alphas = {k: torch.zeros(s, device=self.device,
                                       requires_grad=True)
@@ -291,14 +319,16 @@ class Searcher:
             xi = sc.xi if sc.xi > 0 else sc.w_lr        # `bilevel.py:221`
             self.search_step = make_search_step_unrolled(
                 self.net, self.w_opt, self.a_opt, self.alphas, xi, aug,
-                dc.label_mode, self.augment_val, gen=self.gen)
+                dc.label_mode, self.augment_val, gen=self.gen,
+                mesh=self.mesh)
         else:
             self.search_step = make_search_step(
                 self.net, self.w_opt, self.a_opt, self.alphas, aug,
-                dc.label_mode, self.augment_val, gen=self.gen)
+                dc.label_mode, self.augment_val, gen=self.gen,
+                mesh=self.mesh)
         self.warmup_step = make_warmup_step(self.net, self.w_opt,
                                             self.alphas, aug, dc.label_mode,
-                                            gen=self.gen)
+                                            gen=self.gen, mesh=self.mesh)
         # the α-split eval: loss and per-region Dice with the current α
         # frozen (the reference's `Searching.validate`)
         self.bound = ArchBound(self.net)
@@ -311,8 +341,11 @@ class Searcher:
         self.w_cache = PatientCache(w_paths, dc.label_mode)
         self.a_cache = PatientCache(a_paths or w_paths, dc.label_mode)
         self.patch = dc.patch_size
-        # search.batch_size overrides data.batch_size (0 = inherit)
+        # search.batch_size overrides data.batch_size (0 = inherit); it is
+        # the global batch, each rank streaming its slice
         self.batch = sc.batch_size or dc.batch_size
+        self.local_batch = local_batch_size(self.batch, "search batch size",
+                                            world=self.mesh.world)
         self.step = 0
         self._resume_meta: dict = {}
 
@@ -366,6 +399,12 @@ class Searcher:
                 self._resume_meta = json.load(f)
         self.logger.log(event="resume", step=step, path=path)
 
+    def sync_state(self) -> None:
+        """Every rank takes rank 0's weights, α and both AdamW states."""
+        self.mesh.broadcast_([*self.net.parameters(), *self.w_opt.mu,
+                              *self.w_opt.nu, *self.alphas.values(),
+                              *self.a_opt.mu, *self.a_opt.nu])
+
     def search(self, epochs: Optional[int] = None,
                steps_per_epoch: Optional[int] = None
                ) -> Tuple[Dict[str, np.ndarray], Optional[Genotype]]:
@@ -378,6 +417,7 @@ class Searcher:
         spe = sc.steps_per_epoch if steps_per_epoch is None \
             else steps_per_epoch
         self.resume_or_init(sc.seed)
+        self.sync_state()
         warn_stream_geometry_mismatch(self._resume_meta, self.logger,
                                       steps_per_epoch=spe,
                                       val_steps=sc.val_steps,
@@ -389,15 +429,17 @@ class Searcher:
         # resume trajectory-exact: g_w advances every step, g_a and g_eval
         # only in bilevel epochs
         non_warm = max(0, start_epoch - sc.warmup_epochs)
-        g_w = PatchGenerator(self.w_cache, self.patch, self.batch,
-                             seed=sc.seed + 101, augment=False,
+        # a rank's streams offset by 100003·rank (`bilevel.py:254-300`)
+        seed = sc.seed + 100003 * self.mesh.rank
+        g_w = PatchGenerator(self.w_cache, self.patch, self.local_batch,
+                             seed=seed + 101, augment=False,
                              start_step=self.step)
-        g_a = PatchGenerator(self.a_cache, self.patch, self.batch,
-                             seed=sc.seed + 202, augment=False,
+        g_a = PatchGenerator(self.a_cache, self.patch, self.local_batch,
+                             seed=seed + 202, augment=False,
                              start_step=non_warm * spe)
         # its own generator: g_a is drained by pf_a's thread
-        g_eval = PatchGenerator(self.a_cache, self.patch, self.batch,
-                                seed=sc.seed + 303, augment=False,
+        g_eval = PatchGenerator(self.a_cache, self.patch, self.local_batch,
+                                seed=seed + 303, augment=False,
                                 start_step=non_warm * sc.val_steps)
         pf_w = Prefetcher(g_w, self.device, depth=2)
         pf_a = Prefetcher(g_a, self.device, depth=2)
@@ -433,15 +475,16 @@ class Searcher:
                 self.logger.log(**rec)
                 if (epoch + 1) % sc.checkpoint_every == 0 \
                         or epoch == epochs - 1:
+                    if is_main():                       # `bilevel.py:372`
+                        os.makedirs(sc.checkpoint_dir, exist_ok=True)
+                        genotype.save(os.path.join(sc.checkpoint_dir,
+                                                   "genotype.json"))
                     save_checkpoint(
                         sc.checkpoint_dir, self.step, self.state(),
                         metadata={"epoch": epoch, "steps_per_epoch": spe,
                                   "val_steps": sc.val_steps,
                                   "warmup_epochs": sc.warmup_epochs,
                                   "config": self.cfg.to_dict()})
-                    if is_primary_process():
-                        genotype.save(os.path.join(sc.checkpoint_dir,
-                                                   "genotype.json"))
         finally:
             pf_w.close()
             pf_a.close()
@@ -450,14 +493,8 @@ class Searcher:
     def evaluate(self, gen: PatchGenerator,
                  val_steps: int) -> Dict[str, float]:
         """Frozen-α supernet eval on the α-split: mean loss and per-region
-        Dice over `val_steps` batches."""
+        Dice over `val_steps` batches, averaged over the ranks."""
         with torch.no_grad():
             self.bound.arch_weights = arch_weights_from_alphas(self.alphas)
-        accum: Dict[str, list] = {}
-        for _ in range(val_steps):
-            x, y = gen.next()
-            m = self.eval_step(torch.from_numpy(x).to(self.device),
-                               torch.from_numpy(y).to(self.device))
-            for k, v in m.items():
-                accum.setdefault(k, []).append(float(v))
-        return {k: float(np.mean(v)) for k, v in accum.items()}
+        return evaluate(self.eval_step, gen, val_steps, self.device,
+                        self.mesh)

@@ -33,7 +33,7 @@ import torch
 from torch import nn
 
 from .. import bridge
-from ..utils.logging import is_primary_process
+from ..parallel.mesh import barrier, is_main
 from .optim import AdamW
 
 _CKPT_RE = re.compile(r"ckpt_(\d+)\.npz$")
@@ -52,22 +52,25 @@ def save_checkpoint(directory: str, step: int,
                     metadata: Optional[dict] = None,
                     best: bool = False) -> str:
     """Write `state` to directory/ckpt_{step}.npz atomically; `best=True`
-    also publishes `best.npz`.  Only the primary process writes."""
+    also publishes `best.npz`.  Every rank calls it; only rank 0 writes
+    (the ranks hold the same state, and several writers would race on the
+    files, `checkpoint.py:34-38`), and every rank returns once the files
+    are there (`barrier`)."""
     path = os.path.join(directory, f"ckpt_{step}.npz")
-    if not is_primary_process():
-        return path
-    os.makedirs(directory, exist_ok=True)
-    _write_npz(path, state)
-    if metadata is not None:
-        mtmp = os.path.join(directory, "metadata.json.tmp")
-        with open(mtmp, "w") as f:
-            json.dump({"step": step, **metadata}, f, indent=2)
-        os.replace(mtmp, os.path.join(directory, "metadata.json"))
-    if best:
-        _write_npz(os.path.join(directory, "best.npz"), state)
-    # prune old step checkpoints (never the best copy)
-    for _, p in sorted(_list_ckpts(directory))[:-keep]:
-        os.remove(p)
+    if is_main():
+        os.makedirs(directory, exist_ok=True)
+        _write_npz(path, state)
+        if metadata is not None:
+            mtmp = os.path.join(directory, "metadata.json.tmp")
+            with open(mtmp, "w") as f:
+                json.dump({"step": step, **metadata}, f, indent=2)
+            os.replace(mtmp, os.path.join(directory, "metadata.json"))
+        if best:
+            _write_npz(os.path.join(directory, "best.npz"), state)
+        # prune old step checkpoints (never the best copy)
+        for _, p in sorted(_list_ckpts(directory))[:-keep]:
+            os.remove(p)
+    barrier()
     return path
 
 

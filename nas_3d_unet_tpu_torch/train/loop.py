@@ -10,8 +10,19 @@ gradient over the full batch or as the mean over strided microbatch slices
 The model runs eagerly, so the step is a Python function over the model's
 own parameters; there is no jit, donation or scan.  Entry points run where
 the model's parameters are: on the card unless the caller put the model on
-the CPU.  The Trainer runs on one device (no mesh, no multi-host, no
-`steps_per_call` scan).
+the CPU.  There is no `steps_per_call` scan.
+
+Data parallelism (`parallel/mesh.py`, the reference's `loop.py:316-365`):
+each rank of a `Mesh` runs its own rows of the global batch, and the step
+averages the gradients (and the loss) over the ranks before AdamW.  Both
+losses are means of per-sample terms (`metrics/losses.py`), so the mean of
+the ranks' gradients is the global batch's.  A microbatch of m slices each
+rank's local rows, m / world of them a slice, so a slice is the global
+batch's strided slice; where world does not divide m the step warns and
+takes the full local batch (`loop.py:316-333`).  The Trainer feeds each
+rank batch / world rows from host streams offset by 100003·rank, starts
+every rank from rank 0's state, and averages the eval metrics over the
+ranks, so the plateau controller takes the same branch everywhere.
 """
 
 from __future__ import annotations
@@ -26,12 +37,13 @@ import numpy as np
 import torch
 
 from .. import bridge
-from ..data.augment import augment_batch, draw_augment
+from ..data.augment import augment_batch, draw_augment, rank_rows
 from ..data.pipeline import (PatchGenerator, PatientCache, Prefetcher,
                              split_patients)
 from ..metrics.dice import (class_indices_to_labels, class_logits_to_regions,
                             labels_to_regions, region_dice)
 from ..metrics.losses import get_loss_fn
+from ..parallel.mesh import Mesh, local_batch_size, make_mesh
 from ..utils.device import resolve_device
 from ..utils.logging import MetricsLogger
 from ..utils.params import count_params
@@ -72,10 +84,45 @@ def loss_and_grads(model: torch.nn.Module, x: torch.Tensor, y: torch.Tensor,
     return loss.detach(), [p.grad for p in params]
 
 
+def local_microbatch(microbatch: int, world: int) -> int:
+    """Each rank's share of a global `microbatch`: microbatch / world, or
+    0 (the full local batch, with a warning) where world does not divide
+    it (`loop.py:316-333`)."""
+    if world == 1 or not microbatch:
+        return microbatch
+    if microbatch % world:
+        warnings.warn(
+            f"train.microbatch={microbatch} is not a multiple of the data-"
+            f"axis size {world}; taking the full-batch gradient (the same "
+            "update, fp reduction order aside)")
+        return 0
+    return microbatch // world
+
+
+def augmenter(augment: Optional[dict], gen: Optional[torch.Generator],
+              mesh: Optional[Mesh] = None) -> Callable:
+    """(x, y) → (x, y) flipped and jittered with draws from `gen`, which
+    `augment` needs; identity when `augment` is None.  With a `mesh`, x is
+    this rank's rows of the global batch: the draws are the global
+    batch's, and the rank applies its own rows (`rank_rows`)."""
+    if augment is None:
+        return lambda x, y: (x, y)
+    if gen is None:
+        raise ValueError("augment needs a generator (gen=)")
+    rank, world = (0, 1) if mesh is None else (mesh.rank, mesh.world)
+
+    def apply(x, y):
+        draws = draw_augment(gen, x.shape[0] * world, x.shape[-1], **augment)
+        return augment_batch(x, y, *rank_rows(draws, rank, x.shape[0]))
+
+    return apply
+
+
 def make_train_step(model: torch.nn.Module, opt: AdamW,
                     augment: Optional[dict] = None,
                     label_mode: str = "regions", microbatch: int = 0,
-                    seed: int = 0, gen: Optional[torch.Generator] = None):
+                    seed: int = 0, gen: Optional[torch.Generator] = None,
+                    mesh: Optional[Mesh] = None):
     """(x, y) → fp32 loss; updates `model`'s parameters in place.
 
     `augment`: None, or dict(flip_prob=…, intensity_shift=…,
@@ -84,18 +131,24 @@ def make_train_step(model: torch.nn.Module, opt: AdamW,
     0 = full-batch gradient, > 0 = the mean over microbatch slices.  The
     augmentation draws come from `gen`, a generator on the model's device
     that the caller keeps (a checkpoint saves its state), or, without one,
-    from a new generator seeded with `seed`."""
+    from a new generator seeded with `seed`.  `mesh`: x and y are this
+    rank's rows of the global batch, `microbatch` is the global one, and
+    the gradients and the loss are averaged over the ranks (see the module
+    docstring)."""
     loss_fn = get_loss_fn(label_mode)
     if gen is None:
         gen = torch.Generator(device=next(model.parameters()).device)
         gen.manual_seed(seed)
+    aug = augmenter(augment, gen, mesh)
+    if mesh is not None:
+        microbatch = local_microbatch(microbatch, mesh.world)
     model.train()
 
     def step(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-        if augment is not None:
-            draws = draw_augment(gen, x.shape[0], x.shape[-1], **augment)
-            x, y = augment_batch(x, y, *draws)
+        x, y = aug(x, y)
         loss, grads = loss_and_grads(model, x, y, loss_fn, microbatch)
+        if mesh is not None:
+            mesh.all_reduce_mean_([*grads, loss])
         opt.step(grads)
         return loss
 
@@ -180,18 +233,25 @@ class Trainer:
     periodic checkpoints, and step-exact resume from the latest one.
 
     `net`: a `DerivedNet`, moved to `device` (None: the card); `cfg`: a
-    `Config`; `data_paths`: the patients' `.npz` files.
-    `device_augment`: flips and jitter inside the step, drawn from the
-    Trainer's generator (saved in every checkpoint); False: the host
-    augmentation of `PatchGenerator`."""
+    `Config`; `data_paths`: the patients' `.npz` files (this rank's share,
+    `dataset_paths`).  `device_augment`: flips and jitter inside the step,
+    drawn from the Trainer's generator (saved in every checkpoint); False:
+    the host augmentation of `PatchGenerator`.  `mesh`: the data axis
+    (None: `make_mesh` from `cfg.parallel`); `data.batch_size` is the
+    global batch."""
 
     def __init__(self, net: torch.nn.Module, cfg, data_paths: Sequence[str],
                  log_path: Optional[str] = None, device_augment: bool = True,
-                 device: torch.device | str | None = None):
+                 device: torch.device | str | None = None,
+                 mesh: Optional[Mesh] = None):
         self.device = resolve_device(device)
         self.net = net.to(self.device)
         self.cfg = cfg
         tc, dc = cfg.train, cfg.data
+        self.mesh = mesh or make_mesh(cfg.parallel.data_parallel,
+                                      cfg.parallel.spatial_parallel)
+        self.local_batch = local_batch_size(dc.batch_size,
+                                            world=self.mesh.world)
         self.opt = make_optimizer(self.net.parameters(), tc.lr,
                                   tc.weight_decay)
         self.gen = torch.Generator(device=self.device)
@@ -202,7 +262,7 @@ class Trainer:
         self.train_step = make_train_step(self.net, self.opt, augment=aug,
                                           label_mode=dc.label_mode,
                                           microbatch=tc.microbatch,
-                                          gen=self.gen)
+                                          gen=self.gen, mesh=self.mesh)
         self.eval_step = make_eval_step(self.net, label_mode=dc.label_mode)
         self.plateau = PlateauController(tc.lr_patience, tc.lr_factor,
                                          tc.min_lr)
@@ -256,17 +316,28 @@ class Trainer:
                 self.plateau.load_state_dict(self._resume_meta["plateau"])
         self.logger.log(event="resume", step=step, path=path)
 
+    def sync_state(self) -> None:
+        """Every rank takes rank 0's parameters and AdamW moments."""
+        self.mesh.broadcast_([*self.net.parameters(), *self.opt.mu,
+                              *self.opt.nu])
+
     def _generators(self, seed: int) -> Tuple[PatchGenerator,
                                               PatchGenerator]:
+        """This rank's train and val streams, `local_batch` rows a batch.
+        A rank's seeds are offset by 100003·rank (`loop.py:355-365`), so
+        no two ranks' streams meet and rank 0 keeps the one-process
+        ones."""
         dc = self.cfg.data
+        seed = seed + 100003 * self.mesh.rank
         gtrain = PatchGenerator(self.train_cache, dc.patch_size,
-                                dc.batch_size, seed=seed,
+                                self.local_batch, seed=seed,
                                 augment=self.host_augment,
                                 flip_prob=dc.flip_prob,
                                 intensity_shift=dc.intensity_shift,
                                 intensity_scale=dc.intensity_scale)
-        gval = PatchGenerator(self.val_cache, dc.patch_size, dc.batch_size,
-                              seed=seed + 1, augment=False)
+        gval = PatchGenerator(self.val_cache, dc.patch_size,
+                              self.local_batch, seed=seed + 1,
+                              augment=False)
         return gtrain, gval
 
     def train(self, epochs: Optional[int] = None,
@@ -279,6 +350,7 @@ class Trainer:
         steps_per_epoch = tc.steps_per_epoch if steps_per_epoch is None \
             else steps_per_epoch
         self.resume_or_init(tc.seed)
+        self.sync_state()
         warn_stream_geometry_mismatch(self._resume_meta, self.logger,
                                       steps_per_epoch=steps_per_epoch,
                                       val_steps=val_steps)
@@ -333,11 +405,25 @@ class Trainer:
     def evaluate(self, gval: PatchGenerator,
                  val_steps: int) -> Dict[str, float]:
         """Mean loss and per-region Dice over `val_steps` batches."""
-        accum: Dict[str, list] = {}
-        for _ in range(val_steps):
-            x, y = gval.next()
-            m = self.eval_step(torch.from_numpy(x).to(self.device),
-                               torch.from_numpy(y).to(self.device))
-            for k, v in m.items():
-                accum.setdefault(k, []).append(float(v))
-        return {k: float(np.mean(v)) for k, v in accum.items()}
+        return evaluate(self.eval_step, gval, val_steps, self.device,
+                        self.mesh)
+
+
+def evaluate(eval_step: Callable, gen: PatchGenerator, val_steps: int,
+             device: torch.device, mesh: Mesh) -> Dict[str, float]:
+    """The mean of each of `eval_step`'s metrics over `val_steps` batches
+    of `gen`, then over the ranks (each rank's mean weighs the same: every
+    rank evaluates `val_steps` batches of the same size)."""
+    accum: Dict[str, list] = {}
+    for _ in range(val_steps):
+        x, y = gen.next()
+        m = eval_step(torch.from_numpy(x).to(device),
+                      torch.from_numpy(y).to(device))
+        for k, v in m.items():
+            accum.setdefault(k, []).append(float(v))
+    out = {k: float(np.mean(v)) for k, v in accum.items()}
+    if mesh.world > 1:
+        vals = torch.tensor(list(out.values()), dtype=torch.float64,
+                            device=device)
+        out = dict(zip(out, mesh.all_reduce_mean_([vals])[0].tolist()))
+    return out

@@ -8,10 +8,11 @@ the JAX package accepts is accepted here, so one configuration loads in both.
 
 Values that ask for something the port does not do are refused when the
 dataclass is built, with the `ROADMAP.md` item that would bring it:
-`model.remat` / `model.remat_edges` true,
-`train.steps_per_call` > 1, `parallel.data_parallel` or
-`parallel.spatial_parallel` > 1.  `model.packed` is read and has no effect:
-it selects a TPU layout that the port runs as logical NDHWC.
+`train.steps_per_call` > 1 and `parallel.spatial_parallel` > 1.
+`parallel.data_parallel` loads whatever it is, as in the JAX package, and
+`make_mesh` (`parallel/mesh.py`) refuses it unless it is -1 or the world
+size of the process group (1 without one).  `model.packed` is read and has no
+effect: it selects a TPU layout that the port runs as logical NDHWC.
 `search.unrolled` with `model.use_pallas` loads here and is refused by the
 `Searcher` (`search/bilevel.py`).
 """
@@ -74,6 +75,8 @@ class ModelConfig:
     n_nodes: int = 3                          # intermediate nodes per cell
     norm: str = "group"                       # "group" | "instance" | "none"
     gn_groups: int = 8
+    # activation checkpointing per cell; remat_edges per supernet edge
+    # (None: follow remat)
     remat: bool = False
     remat_edges: bool | None = None
     # compute dtype for activations; params/accum stay fp32
@@ -81,11 +84,6 @@ class ModelConfig:
     use_pallas: bool = False                  # the K3/K4/K6/K7 routing
     merge_ops: bool = True                    # exact op merging in derived cells
     packed: bool = True                       # a TPU layout: read, no effect
-
-    def __post_init__(self):
-        _refuse(bool(self.remat) or bool(self.remat_edges),
-                "model.remat / model.remat_edges",
-                "ROADMAP.md queue 1, item 10")
 
 
 @dataclass(frozen=True)
@@ -155,18 +153,19 @@ class InferConfig:
 
 @dataclass(frozen=True)
 class ParallelConfig:
-    """Device layout (one card until ROADMAP.md queue 1, item 9)."""
+    """Device layout: one rank per device, every rank on the data axis;
+    `make_mesh` (`parallel/mesh.py`) holds `data_parallel` to the world
+    size of the run that builds it."""
 
     data_axis: str = "data"
     spatial_axis: str = "spatial"
-    data_parallel: int = -1                   # -1 = all devices (here: one)
+    data_parallel: int = -1                   # -1 = every rank
     spatial_parallel: int = 1
 
     def __post_init__(self):
-        for name in ("data_parallel", "spatial_parallel"):
-            n = getattr(self, name)
-            _refuse(n > 1, f"parallel.{name}={n}",
-                    "ROADMAP.md queue 1, item 9")
+        _refuse(self.spatial_parallel > 1,
+                f"parallel.spatial_parallel={self.spatial_parallel}",
+                "ROADMAP.md queue 1, item 9b, spatial sharding")
 
 
 @dataclass(frozen=True)

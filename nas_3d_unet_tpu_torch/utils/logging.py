@@ -13,20 +13,12 @@ import sys
 import time
 from typing import Optional
 
-import torch
-
-
-def is_primary_process() -> bool:
-    """Rank 0 of `torch.distributed` when it is initialised, else True."""
-    dist = torch.distributed
-    return not (dist.is_available() and dist.is_initialized()) \
-        or dist.get_rank() == 0
+from ..parallel.mesh import is_main
 
 
 class MetricsLogger:
-    """Only the primary process writes (with several processes, metrics
-    are computed from the same values, so the others would write
-    duplicates).
+    """Only rank 0 writes (with several ranks, metrics are computed from
+    the same values, so the others would write duplicates).
 
     `tb_dir`: optional TensorBoard mirror.  Numeric fields of each record
     become scalars tagged `<event>/<field>`; the step is the record's
@@ -37,7 +29,7 @@ class MetricsLogger:
 
     def __init__(self, path: Optional[str] = None, stdout: bool = True,
                  tb_dir: Optional[str] = None):
-        primary = is_primary_process()
+        primary = is_main()
         self._file = None
         if path and primary:
             os.makedirs(os.path.dirname(path) or ".", exist_ok=True)

@@ -4,6 +4,7 @@ step's time goes, on one NVIDIA GPU.
 
     python3 profile_slice.py [--train | --search [--unrolled]
                              [--partial-channels K]] [--use-pallas]
+                             [--remat {off,cells,cells_edges}]
 
 Serving: one synthetic 160x192x152x4 patient with the flagship net (the
 settings of `chip_smoke.py`) under `torch.profiler`, after one warm-up
@@ -17,7 +18,10 @@ second-order step (phase "search_unrolled"), after one warm-up and two
 timed ones; with --partial-channels K the supernet with pc_k K (phase
 "search_pc").  --use-pallas: serving or
 training with `DerivedNet(use_pallas=True)` (chip_smoke.py's phases
-"pallas_slice" and "pallas_train").  Every
+"pallas_slice" and "pallas_train").  --remat, with --train or --search:
+activation checkpointing on the cells (`model.remat`), or on the cells
+and the supernet's edges (`model.remat_edges`), as chip_smoke.py's phase
+"remat" sets it; the recomputed forwards run inside the backward.  Every
 device activity (kernel, memcpy, memset) is attributed to the innermost op
 module whose forward launched it (forward hooks open a `record_function`
 range per module; a kernel belongs to the range around its launch call;
@@ -31,6 +35,7 @@ outside them), and classed by its kernel name.  Prints one JSON object:
   idle_share          1 - device_busy_ms / window_ms
   overlapped_ms_by_class, by_stream_ms   why device_sum_ms > device_busy_ms
   by_module_ms, by_module_and_class_ms, by_class_ms, top_kernels_ms
+  peak_mem_gb         peak device memory allocated over the runs
 
 Needs CUDA; imports nothing of JAX.
 """
@@ -246,13 +251,15 @@ def _serving(dev, use_pallas):
     return walls, lambda: predictor.predict_labels(recs[4]["image_dev"])
 
 
-def _training(dev, use_pallas):
+def _training(dev, use_pallas, remat="off"):
     """(walls, profiled callable) for one train step."""
-    from chip_smoke import (AUGMENT, MICRO, flagship_net, synthetic_batch)
+    from chip_smoke import (AUGMENT, MICRO, REMAT_SETTINGS, _set_remat,
+                            flagship_net, synthetic_batch)
     from nas_3d_unet_tpu_torch.train.loop import make_train_step
     from nas_3d_unet_tpu_torch.train.optim import make_optimizer
 
     net = flagship_net(0, "bfloat16", use_pallas).to(dev)
+    _set_remat(net, *REMAT_SETTINGS[remat])
     annotate_modules(net)
     x, y = synthetic_batch(dev, 0)
     opt = make_optimizer(net.parameters(), 3e-4, 1e-4)
@@ -267,10 +274,11 @@ def _training(dev, use_pallas):
     return walls[2:], lambda: step(x, y)
 
 
-def _search(dev, use_pallas, unrolled=False, pc_k=1):
+def _search(dev, use_pallas, unrolled=False, pc_k=1, remat="off"):
     """(walls, profiled callable) for one bilevel search step (`unrolled`:
     the second-order one; `pc_k`: partial channels)."""
-    from chip_smoke import AUGMENT, search_inputs
+    from chip_smoke import (AUGMENT, REMAT_SETTINGS, _set_remat,
+                            search_inputs)
     from nas_3d_unet_tpu_torch.search.bilevel import (
         make_search_step, make_search_step_unrolled)
     from nas_3d_unet_tpu_torch.train.optim import make_optimizer
@@ -278,6 +286,7 @@ def _search(dev, use_pallas, unrolled=False, pc_k=1):
     if use_pallas:
         raise SystemExit("--search profiles the shipped (default) path")
     net, alphas, batches, cfg = search_inputs(dev, 0, pc_k)
+    _set_remat(net, *REMAT_SETTINGS[remat])
     annotate_modules(net)
     sc = cfg.search
     gen = torch.Generator(device=dev)
@@ -313,7 +322,13 @@ def main() -> int:
                     help="with --search: the second-order step")
     ap.add_argument("--partial-channels", type=int, default=1,
                     help="with --search: PC-DARTS with this pc_k")
+    ap.add_argument("--remat", default="off",
+                    choices=("off", "cells", "cells_edges"),
+                    help="with --train or --search: activation "
+                         "checkpointing on the cells (and edges)")
     args = ap.parse_args()
+    if args.remat != "off" and not (args.train or args.search):
+        ap.error("--remat needs --train or --search")
     if not torch.cuda.is_available():
         print("profile_slice: no CUDA device; nothing measured",
               file=sys.stderr)
@@ -323,13 +338,16 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     window = "step" if args.train or args.search else "patient"
+    torch.zeros((), device=dev)                  # the allocator, for the
+    torch.cuda.reset_peak_memory_stats(dev)      # peak over the runs
     with strict_fp32():
         if args.search:
             walls, run = _search(dev, args.use_pallas, args.unrolled,
-                                 args.partial_channels)
+                                 args.partial_channels, args.remat)
+        elif args.train:
+            walls, run = _training(dev, args.use_pallas, args.remat)
         else:
-            setup = _training if args.train else _serving
-            walls, run = setup(dev, args.use_pallas)
+            walls, run = _serving(dev, args.use_pallas)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             with record_function(window):
@@ -346,7 +364,8 @@ def main() -> int:
         check=True, timeout=60).stdout.strip().splitlines()[0]
     out = {"card": smi, "window": window, "use_pallas": args.use_pallas,
            "search": args.search, "unrolled": args.unrolled,
-           "partial_channels": args.partial_channels,
+           "partial_channels": args.partial_channels, "remat": args.remat,
+           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
            "wall_s_unprofiled": walls[1:],
            **attribute(trace, window)}
     print(json.dumps(out, indent=1))

@@ -12,6 +12,7 @@ from nas_3d_unet_tpu.models.unet import DerivedNet as JaxDerivedNet
 from nas_3d_unet_tpu_torch import bridge
 from nas_3d_unet_tpu_torch.models.genotype import default_genotype
 from nas_3d_unet_tpu_torch.models.unet import DerivedNet
+from tests.torch_helpers import one_torch_thread  # noqa: F401
 
 
 def _leaves(tree):

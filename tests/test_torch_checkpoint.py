@@ -28,6 +28,7 @@ from nas_3d_unet_tpu_torch.train import checkpoint as ck
 from nas_3d_unet_tpu_torch.train.loop import make_train_step
 from nas_3d_unet_tpu_torch.train.optim import make_optimizer
 from tests.torch_helpers import ROOT
+from tests.torch_helpers import one_torch_thread  # noqa: F401
 
 SMALL = dict(in_channels=4, num_classes=3, base_channels=4, depth=2,
              n_nodes=2, gn_groups=4)

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 import yaml
+from flax import linen as fnn
 
 import export_flax_params
 from nas_3d_unet_tpu import cli as jcli
@@ -27,6 +28,7 @@ from nas_3d_unet_tpu.data.preprocess import load_patient_h5
 from nas_3d_unet_tpu.infer.sliding import \
     SlidingWindowPredictor as JaxPredictor
 from nas_3d_unet_tpu.models.genotype import default_genotype as jax_geno
+from nas_3d_unet_tpu.models.unet import DerivedNet as JaxDerivedNet
 from nas_3d_unet_tpu.models.unet import make_derived as jax_make_derived
 from nas_3d_unet_tpu.train import checkpoint as jckpt
 from nas_3d_unet_tpu.train import loop as jloop
@@ -40,6 +42,7 @@ from nas_3d_unet_tpu_torch.models.unet import make_derived
 from nas_3d_unet_tpu_torch.train import checkpoint as ck
 from nas_3d_unet_tpu_torch.utils.config import load_config
 from tests.torch_helpers import ROOT, write_raw_patients
+from tests.torch_helpers import one_torch_thread  # noqa: F401
 
 N_PATIENTS = 3
 
@@ -204,9 +207,21 @@ def test_search_is_a_command(run, tmp_path, capsys):
     assert train[-1]["event"] == "train_done"
 
 
+def _template_init(self, *args, **kwargs):
+    """flax's `init` as a template: the tree's paths, shapes and dtypes
+    (`eval_shape` traces `init` without running it), zeros for values."""
+    shapes = jax.eval_shape(lambda *a: fnn.Module.init(self, *a, **kwargs),
+                            *args)
+    return jax.tree_util.tree_map(lambda s: jnp.zeros(s.shape, s.dtype),
+                                  shapes)
+
+
 def test_predict_matches_the_jax_cli(run, tmp_path, monkeypatch):
     d, _, _ = run
     monkeypatch.setenv("NAS3D_NO_NATIVE", "1")
+    # the JAX CLI inits its net only for a checkpoint template, whose
+    # values the checkpoint replaces: skip running flax's initialisers
+    monkeypatch.setattr(JaxDerivedNet, "init", _template_init)
     raw = _config(d)
     raw["data"]["processed_dir"] = str(tmp_path / "h5")
     raw["infer"].update(checkpoint_dir=str(tmp_path / "jck"),

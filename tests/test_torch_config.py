@@ -11,6 +11,7 @@ from nas_3d_unet_tpu.cli import _parse_overrides as jax_parse_overrides
 from nas_3d_unet_tpu.utils import config as jcfg
 from nas_3d_unet_tpu_torch.utils import config as tcfg
 from tests.torch_helpers import ROOT
+from tests.torch_helpers import one_torch_thread  # noqa: F401
 
 
 def _norm(obj):
@@ -62,20 +63,48 @@ def test_unknown_keys_raise(bad):
         jcfg.load_config(None, bad)
 
 
-REFUSED = [({"model.remat": True}, "item 10"),
-           ({"model.remat_edges": True}, "item 10"),
-           ({"train.steps_per_call": 2}, "not ported by decision"),
-           ({"parallel.data_parallel": 2}, "item 9"),
-           ({"parallel.spatial_parallel": 4}, "item 9")]
+REFUSED = [({"train.steps_per_call": 2}, "not ported by decision"),
+           ({"parallel.data_parallel": 2}, r"world size 1\b.*item 9a"),
+           ({"parallel.spatial_parallel": 4}, "item 9b, spatial sharding")]
 
 
 @pytest.mark.parametrize("ov,item", REFUSED, ids=[str(o) for o, _ in REFUSED])
 def test_unported_settings_are_refused(ov, item):
     """The JAX package accepts each of these; the port names the
-    ROADMAP.md item that would bring it."""
+    ROADMAP.md item that would bring it: when the config loads, or, for a
+    data axis other than the world's (here one rank, without a process
+    group), when the mesh is built from it, as the JAX package checks its
+    layout."""
+    from nas_3d_unet_tpu_torch.parallel.mesh import make_mesh
+
     jcfg.load_config(None, ov)
     with pytest.raises(ValueError, match=item):
-        tcfg.load_config(None, ov)
+        par = tcfg.load_config(None, ov).parallel
+        make_mesh(par.data_parallel, par.spatial_parallel)
+
+
+PORTED = [{"model.remat": True}, {"model.remat_edges": True},
+          {"model.remat": True, "model.remat_edges": False},
+          {"parallel.data_parallel": 1}, {"parallel.data_parallel": -1}]
+
+
+@pytest.mark.parametrize("ov", PORTED, ids=[str(o) for o in PORTED])
+def test_ported_layout_settings_load(ov):
+    """Activation checkpointing and the data axis over every rank (one
+    rank here, without a process group) load in both packages alike."""
+    port = tcfg.load_config(None, ov).to_dict()
+    assert _norm(port) == _norm(jcfg.load_config(None, ov).to_dict())
+
+
+def test_data_parallel_must_be_the_world_size():
+    """Any other size than -1 or the world's is refused, naming the world
+    size (`parallel/mesh.py` `check_layout`)."""
+    from nas_3d_unet_tpu_torch.parallel.mesh import check_layout
+
+    assert check_layout(-1, 1, world=4) == check_layout(4, 1, world=4) == 4
+    for bad in (0, 2, 8):
+        with pytest.raises(ValueError, match="world size 4"):
+            check_layout(bad, 1, world=4)
 
 
 @pytest.mark.parametrize("norm", ["group", "instance", "none"])

@@ -27,6 +27,7 @@ from nas_3d_unet_tpu.ops.pallas.conv3d import (conv_transpose2x,
                                                pointwise_conv)
 from nas_3d_unet_tpu_torch.ops import _cuda, conv3d
 from tests.test_torch_pgemm import _bf16_ulps
+from tests.torch_helpers import one_torch_thread  # noqa: F401
 
 
 def _rand(shape, seed, scale=1.0):
@@ -76,7 +77,8 @@ def test_conv3d_gradients_match_jax_grad(stride, bias_relu):
 
     args = [jnp.asarray(a) for a in (x, w)] + [
         None if b is None else jnp.asarray(b)]
-    want = jax.grad(jloss, argnums=(0, 1) if b is None else (0, 1, 2))(*args)
+    want = jax.jit(jax.grad(jloss, argnums=(0, 1) if b is None
+                            else (0, 1, 2)))(*args)
     xt, wt, bt = _t(x, w, b, grad=True)
     conv3d.conv3d(xt, wt, bt, stride, 1, bias_relu).backward(
         torch.from_numpy(dy))
@@ -126,7 +128,7 @@ def test_pointwise_and_transpose_gradients_match_jax_grad():
             y = conv_transpose2x(h, vv, relu=True)
         return jnp.sum(y * dy)
 
-    want = jax.grad(jloss, argnums=(0, 1, 2, 3))(
+    want = jax.jit(jax.grad(jloss, argnums=(0, 1, 2, 3)))(
         *(jnp.asarray(a) for a in (x, wp, bp, wt)))
     ts = _t(x, wp, bp, wt, grad=True)
     h = conv3d.pointwise_conv(ts[0], ts[1], ts[2], relu=True)

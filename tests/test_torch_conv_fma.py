@@ -31,6 +31,7 @@ from nas_3d_unet_tpu.ops.packed import (pack, packed_conv_stats,
 from nas_3d_unet_tpu.ops.pallas.conv3d import conv3d as jax_conv3d
 from nas_3d_unet_tpu_torch.ops import conv3d, conv_fma, pgemm
 from tests.test_torch_pgemm import _vjp_pair
+from tests.torch_helpers import one_torch_thread  # noqa: F401
 
 HEADER = (Path(conv_fma.__file__).resolve().parents[1] / "csrc"
           / "conv_fma.cuh")

@@ -33,6 +33,7 @@ from nas_3d_unet_tpu.ops.packed import (pack, packed_conv_stats,
                                         standard_layout, unpack)
 from nas_3d_unet_tpu_torch.ops.stats import moments_twin
 from tests.test_torch_pgemm import _bf16_ulps, _vjp_pair
+from tests.torch_helpers import one_torch_thread  # noqa: F401
 
 HEADER = (Path(conv_mma.__file__).resolve().parents[1] / "csrc"
           / "conv_mma.cuh")

@@ -39,6 +39,7 @@ from nas_3d_unet_tpu.ops.pallas.conv3d import (conv_transpose2x,
 from nas_3d_unet_tpu.ops.pallas.pgemm import gemm_stats as jax_gemm_stats
 from nas_3d_unet_tpu_torch.ops import _cuda, conv3d, gemm_fma, gemm_mma, pgemm
 from tests.test_torch_conv_mma import _moments_within
+from tests.torch_helpers import one_torch_thread  # noqa: F401
 
 HEADER = (Path(gemm_fma.__file__).resolve().parents[1] / "csrc"
           / "gemm_fma.cuh")

@@ -39,6 +39,7 @@ from nas_3d_unet_tpu_torch.ops import _cuda, conv3d, gemm_mma, pgemm
 from nas_3d_unet_tpu_torch.ops.stats import moments_twin
 from tests.test_torch_conv_mma import _moments_within
 from tests.test_torch_pgemm import _bf16_ulps
+from tests.torch_helpers import one_torch_thread  # noqa: F401
 
 HEADER = (Path(gemm_mma.__file__).resolve().parents[1] / "csrc"
           / "gemm_mma.cuh")

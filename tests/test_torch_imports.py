@@ -1,6 +1,7 @@
-"""The port (nas_3d_unet_tpu_torch/) and the scripts that drive it on the
+"""The port (nas_3d_unet_tpu_torch/), the scripts that drive it on the
 card (chip_smoke.py, profile_slice.py, grad_parity.py, ab_default_path.py)
-import no JAX stack
+and the ranks of its data-parallel tests (tests/torch_dp_worker.py) import
+no JAX stack
 and nothing of the JAX package: an AST scan of every import statement, top
 level or inside a function.  `export_flax_params.py` is left out of the
 scan on purpose: it reads a JAX checkpoint where flax is installed, and is
@@ -10,6 +11,7 @@ import ast
 import pathlib
 
 import pytest
+from tests.torch_helpers import one_torch_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "nas_3d_unet_tpu_torch"
@@ -28,7 +30,8 @@ def _imports(path):
 def _sources():
     return sorted(PKG.rglob("*.py")) + [
         ROOT / name for name in ("chip_smoke.py", "profile_slice.py",
-                                 "grad_parity.py", "ab_default_path.py")]
+                                 "grad_parity.py", "ab_default_path.py",
+                                 "tests/torch_dp_worker.py")]
 
 
 def test_scan_sees_the_package():
@@ -48,9 +51,11 @@ def test_scan_sees_the_package():
             "nas_3d_unet_tpu_torch/train/checkpoint.py",
             "nas_3d_unet_tpu_torch/train/loop.py",
             "nas_3d_unet_tpu_torch/models/unet.py",
+            "nas_3d_unet_tpu_torch/parallel/mesh.py",
             "nas_3d_unet_tpu_torch/cli.py",
             "nas_3d_unet_tpu_torch/__main__.py",
-            "chip_smoke.py", "profile_slice.py", "grad_parity.py"} <= names
+            "chip_smoke.py", "profile_slice.py", "grad_parity.py",
+            "tests/torch_dp_worker.py"} <= names
     assert "export_flax_params.py" not in names
 
 

@@ -21,6 +21,7 @@ from nas_3d_unet_tpu_torch.models.genotype import default_genotype
 from nas_3d_unet_tpu_torch.models.unet import DerivedNet
 from tests.test_golden import _GOLDEN, _golden_setup
 from tests.test_sliding import _numpy_stitch_oracle
+from tests.torch_helpers import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("dim,patch,stride", [(10, 4, 2), (11, 4, 2),

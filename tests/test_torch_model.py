@@ -20,6 +20,7 @@ from nas_3d_unet_tpu_torch.models.genotype import (Genotype, default_genotype,
                                                    parse_alphas)
 from nas_3d_unet_tpu_torch.models.unet import DerivedNet
 from nas_3d_unet_tpu_torch.ops import _cuda, pgemm
+from tests.torch_helpers import one_torch_thread  # noqa: F401
 
 SMALL = dict(in_channels=4, num_classes=3, base_channels=4, depth=3,
              n_nodes=3, gn_groups=8)

@@ -47,6 +47,7 @@ from nas_3d_unet_tpu_torch.ops.primitives import (ConvNormAct, SepConv,
                                                   UpTranspose)
 from nas_3d_unet_tpu_torch.train import loop, optim
 from tests.test_torch_train import AUGMENT, LR, WD, _batch, _jax_draws
+from tests.torch_helpers import one_torch_thread  # noqa: F401
 
 SMALL = dict(in_channels=4, num_classes=3, depth=2, n_nodes=2, gn_groups=4)
 

@@ -20,6 +20,7 @@ from nas_3d_unet_tpu.ops.packed import PX
 from nas_3d_unet_tpu_torch import bridge
 from nas_3d_unet_tpu_torch.ops import groupnorm
 from nas_3d_unet_tpu_torch.ops import primitives as tp
+from tests.torch_helpers import one_torch_thread  # noqa: F401
 
 GN_ATOL = 5e-5
 
@@ -28,11 +29,13 @@ def _pair(jmod, tmod, x, seed=0, r=None):
     """(JAX output, port output) for `x`, same params; r packs the JAX
     input by r W-voxels per lane group."""
     xj = jnp.asarray(x)
-    params = jmod.init(jax.random.PRNGKey(seed), xj)
+    params = jax.jit(jmod.init)(jax.random.PRNGKey(seed), xj)
     bridge.load_flax_params(tmod, params)
-    want = jmod.apply(params, PX.pack(xj, r) if r else xj)
     if r:
-        want = want.unpack()
+        want = jax.jit(lambda p, v: jmod.apply(p, PX.pack(v, r)).unpack())(
+            params, xj)
+    else:
+        want = jax.jit(jmod.apply)(params, xj)
     with torch.no_grad():
         got = tmod(torch.from_numpy(x))
     return np.asarray(want), got.numpy()

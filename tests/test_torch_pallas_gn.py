@@ -26,6 +26,7 @@ from jax.experimental.pallas import tpu as pltpu
 from nas_3d_unet_tpu.ops.pallas import groupnorm as jgn
 from nas_3d_unet_tpu_torch.ops import _cuda, groupnorm, stats
 from tests.test_torch_pgemm import _bf16_ulps
+from tests.torch_helpers import one_torch_thread  # noqa: F401
 
 
 def _case(shape, seed):
@@ -42,10 +43,13 @@ def _jax_vjp(x, scale, bias, dy, groups, relu, dtype=jnp.float32):
     def f(xx, s, b):
         return jgn.group_norm(xx, s, b, groups, 1e-6, relu)
 
+    def run(xx, s, b, g):
+        y, vjp = jax.vjp(f, xx, s, b)
+        return y, vjp(g)
+
     with pltpu.force_tpu_interpret_mode():
-        y, vjp = jax.vjp(f, jnp.asarray(x, dtype), jnp.asarray(scale),
-                         jnp.asarray(bias))
-        grads = vjp(jnp.asarray(dy, dtype))
+        y, grads = jax.jit(run)(jnp.asarray(x, dtype), jnp.asarray(scale),
+                                jnp.asarray(bias), jnp.asarray(dy, dtype))
     f32 = lambda a: np.array(jnp.asarray(a, jnp.float32))
     return [f32(y)] + [f32(g) for g in grads]
 
@@ -97,9 +101,11 @@ def test_k3_on_producer_moments_matches_flax_group_norm(c, groups):
     mod = fnn.GroupNorm(num_groups=groups, epsilon=1e-6)
     params = {"params": {"scale": jnp.asarray(scale),
                          "bias": jnp.asarray(bias)}}
-    y, vjp = jax.vjp(lambda xx, p: jax.nn.relu(mod.apply(p, xx)),
-                     jnp.asarray(x), params)
-    dx, dp = vjp(jnp.asarray(dy))
+    def run(xx, p, g):
+        y, vjp = jax.vjp(lambda a, q: jax.nn.relu(mod.apply(q, a)), xx, p)
+        return y, vjp(g)
+
+    y, (dx, dp) = jax.jit(run)(jnp.asarray(x), params, jnp.asarray(dy))
     xd = torch.from_numpy(x).double()
     moments = (xd.sum((1, 2, 3)).float(), (xd * xd).sum((1, 2, 3)).float())
     got = _port(x, scale, bias, dy, groups, True, moments=moments)

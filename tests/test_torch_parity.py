@@ -16,6 +16,7 @@ import torch.nn.functional as F  # noqa: E402
 
 from nas_3d_unet_tpu.metrics.dice import dice_ce_loss, soft_dice_loss  # noqa: E402
 from nas_3d_unet_tpu.ops.pallas.conv3d import _same_pad, conv3d_reference  # noqa: E402
+from tests.torch_helpers import one_torch_thread  # noqa: F401
 
 ATOL = 2e-5
 

@@ -44,6 +44,7 @@ from nas_3d_unet_tpu_torch.utils.params import count_params
 from tests.test_torch_supernet import (GN_ATOL, _alphas, _close_tree,
                                        _params, _port_grads, _split_merged,
                                        _x)
+from tests.torch_helpers import one_torch_thread  # noqa: F401
 
 PC = dict(in_channels=4, num_classes=3, base_channels=8, n_nodes=2,
           gn_groups=4)
@@ -96,9 +97,13 @@ def pc_pair(request):
     al = _alphas(2, 2)
     x = _x((2, 8, 8, 8, 4), 3)
     y = np.repeat((x[..., 1:2] > 0.5).astype(np.float32), 3, -1)
-    bridge.load_flax_params(net, jax.jit(jnet.init)(
-        jax.random.PRNGKey(0), jnp.asarray(x),
-        jax_aw(jax_init_alphas(jax.random.PRNGKey(1), 2))))
+    # the JAX initialiser's tree (its paths and shapes: `eval_shape`
+    # traces `init` without compiling it; the values are replaced below)
+    shapes = jax.eval_shape(jnet.init, jax.random.PRNGKey(0),
+                            jnp.asarray(x), jax_aw(jax_init_alphas(
+                                jax.random.PRNGKey(1), 2)))
+    bridge.load_flax_params(net, jax.tree_util.tree_map(
+        lambda s: np.zeros(s.shape, s.dtype), shapes))
     params = _params(net, seed)
     loss = jax_loss_fn("regions")
 

@@ -21,6 +21,7 @@ from nas_3d_unet_tpu.ops.packed import (pack, packed_conv_stats,
                                         standard_layout, unpack)
 from nas_3d_unet_tpu.ops.pallas.pgemm import gemm_stats as jax_gemm_stats
 from nas_3d_unet_tpu_torch.ops import _cuda, pgemm
+from tests.torch_helpers import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

@@ -16,6 +16,7 @@ from nas_3d_unet_tpu_torch.data import pipeline as tpipe
 from nas_3d_unet_tpu_torch.metrics import dice as tdice
 from nas_3d_unet_tpu.metrics import dice as jdice
 from tests.torch_helpers import write_stores
+from tests.torch_helpers import one_torch_thread  # noqa: F401
 
 PATCH = (8, 8, 8)
 

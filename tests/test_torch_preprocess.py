@@ -11,6 +11,7 @@ import pytest
 from nas_3d_unet_tpu.data import preprocess as jpre
 from nas_3d_unet_tpu_torch.data import preprocess as tpre
 from tests.torch_helpers import write_raw_patients
+from tests.torch_helpers import one_torch_thread  # noqa: F401
 
 KEYS = ("image", "label", "crop_start", "orig_shape", "affine")
 

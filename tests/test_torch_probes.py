@@ -32,6 +32,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from nas_3d_unet_tpu_torch.experiments import r3_dma_probe, r3_pg_variants
 from nas_3d_unet_tpu_torch.ops import _cuda
+from tests.torch_helpers import one_torch_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SMALL = dict(NB=3, H=4, HP=6, WP=8, RC=16, KE=8, M=32)

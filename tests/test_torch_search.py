@@ -43,6 +43,7 @@ from nas_3d_unet_tpu_torch.train.optim import make_optimizer
 from nas_3d_unet_tpu_torch.utils.config import load_config
 from tests.test_torch_supernet import SMALL, _alphas, _params, _x
 from tests.torch_helpers import write_stores
+from tests.torch_helpers import one_torch_thread  # noqa: F401
 
 W_LR, W_WD, A_LR, A_WD = 3e-4, 1e-4, 3e-4, 1e-3
 CFG = {"data.patch_size": (8, 8, 8), "data.batch_size": 2,

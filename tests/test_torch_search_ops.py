@@ -44,6 +44,7 @@ from nas_3d_unet_tpu.ops.packed import (PX, max_pool3_shifted, pack,
 from nas_3d_unet_tpu_torch import bridge
 from nas_3d_unet_tpu_torch.ops import pool
 from nas_3d_unet_tpu_torch.ops import primitives as tp
+from tests.torch_helpers import one_torch_thread  # noqa: F401
 
 GN_ATOL = 5e-5
 BF16_ULPS = 2

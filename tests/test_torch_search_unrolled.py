@@ -59,6 +59,7 @@ from nas_3d_unet_tpu_torch.train.optim import make_optimizer
 from tests.test_torch_search import _searcher, stores  # noqa: F401
 from tests.test_torch_supernet import _alphas, _params, _x
 from tests.torch_helpers import write_stores
+from tests.torch_helpers import one_torch_thread  # noqa: F401
 
 ATOL, RTOL = 2e-5, 1e-4
 XI = 0.5

@@ -33,6 +33,7 @@ from nas_3d_unet_tpu.ops.packed import (pack, packed_group_norm,
                                         standard_layout, unpack)
 from nas_3d_unet_tpu.ops.pallas import stats as jstats
 from nas_3d_unet_tpu_torch.ops import _cuda, groupnorm, stats
+from tests.torch_helpers import one_torch_thread  # noqa: F401
 
 
 def _x(shape, seed):

@@ -42,6 +42,7 @@ from nas_3d_unet_tpu_torch.models.unet import (DerivedNet, SuperNet,
                                                arch_weights_from_alphas)
 from nas_3d_unet_tpu_torch.ops.primitives import DOWN_OPS, NORMAL_OPS, UP_OPS
 from tests.test_torch_search_ops import jax_vjp
+from tests.torch_helpers import one_torch_thread  # noqa: F401
 
 SMALL = dict(in_channels=4, num_classes=3, base_channels=4, depth=2,
              n_nodes=2, gn_groups=4)

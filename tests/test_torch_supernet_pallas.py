@@ -27,6 +27,7 @@ from nas_3d_unet_tpu_torch.models.unet import (SuperNet,
 from nas_3d_unet_tpu_torch.ops import _cuda
 from nas_3d_unet_tpu_torch.ops.primitives import ConvNormAct
 from tests.test_torch_supernet import SMALL, _alphas, _params, _x
+from tests.torch_helpers import one_torch_thread  # noqa: F401
 
 NET = dict(SMALL, depth=1)
 

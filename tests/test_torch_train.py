@@ -43,6 +43,7 @@ from nas_3d_unet_tpu_torch.models.genotype import default_genotype
 from nas_3d_unet_tpu_torch.models.unet import DerivedNet
 from nas_3d_unet_tpu_torch.ops import _cuda
 from nas_3d_unet_tpu_torch.train import loop, optim
+from tests.torch_helpers import one_torch_thread  # noqa: F401
 
 SMALL = dict(in_channels=4, num_classes=3, base_channels=4, depth=2,
              n_nodes=2, gn_groups=4)

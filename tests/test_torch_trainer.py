@@ -37,6 +37,7 @@ from nas_3d_unet_tpu_torch.train.loop import (Trainer,
 from nas_3d_unet_tpu_torch.utils.config import load_config
 from nas_3d_unet_tpu_torch.utils.logging import MetricsLogger
 from tests.torch_helpers import write_stores
+from tests.torch_helpers import one_torch_thread  # noqa: F401
 
 SMALL = {"data.patch_size": (8, 8, 8), "data.batch_size": 2,
          "data.val_fraction": 0.34, "model.base_channels": 4,

@@ -1,10 +1,13 @@
-"""Shared fixtures of the port's tests: small BraTS-layout raw patients
-and the same preprocessed patients in both packages' stores."""
+"""Shared fixtures of the port's tests: small BraTS-layout raw patients,
+the same preprocessed patients in both packages' stores, and one torch
+thread per test module."""
 
 import os
 import pathlib
 
 import numpy as np
+import pytest
+import torch
 
 from nas_3d_unet_tpu_torch.io.nifti import write_nifti
 
@@ -72,3 +75,15 @@ def write_stores(root, shapes=((20, 18, 16), (12, 14, 10), (24, 20, 18)),
         h5s.append(h5)
         npzs.append(npz)
     return h5s, npzs
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """torch on one intra-op thread while the module runs (a module
+    imports this fixture to take it).  The tests' tensors are a few kB:
+    more threads cost more CPU time than they save, and under pytest-xdist
+    every worker's threads would contend for the same cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
