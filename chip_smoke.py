@@ -142,6 +142,23 @@ Phases, each printed as JSON lines:
      parameters equal, every patient's labels bit-equal to phase "cli"'s
      one-process predictions); then the `train` command under torchrun at
      world 1 on this card (NCCL), and at 2 ranks where there are 2 cards.
+ 6i. spatial: spatial sharding at data 1 x spatial SP_WORLD: SP_WORLD
+     ranks (processes of this script, `--sp-rank`) on card 0 over gloo,
+     each holding a D-slab of the same rows (halo exchanges and
+     cross-slab sums, `parallel/spatial.py`), against this process's
+     one-process runs: the first step's gradients of the bf16 flagship
+     train step (128^3, batch 2) and of its `use_pallas` twin (the
+     limits of phases 6 and 9), and the first-order search step's α
+     (ALPHA_LIMITS) and w gradients (128^3, batch 1), the ranks' reduced
+     gradients bit-equal; a planted fault, the GroupNorm moments left
+     un-reduced in the forward, must fail the train step's limits;
+     SP_STEPS train steps with AdamW and augmentation (the ranks'
+     parameters bit-equal); `predict_labels` of a synthetic
+     160x192x152 patient, each rank stitching its D-slab, bit-equal to one
+     process's labels.  Per rank and run: exact launch counts (the
+     one-process step's with K1's moments moved to K1-dx's kernel and
+     K5a, `spatial_launches`), s a step, peak GB.  Both ranks share one
+     card: not scaling numbers.
  7. pallas_kernels: the `use_pallas` configuration's kernels against their
      twins at every geometry it gives them: K6 conv3d (stride 1 and 2) in
      fp32 at batch 2 (the FMA conv tile) and in bf16 at batch 1 (the
@@ -207,7 +224,8 @@ Phases, each printed as JSON lines:
 The "done" line also holds each search phase's s a step, patches/s, peak
 memory and launches a step, the search phases' seconds, each remat
 setting's s a step and peak memory, phase "dp"'s seconds, world, backend
-and s a train step per rank, and the whole script's.
+and s a train step per rank, phase "spatial"'s seconds and s a train
+step per rank, and the whole script's.
 Then the nvidia-smi line, the kernels summary line and, last,
 `{"ok": true, "device": {...}}`.  In the kernels line a serving kernel's
 `ms`, `plain_ms`, `library_ms` and `bound_ms` are one flagship forward's
@@ -1282,10 +1300,10 @@ def noting_kernels(seen):
         seen[(name, x.shape[-1], x.shape[1])] += 1
         return wsum(g, x, y)
 
-    def k6_noted(x, w, b, stride, dilation, relu):
+    def k6_noted(x, w, b, stride, dilation, relu, pads=None):
         seen[("conv3d", x.shape[4], w.shape[4], x.shape[1], stride,
               dilation)] += 1
-        return k6(x, w, b, stride, dilation, relu)
+        return k6(x, w, b, stride, dilation, relu, pads)
 
     def k7_noted(x, w, b, relu):
         seen[("pointwise_conv", x.shape[-1], x.shape[1])] += 1
@@ -1437,8 +1455,8 @@ def phase_slice(dev, seed, use_pallas=False):
     labels_seen = []
     predict_labels = predictor.predict_labels
 
-    def keep_labels(volume, threshold=0.5):
-        out = predict_labels(volume, threshold=threshold)
+    def keep_labels(volume, threshold=0.5, mesh=None):
+        out = predict_labels(volume, threshold=threshold, mesh=mesh)
         labels_seen.append(out)
         return out
 
@@ -1526,8 +1544,10 @@ def leaf_stats(names, kernel, twin, limits=None):
             "grad_norm_rel_max": max(norm_rel),
             "limits": {"rel_l2": lim_rel, "rel_l2_median": lim_med,
                        "cos": lim_cos},
-            "ok": (all(map(math.isfinite, vals)) and rel[worst] <= lim_rel
-                   and np.median(rel) <= lim_med and cos[least] >= lim_cos)}
+            "ok": bool(all(map(math.isfinite, vals))
+                       and rel[worst] <= lim_rel
+                       and np.median(rel) <= lim_med
+                       and cos[least] >= lim_cos)}
 
 
 def grad_parity(net, x, y, kernel_ctx=None, use_pallas=False):
@@ -2596,6 +2616,275 @@ def phase_dp(dev, seed, tmp):
     return rec
 
 
+SP_WORLD = 2
+SP_STEPS = 3
+SP_TIMEOUT = 900
+
+
+def spatial_launches(one_process):
+    """The launches a step on D-slabs makes, from the one-process step's:
+    each K1 runs as K1-dx's kernel on its slab with the halo, then K5a on
+    the crop (`pgemm.conv3x3x3_stats_slab`); every other kernel as many
+    times."""
+    out = dict(one_process)
+    for t in ("bf16", "f32"):
+        k1 = out.pop(f"conv3x3x3_stats_{t}", 0)
+        for name in (f"conv3x3x3_{t}", f"moments_{t}"):
+            if k1:
+                out[name] = out.get(name, 0) + k1
+    return out
+
+
+def _moments_not_reduced():
+    """A planted fault: the GroupNorms' forward moments left un-reduced
+    (each rank normalizes with its slab's statistics over the whole
+    volume's count); the backward's sums as the port reduces them."""
+    from nas_3d_unet_tpu_torch.ops import groupnorm
+
+    sound = groupnorm._global_sums
+
+    def faulty(r1, r2, slab):
+        if torch.is_grad_enabled():         # the forward's moments
+            return r1, r2
+        return sound(r1, r2, slab)
+
+    return mock.patch.object(groupnorm, "_global_sums", faulty)
+
+
+def spatial_runs(dev, seed, mesh):
+    """The runs phase "spatial" compares, under `mesh` (None: in one
+    process): {kind: (gradients, launches, s, peak GB)} for the first step
+    of the derived bf16 train step ("derived"; with a mesh also "fault",
+    `_moments_not_reduced`), its `use_pallas` twin ("pallas") and the
+    first-order search step ("search": α's gradients, then w's, the
+    former's count in "search_alphas"); "steps":
+    SP_STEPS AdamW steps with augmentation (the parameters' digest);
+    "predict": one synthetic patient's labels.  Nothing else is
+    updated (`_Recorder`)."""
+    from nas_3d_unet_tpu_torch.ops import _cuda
+    from nas_3d_unet_tpu_torch.search.bilevel import make_search_step
+    from nas_3d_unet_tpu_torch.train.loop import make_train_step
+    from nas_3d_unet_tpu_torch.train.optim import make_optimizer
+
+    def timed(fn):
+        torch.cuda.empty_cache()
+        _cuda.LAUNCHES.clear()
+        torch.cuda.reset_peak_memory_stats(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (dict(_cuda.LAUNCHES), time.perf_counter() - t0,
+                torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+
+    out = {}
+    x, y = synthetic_batch(dev, seed)
+    kinds = [("derived", False, None), ("pallas", True, None)]
+    if mesh is not None:
+        kinds.append(("fault", False, _moments_not_reduced()))
+    for kind, use_pallas, fault in kinds:
+        net = flagship_net(seed, "bfloat16", use_pallas).to(dev)
+        rec = _Recorder(net.parameters())
+        with fault or contextlib.nullcontext():
+            launches, secs, peak = timed(
+                lambda: make_train_step(net, rec, mesh=mesh)(x, y))
+        out[kind] = ([g.cpu() for g in rec.grads], launches, secs, peak)
+        del net, rec
+    net, alphas, batches, _ = search_inputs(dev, seed)
+    w_rec, a_rec = _Recorder(net.parameters()), _Recorder(alphas.values())
+    launches, secs, peak = timed(lambda: make_search_step(
+        net, w_rec, a_rec, alphas, mesh=mesh)(*batches))
+    # α's gradients first, then w's
+    out["search"] = ([g.cpu() for g in a_rec.grads + w_rec.grads], launches,
+                     secs, peak)
+    out["search_alphas"] = len(a_rec.grads)
+    del net, alphas, w_rec, a_rec
+    if mesh is not None:
+        net = flagship_net(seed, "bfloat16").to(dev)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        step = make_train_step(net, make_optimizer(net.parameters(), 3e-4,
+                                                   1e-4),
+                               augment=AUGMENT, gen=gen, mesh=mesh)
+        step(x, y)                                  # warm-up
+        losses = []
+        launches, secs, peak = timed(lambda: losses.extend(
+            step(x, y).item() for _ in range(SP_STEPS)))
+        out["steps"] = (_digest(net.parameters()), losses, launches,
+                        secs / SP_STEPS, peak)
+        del net, step
+    predictor = flagship_predictor(dev, seed)
+    image = synthetic_records(dev, seed, 1)[0]["image_dev"]
+    labels = []
+    launches, secs, peak = timed(lambda: labels.append(
+        predictor.predict_labels(image, mesh=mesh).cpu()))
+    out["predict"] = (labels[0], launches, secs, peak)
+    del predictor, image
+    torch.cuda.empty_cache()
+    return out
+
+
+def spatial_rank_main(args) -> int:
+    """One rank of phase "spatial" (`--sp-rank`): joins a gloo group of
+    SP_WORLD ranks on the parent's card (`--sp-device`), lays them out as
+    data 1 x spatial SP_WORLD and writes `spatial_runs` to
+    <sp-dir>/rank<r>.pt."""
+    from nas_3d_unet_tpu_torch import _build
+    from nas_3d_unet_tpu_torch.parallel import mesh as dp
+    from nas_3d_unet_tpu_torch.utils.precision import strict_fp32
+
+    dev = torch.device(args.sp_device)
+    dp.maybe_initialize_distributed(dev, backend="gloo")
+    mesh = dp.make_mesh(1, SP_WORLD)
+    _build.load()
+    with strict_fp32():
+        res = {"rank": mesh.rank, "world": mesh.world,
+               "spatial": mesh.spatial,
+               "backend": str(torch.distributed.get_backend()),
+               "runs": spatial_runs(dev, args.seed, mesh)}
+    torch.save(res, os.path.join(args.sp_dir, f"rank{mesh.rank}.pt"))
+    dp.destroy()
+    return 0
+
+
+def phase_spatial(dev, seed, tmp):
+    """Spatial sharding on the card: SP_WORLD ranks (processes of this
+    script, `spatial_rank_main`) on card 0 over gloo at data 1 x spatial
+    SP_WORLD, against this process's one-process runs."""
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    ref = spatial_runs(dev, seed, None)
+    ref_s = time.perf_counter() - t0
+    sdir = os.path.join(tmp, "spatial")
+    os.makedirs(sdir)
+    port = _free_port()
+    procs = []
+    for r in range(SP_WORLD):
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(SP_WORLD),
+                   LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(port))
+        log = open(os.path.join(sdir, f"rank{r}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--seed", str(seed),
+             "--sp-rank", str(r), "--sp-dir", sdir, "--sp-device", str(dev)],
+            cwd=root, env=env, stdout=log, stderr=subprocess.STDOUT), log))
+    t0 = time.perf_counter()
+    rcs = []
+    try:
+        for p, log in procs:
+            rcs.append(p.wait(timeout=SP_TIMEOUT))
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+            log.close()
+    ranks_s = time.perf_counter() - t0
+    if any(rcs):
+        tails = [open(os.path.join(sdir, f"rank{r}.log")).read()[-3000:]
+                 for r in range(SP_WORLD)]
+        raise AssertionError(f"spatial ranks exited {rcs}: {tails}")
+    res = [torch.load(os.path.join(sdir, f"rank{r}.pt"), weights_only=False)
+           for r in range(SP_WORLD)]
+    runs = [r["runs"] for r in res]
+
+    rec = {"phase": "spatial", "layout": f"data 1 x spatial {SP_WORLD}",
+           "backend": res[0]["backend"],
+           "card": "one card, both ranks: the times and memory are not "
+                   "scaling numbers; spatial sharding across cards and "
+                   "NCCL at two ranks are not run on one card",
+           "reference_s": ref_s, "ranks_s": ranks_s}
+    ok = {}
+    # gradients: the ranks' (summed over the group) against one process's
+    for kind, limits in (("derived", GRAD_LIMITS), ("pallas", P_GRAD_LIMITS),
+                         ("search", None), ("fault", GRAD_LIMITS)):
+        got, want = runs[0][kind][0], ref["derived" if kind == "fault"
+                                         else kind][0]
+        r = {}
+        if kind == "search":
+            k = ref["search_alphas"]
+            r["alpha"] = leaf_stats([f"a{i}" for i in range(k)],
+                                    [g.double() for g in got[:k]],
+                                    [g.double() for g in want[:k]],
+                                    ALPHA_LIMITS)
+            r["w"] = leaf_stats([f"w{i}" for i in range(len(got) - k)],
+                                [g.double() for g in got[k:]],
+                                [g.double() for g in want[k:]])
+            good = r["alpha"]["ok"] and r["w"]["ok"]
+        else:
+            r["w"] = leaf_stats([f"w{i}" for i in range(len(got))],
+                                [g.double() for g in got],
+                                [g.double() for g in want], limits)
+            good = r["w"]["ok"]
+        if kind != "fault":
+            r["ranks_bit_equal"] = all(
+                _same(a, b) for a, b in zip(runs[0][kind][0],
+                                             runs[1][kind][0]))
+            good = good and r["ranks_bit_equal"]
+            r["launches"] = [run[kind][1] for run in runs]
+            r["expected_launches"] = spatial_launches(ref[kind][1])
+            r["one_process_launches"] = ref[kind][1]
+            r["launches_exact"] = all(
+                la == r["expected_launches"] for la in r["launches"])
+            # a first call: cold (cuDNN's and the caches' first use)
+            r["first_call_s"] = [run[kind][2] for run in runs]
+            r["peak_gb"] = [run[kind][3] for run in runs]
+            r["one_process_first_call_s"], r["one_process_peak_gb"] = \
+                ref[kind][2:4]
+        rec[f"grads_{kind}"] = r
+        ok[kind] = good
+    ok["fault_caught"] = not ok.pop("fault")
+    # SP_STEPS AdamW steps: the ranks' parameters bit-equal, launches
+    one_step = spatial_launches(ref["derived"][1])
+    steps = [run["steps"] for run in runs]
+    rec["steps"] = {
+        "params_bit_equal": len({st[0] for st in steps}) == 1,
+        "losses": [st[1] for st in steps],
+        "launches": [st[2] for st in steps],
+        "expected_launches": {k: n * SP_STEPS for k, n in one_step.items()},
+        "step_s": [st[3] for st in steps],
+        "peak_gb": [st[4] for st in steps]}
+    rec["steps"]["launches_exact"] = all(
+        la == rec["steps"]["expected_launches"]
+        for la in rec["steps"]["launches"])
+    # predict: the labels of one process, bit for bit
+    rec["predict"] = {
+        "labels_equal_one_process": all(
+            run["predict"][0].shape == ref["predict"][0].shape
+            and torch.equal(run["predict"][0], ref["predict"][0])
+            for run in runs),
+        "shape": list(ref["predict"][0].shape),
+        "launches": [run["predict"][1] for run in runs],
+        "expected_launches": ref["predict"][1],
+        "s": [run["predict"][2] for run in runs],
+        "peak_gb": [run["predict"][3] for run in runs],
+        "one_process_s": ref["predict"][2],
+        "one_process_peak_gb": ref["predict"][3]}
+    rec["predict"]["launches_exact"] = all(
+        la == ref["predict"][1] for la in rec["predict"]["launches"])
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit(rec)
+    for kind, good in ok.items():
+        if kind == "fault_caught" and not good:
+            raise AssertionError("spatial: the GroupNorm moments left "
+                                 "un-reduced pass the train step's limits")
+        if not good:
+            raise AssertionError(f"spatial {kind}: gradients off the "
+                                 "one-process step's limits or ranks differ")
+    for kind in ("derived", "pallas", "search"):
+        if not rec[f"grads_{kind}"]["launches_exact"]:
+            raise AssertionError(f"spatial {kind} launches: "
+                                 f"{rec[f'grads_{kind}']}")
+    if not rec["steps"]["params_bit_equal"] \
+            or not rec["steps"]["launches_exact"] \
+            or not all(math.isfinite(v) for st in steps for v in st[1]):
+        raise AssertionError(f"spatial steps: {rec['steps']}")
+    if not rec["predict"]["labels_equal_one_process"] \
+            or not rec["predict"]["launches_exact"]:
+        raise AssertionError(f"spatial predict: {rec['predict']}")
+    return rec
+
+
 def write_raw_patients(raw_dir, seed):
     """CLI_PATIENTS BraTS-layout patients under raw_dir/HGG and LGG: four
     RAW_SHAPE fp32 modalities, zero outside an ellipsoid head, and a
@@ -3382,6 +3671,9 @@ def main() -> int:
     for name in ("--dp-rank", "--dp-dir", "--dp-store", "--dp-ckpt",
                  "--dp-device"):
         ap.add_argument(name, default=None, help=argparse.SUPPRESS)
+    # one rank of phase "spatial"
+    for name in ("--sp-rank", "--sp-dir", "--sp-device"):
+        ap.add_argument(name, default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     t_script = time.perf_counter()
 
@@ -3390,6 +3682,8 @@ def main() -> int:
         return 2
     if args.dp_rank is not None:
         return dp_rank_main(args)
+    if args.sp_rank is not None:
+        return spatial_rank_main(args)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -3435,6 +3729,7 @@ def main() -> int:
             pc, both, pc_s = phase_search_pc(dev, gen, args.seed)
             remat, remat_s = phase_remat(dev, args.seed)
             dp = phase_dp(dev, args.seed, cli_tmp)
+            sp = phase_spatial(dev, args.seed, cli_tmp)
         phase_pallas_kernels(dev, gen, summary)
         p_serve_launches, p_s_per_patient = phase_slice(dev, args.seed, True)
         p_train_launches, p_train = phase_train(dev, args.seed, True)
@@ -3470,7 +3765,8 @@ def main() -> int:
              for key in ("step_s", "peak_mem_gb")},
           "remat_s": remat_s, "dp_s": dp["seconds"],
           "dp_step_s": dp["step_s"], "dp_world": dp["world"],
-          "dp_backend": dp["backend"],
+          "dp_backend": dp["backend"], "spatial_s": sp["seconds"],
+          "spatial_step_s": sp["steps"]["step_s"],
           "script_s": time.perf_counter() - t_script,
           "card": smi, "build_s": build_s})
     # each kernel's launches in the run of its path: the default path's

@@ -21,8 +21,20 @@ Data parallelism: launched by torchrun, one rank per card,
 
 every rank runs the command on `cuda:LOCAL_RANK` (with `--device cpu`, on
 the CPU over gloo) over its share of the patients, `parallel.data_parallel`
--1 or N (`parallel/mesh.py`); rank 0 alone preprocesses, writes checkpoints
-and `genotype.json`, and prints the `*_done` events.
+× `parallel.spatial_parallel` = N (`parallel/mesh.py`); rank 0 alone
+preprocesses, writes checkpoints and `genotype.json`, and prints the
+`*_done` events.  Spatial sharding, the volume's D axis in slabs over S
+ranks of the same patches (`parallel/spatial.py`):
+
+    python -m torch.distributed.run --nproc_per_node N \
+        -m nas_3d_unet_tpu_torch {train,search,predict} -c config.json \
+        -o parallel.spatial_parallel=S
+
+`train` and `search` need `data.patch_size`'s D to be a multiple of
+S·2^depth with at least 2 planes in the deepest slab, and `search` the
+first-order step (`search.unrolled` is refused, ROADMAP.md item 9c);
+`predict` shards the stitch's buffers, with labels bit-identical to one
+process.
 """
 
 from __future__ import annotations
@@ -96,8 +108,8 @@ def cmd_search(args, device) -> int:
     sc = cfg.search
     mesh = _mesh(cfg)
     searcher = Searcher(make_supernet(cfg.model, cfg.data.num_classes), cfg,
-                        dataset_paths(cfg.data.processed_dir, mesh.rank,
-                                      mesh.world),
+                        dataset_paths(cfg.data.processed_dir,
+                                      mesh.data_rank, mesh.data_world),
                         log_path=os.path.join(sc.checkpoint_dir,
                                               "metrics.jsonl"),
                         device=device, mesh=mesh)
@@ -118,7 +130,8 @@ def cmd_train(args, device) -> int:
                        _genotype(cfg, warn=True))
     log = os.path.join(cfg.train.checkpoint_dir, "metrics.jsonl")
     trainer = Trainer(net, cfg, dataset_paths(cfg.data.processed_dir,
-                                              mesh.rank, mesh.world),
+                                              mesh.data_rank,
+                                              mesh.data_world),
                       log_path=log, device=device, mesh=mesh)
     trainer.train()
     _done({"event": "train_done", "ckpt_dir": cfg.train.checkpoint_dir})

@@ -10,12 +10,15 @@ tensor; "image_dev" may hold a copy already on the device), "crop_start",
 "orig_shape", and optionally "label" ("label_dev"), "affine".
 `predict_dataset` runs the loop over a directory of preprocessed patients,
 with a loader thread reading and staging the next patient.  Under data
-parallelism each rank serves its own patients, `[rank::world]` of them in
-name order, and the results are gathered.  This departs from the JAX
+parallelism each data index serves its own patients, `[i::data]` of them
+in name order, and the results are gathered.  This departs from the JAX
 package on purpose, which splits one patient's patch batches over the
 devices (`infer/sliding.py:93-97`): split by patient, the stitch needs no
 collective, so its fp32 order, and with it every patient's labels and
-probabilities, are bit for bit the one-process ones.
+probabilities, are bit for bit the one-process ones.  Under spatial
+sharding the ranks of a spatial group serve the same patients, each
+stitching its D-slab (`infer/sliding.py`); the first rank of the group
+writes the NIfTI files.
 """
 
 from __future__ import annotations
@@ -49,11 +52,12 @@ def uncrop_labels(labels: np.ndarray, crop_start, orig_shape) -> np.ndarray:
 
 
 def _dispatch_patient(predictor: SlidingWindowPredictor, rec: Dict,
-                      threshold: float):
+                      threshold: float, mesh: Optional[Mesh] = None):
     """Queue one patient's device work: labels and (with a label) Dice, both
-    left on the device."""
+    left on the device; `mesh`: the stitch sharded over its spatial
+    groups."""
     labels_dev = predictor.predict_labels(rec.get("image_dev", rec["image"]),
-                                          threshold=threshold)
+                                          threshold=threshold, mesh=mesh)
     dice_dev = None
     if "label" in rec:
         true = rec.get("label_dev")
@@ -85,11 +89,12 @@ def _finalize_patient(labels_dev: torch.Tensor, dice_dev, rec: Dict,
 
 def predict_patient(predictor: SlidingWindowPredictor, rec: Dict,
                     out_dir: Optional[str] = None,
-                    threshold: float = 0.5) -> Dict:
+                    threshold: float = 0.5,
+                    mesh: Optional[Mesh] = None) -> Dict:
     """One patient end to end; `seconds` spans predict, decode, readback and
     uncrop (the NIfTI write and Dice scalars are not timed)."""
     t0 = time.perf_counter()
-    labels_dev, dice_dev = _dispatch_patient(predictor, rec, threshold)
+    labels_dev, dice_dev = _dispatch_patient(predictor, rec, threshold, mesh)
     labels_dev.cpu()                                  # wait for the device
     elapsed = time.perf_counter() - t0
     result = _finalize_patient(labels_dev, dice_dev, rec, out_dir)
@@ -99,7 +104,8 @@ def predict_patient(predictor: SlidingWindowPredictor, rec: Dict,
 
 def predict_records(predictor: SlidingWindowPredictor, records,
                     out_dir: Optional[str] = None, threshold: float = 0.5,
-                    verbose: bool = True) -> List[Dict]:
+                    verbose: bool = True,
+                    mesh: Optional[Mesh] = None) -> List[Dict]:
     """Pipelined loop over `(path, record)` pairs.
 
     The main thread queues each patient's device work; a writer thread does
@@ -136,7 +142,8 @@ def predict_records(predictor: SlidingWindowPredictor, records,
     wt.start()
     try:
         for _path, rec in records:
-            labels_dev, dice_dev = _dispatch_patient(predictor, rec, threshold)
+            labels_dev, dice_dev = _dispatch_patient(predictor, rec,
+                                                     threshold, mesh)
             q.put((rec, labels_dev, dice_dev, time.perf_counter()))
     finally:
         q.put(end)
@@ -192,22 +199,32 @@ def predict_dataset(predictor: SlidingWindowPredictor, processed_dir: str,
     JSON line per patient it serves.  A loader thread feeds
     `predict_records`' dispatch/finalize overlap; `overlap_output=False`
     runs the patients one after the other (`predict_patient`).  `mesh`:
-    this rank serves patients `[rank::world]`, and every rank returns all
-    ranks' results, in name order."""
-    rank, world = (0, 1) if mesh is None else (mesh.rank, mesh.world)
+    data index i serves patients `[i::data]` (each rank of its spatial
+    group stitching its D-slab, the first one writing the files and
+    printing), and every rank returns all patients' results, in name
+    order."""
+    if mesh is None or mesh.world == 1:
+        mesh = None
+    rank, world = (0, 1) if mesh is None else (mesh.data_rank,
+                                                mesh.data_world)
+    first = mesh is None or mesh.slab is None or mesh.slab.first
     paths = dataset_paths(processed_dir, rank, world)
     records = _iter_patients_prefetched(paths, predictor.device)
+    out_dir = out_dir if first else None
     if overlap_output:
-        results = predict_records(predictor, records, out_dir, threshold)
+        results = predict_records(predictor, records, out_dir, threshold,
+                                  verbose=first, mesh=mesh)
     else:
         results = []
         for _path, rec in records:
-            res = predict_patient(predictor, rec, out_dir, threshold)
-            print(json.dumps(res))
+            res = predict_patient(predictor, rec, out_dir, threshold, mesh)
+            if first:
+                print(json.dumps(res))
             results.append(res)
-    if world == 1:
+    if mesh is None:
         return results
-    # rank r served patients r, r + world, ...: interleave them back
-    per_rank = mesh.gather(results)
+    # data index i served patients i, i + data, ...: interleave the first
+    # ranks' results of each spatial group back
+    per_rank = mesh.gather(results)[::mesh.spatial]
     return [per_rank[i % world][i // world]
             for i in range(sum(map(len, per_rank)))]

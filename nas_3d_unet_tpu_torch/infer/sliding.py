@@ -11,18 +11,28 @@ atomics, no reordering), and a single divide at the end.  Padded grid entries
 (filling the last batch) carry weight 0.0, whose products add exactly zero.
 The stitched probabilities therefore equal, bit for bit, a sequential numpy
 loop fed the same per-patch probabilities.
+
+Under spatial sharding (`parallel/mesh.py`, the reference's
+`volume_sharding`, `infer/sliding.py:68-83`) every rank of a spatial group
+runs the same patch batches in the same order, keeps only its D-slab of
+the sum and count buffers, decodes that slab, and the label slabs are
+gathered in D order: the per-voxel arithmetic is the one-process one, so
+the labels are bit-identical.  At BraTS sizes both windows along D overlap
+every slab, so this shards the buffers' memory, not the work.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, List, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..metrics.dice import class_indices_to_labels, region_masks_to_labels
+from ..parallel.mesh import Mesh
+from ..parallel.spatial import Slab
 from ..utils.device import resolve_device
 from ..utils.precision import strict_fp32
 
@@ -49,10 +59,14 @@ def grid_coords(shape: Sequence[int], patch: Sequence[int],
 
 def _stitch_sums(forward_fn: Callable[[torch.Tensor], torch.Tensor], volume,
                  patch_size: Sequence[int], overlap: float, batch_size: int,
-                 num_classes: int, device: torch.device
-                 ) -> Tuple[torch.Tensor, torch.Tensor, Tuple[int, int, int]]:
-    """Pad, grid, batch, accumulate: (sums, cnts) on `device` and the
-    unpadded volume shape."""
+                 num_classes: int, device: torch.device,
+                 slab: Optional[Slab] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor, Tuple[int, int, int],
+                            int]:
+    """Pad, grid, batch, accumulate: (sums, cnts) on `device`, the
+    unpadded volume shape and the first plane the buffers hold: 0, or with
+    a `slab` the start of its share (⌈D/size⌉ planes a slab, of the padded
+    D) of every patch's planes."""
     vol = torch.as_tensor(volume, dtype=torch.float32, device=device)
     orig_shape = tuple(vol.shape[:3])
     patch = tuple(int(p) for p in patch_size)
@@ -70,9 +84,15 @@ def _stitch_sums(forward_fn: Callable[[torch.Tensor], torch.Tensor], volume,
     weights = [1.0] * n + [0.0] * n_pad
     coords += [coords[-1]] * n_pad
 
-    sums = torch.zeros((*shape, num_classes), dtype=torch.float32,
+    d0, d1 = 0, shape[0]
+    if slab is not None:
+        n_slab = -(-shape[0] // slab.size)
+        d0 = min(shape[0], slab.index * n_slab)
+        d1 = min(shape[0], d0 + n_slab)
+    sums = torch.zeros((d1 - d0, *shape[1:], num_classes),
+                       dtype=torch.float32, device=device)
+    cnts = torch.zeros((d1 - d0, *shape[1:], 1), dtype=torch.float32,
                        device=device)
-    cnts = torch.zeros((*shape, 1), dtype=torch.float32, device=device)
     pd, ph, pw = patch
     for j in range(0, len(coords), batch_size):
         cs = coords[j:j + batch_size]
@@ -80,11 +100,14 @@ def _stitch_sums(forward_fn: Callable[[torch.Tensor], torch.Tensor], volume,
                                for d, h, w in cs])
         probs = forward_fn(patches).float()
         for i, (d, h, w) in enumerate(cs):
+            a, b = max(d, d0), min(d + pd, d1)     # the patch's planes here
+            if a >= b:
+                continue
             wgt = weights[j + i]
-            sl = (slice(d, d + pd), slice(h, h + ph), slice(w, w + pw))
-            sums[sl] += wgt * probs[i]
+            sl = (slice(a - d0, b - d0), slice(h, h + ph), slice(w, w + pw))
+            sums[sl] += wgt * probs[i, a - d:b - d]
             cnts[sl] += wgt
-    return sums, cnts, orig_shape
+    return sums, cnts, orig_shape, d0
 
 
 def sliding_window_probs(forward_fn, volume, patch_size: Sequence[int],
@@ -98,9 +121,9 @@ def sliding_window_probs(forward_fn, volume, patch_size: Sequence[int],
     (B, p, p, p, K).  `volume` is the (D, H, W, C) image, numpy or tensor.
     The divide runs once, on the host, as in the reference.  `device`
     None means the card (`resolve_device`)."""
-    sums, cnts, (d, h, w) = _stitch_sums(forward_fn, volume, patch_size,
-                                         overlap, batch_size, num_classes,
-                                         resolve_device(device))
+    sums, cnts, (d, h, w), _ = _stitch_sums(forward_fn, volume, patch_size,
+                                            overlap, batch_size, num_classes,
+                                            resolve_device(device))
     probs = sums.cpu().numpy() / cnts.cpu().numpy()
     return probs[:d, :h, :w]
 
@@ -127,13 +150,23 @@ def sliding_window_labels(forward_fn, volume, patch_size: Sequence[int],
                           num_classes: int = 3,
                           device: torch.device | str | None = None,
                           threshold: float = 0.5,
-                          label_mode: str = "regions") -> torch.Tensor:
+                          label_mode: str = "regions",
+                          mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Whole-volume BraTS labels decoded on `device`, (D, H, W) uint8: only
-    the 1-byte label volume needs to leave the device."""
-    sums, cnts, crop = _stitch_sums(forward_fn, volume, patch_size, overlap,
-                                    batch_size, num_classes,
-                                    resolve_device(device))
-    return decode_labels(sums, cnts, threshold, label_mode, crop)
+    the 1-byte label volume needs to leave the device.  Under a `mesh`
+    with spatial sharding this rank stitches and decodes its D-slab, and
+    the group's label slabs are gathered in D order."""
+    device = resolve_device(device)
+    slab = None if mesh is None else mesh.slab
+    sums, cnts, (d, h, w), d0 = _stitch_sums(
+        forward_fn, volume, patch_size, overlap, batch_size, num_classes,
+        device, slab)
+    if slab is None:
+        return decode_labels(sums, cnts, threshold, label_mode, (d, h, w))
+    mine = decode_labels(sums, cnts, threshold, label_mode,
+                         (max(0, min(d - d0, sums.shape[0])), h, w))
+    parts = mesh.spatial_gather(mine.cpu().numpy())
+    return torch.from_numpy(np.concatenate(parts)).to(device)
 
 
 class SlidingWindowPredictor:
@@ -168,10 +201,13 @@ class SlidingWindowPredictor:
                 self.forward_probs, volume, self.patch_size, self.overlap,
                 self.batch_size, self.num_classes, self.device)
 
-    def predict_labels(self, volume, threshold: float = 0.5) -> torch.Tensor:
-        """(D, H, W) uint8 BraTS labels, on the model's device."""
+    def predict_labels(self, volume, threshold: float = 0.5,
+                       mesh: Optional[Mesh] = None) -> torch.Tensor:
+        """(D, H, W) uint8 BraTS labels, on the model's device; `mesh`:
+        the stitch sharded over its spatial groups
+        (`sliding_window_labels`)."""
         with torch.inference_mode(), strict_fp32():
             return sliding_window_labels(
                 self.forward_probs, volume, self.patch_size, self.overlap,
                 self.batch_size, self.num_classes, self.device,
-                threshold=threshold, label_mode=self.label_mode)
+                threshold=threshold, label_mode=self.label_mode, mesh=mesh)

@@ -13,6 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..parallel import spatial
+
 REGIONS = ("WT", "TC", "ET")
 
 
@@ -66,11 +68,18 @@ def class_logits_to_regions(logits: torch.Tensor) -> torch.Tensor:
 def region_dice(pred_regions: torch.Tensor, true_regions: torch.Tensor,
                 eps: float = 1e-7) -> torch.Tensor:
     """Hard Dice per region channel, (3,) float32; 1.0 where both masks are
-    empty (the BraTS convention for an absent ET)."""
+    empty (the BraTS convention for an absent ET).  On a D-slab
+    (`parallel/spatial.py`) the sums are the whole volume's."""
     c = pred_regions.shape[-1]
     p = pred_regions.float().reshape(-1, c)
     y = true_regions.float().reshape(-1, c)
-    inter = (p * y).sum(0)
-    denom = p.sum(0) + y.sum(0)
+    slab = spatial.current()
+    if slab is None:
+        inter = (p * y).sum(0)
+        denom = p.sum(0) + y.sum(0)
+    else:
+        inter, sp, sy = spatial.all_reduce_sums(
+            [(p * y).sum(0), p.sum(0), y.sum(0)], slab)
+        denom = sp + sy
     return torch.where(denom > 0, 2.0 * inter / (denom + eps),
                        torch.ones_like(denom))

@@ -65,6 +65,7 @@ from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 from ..ops import pool
 from ..ops.primitives import (DOWN_OPS, NORMAL_OPS, UP_OPS, ConvNormAct,
                               _gn_groups_for, make_op)
+from ..parallel.spatial import same_slab
 from ..utils.precision import same_policy
 from .genotype import mid_index
 
@@ -100,7 +101,9 @@ def checkpointed(mod: nn.Module, *args):
     used, also where those were bound from outside (the second-order
     step's virtual weights, `search/bilevel.py`), and the gradient flows
     into them.  The recompute runs under the forward's precision settings
-    (`same_policy`) and in full: PyTorch's early stop, which ends it at
+    (`same_policy`) and sharded-D context (`parallel/spatial.py`
+    `same_slab`: its halo exchanges and sums run again, in the same order
+    on every rank) and in full: PyTorch's early stop, which ends it at
     the last activation the backward needs, saved no step time beyond the
     run-to-run spread on an H100 (PERF.md), and without it a region
     launches every kernel of its forward again, on the same inputs, once
@@ -110,7 +113,7 @@ def checkpointed(mod: nn.Module, *args):
         return mod(*args)
     named = list(mod.named_parameters())
     names, n = [k for k, _ in named], len(named)
-    reinstate = same_policy()
+    reinstate = _Reinstate(same_policy(), same_slab())
 
     def run(*flat):
         return functional_call(mod, dict(zip(names, flat[:n])), flat[n:])
@@ -120,6 +123,22 @@ def checkpointed(mod: nn.Module, *args):
                           use_reentrant=False, preserve_rng_state=False,
                           context_fn=lambda: (contextlib.nullcontext(),
                                               reinstate))
+
+
+class _Reinstate:
+    """Re-entrant contexts entered together (a recompute may run once per
+    backward through its region)."""
+
+    def __init__(self, *contexts):
+        self.contexts = contexts
+
+    def __enter__(self) -> None:
+        for c in self.contexts:
+            c.__enter__()
+
+    def __exit__(self, *exc) -> None:
+        for c in reversed(self.contexts):
+            c.__exit__(*exc)
 
 
 class _Named(nn.Module):

@@ -184,6 +184,15 @@ class SuperNet(_UNet):
                          (w["up_skip"], w["up_below"], w["up_mid"]))
 
 
+def unet_depth(model: nn.Module) -> int:
+    """The depth of the U-net that `model` is or holds (a `DerivedNet`, a
+    `SuperNet`, or a module around one)."""
+    for m in model.modules():
+        if isinstance(m, _UNet):
+            return m.depth
+    raise ValueError(f"no U-net in {type(model).__name__}")
+
+
 def arch_weights_from_alphas(
         alphas: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """softmax over the op axis of every α tensor, in fp32."""

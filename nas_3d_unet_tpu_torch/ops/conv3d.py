@@ -35,6 +35,13 @@ by y > 0 where the ReLU was fused.  Where no graph is recorded (grad mode
 off, or no input that needs a gradient: serving), K7 and K4 launch their
 kernel without the Function.
 
+On a D-slab (`parallel/spatial.py`) the 3³ convs, K6 and `conv3d_same`
+alike, run on x with the halo that lax's SAME pads of the global D ask
+for ((d, d) at stride 1, (0, 1) at stride 2, (1, 2) at stride 2 and
+dilation 2) and a D pad of 0 (`_halo_pads`); K6's ⌈D/stride⌉ output
+planes are cropped to the valid ones, and its backward's dx goes back
+through the exchange's adjoint.  K7 and K4 need no halo.
+
 Dispatch: a CPU tensor takes the twin; a CUDA tensor launches the kernel
 or raises.  There is no fallback from one to the other.
 """
@@ -44,6 +51,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..parallel import spatial
 from . import _cuda
 
 
@@ -105,67 +113,95 @@ def _same_pads(x: torch.Tensor, k: int, stride: int, dilation: int):
     return pads
 
 
-def _padded_nchw(x: torch.Tensor, k: int, stride: int, dilation: int):
-    """(x as NCDHW with lax's SAME pads applied, the pads)."""
+def _halo_pads(x: torch.Tensor, k: int, stride: int, dilation: int):
+    """(x, pads in F.pad's order) for a SAME conv of x: lax's pads of x's
+    shape, or, on a D-slab (`parallel/spatial.py`), x with the halo that
+    lax's pads of the global D ask for and a D pad of 0."""
     pads = _same_pads(x, k, stride, dilation)
+    slab = spatial.current()
+    if slab is None:
+        return x, pads
+    lo, hi = same_pad(x.shape[1] * slab.size, k, stride, dilation)
+    pads[4:6] = [0, 0]
+    return spatial.halo_d(x, lo, hi, 0.0, slab), pads
+
+
+def _padded_nchw(x: torch.Tensor, pads) -> torch.Tensor:
+    """x as NCDHW with `pads` applied."""
     xt = x.permute(0, 4, 1, 2, 3)
-    return (F.pad(xt, pads) if any(pads) else xt), pads
+    return F.pad(xt, pads) if any(pads) else xt
+
+
+def _conv(x, w, pads, stride, dilation, groups=1):
+    """The conv of NDHWC x padded by `pads` with a DHWIO kernel (cuDNN),
+    NDHWC out."""
+    y = F.conv3d(_padded_nchw(x, pads), w.permute(4, 3, 0, 1, 2),
+                 stride=stride, dilation=dilation, groups=groups)
+    return y.permute(0, 2, 3, 4, 1)
 
 
 def conv3d_same(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
                 dilation: int = 1, groups: int = 1) -> torch.Tensor:
     """Plain SAME conv on NDHWC with a DHWIO kernel (cuDNN).  The pad is
-    explicit because torch's `padding=` is symmetric and lax's is not."""
-    xt, _ = _padded_nchw(x, w.shape[0], stride, dilation)
-    y = F.conv3d(xt, w.permute(4, 3, 0, 1, 2), stride=stride,
-                 dilation=dilation, groups=groups)
-    return y.permute(0, 2, 3, 4, 1)
+    explicit because torch's `padding=` is symmetric and lax's is not; on
+    a D-slab the D pad is the halo (`_halo_pads`)."""
+    x, pads = _halo_pads(x, w.shape[0], stride, dilation)
+    return _conv(x, w, pads, stride, dilation, groups)
 
 
 def conv3d_twin(x: torch.Tensor, w: torch.Tensor,
                 b: torch.Tensor | None = None, stride: int = 1,
-                dilation: int = 1, relu: bool = False) -> torch.Tensor:
-    """Plain PyTorch K6: `conv3d_same`.  With a bias the conv runs in fp32
-    so that y rounds once, as the kernel's does; without one it runs in
-    x's dtype (one rounding too)."""
+                dilation: int = 1, relu: bool = False,
+                pads=None) -> torch.Tensor:
+    """Plain PyTorch K6: the conv of x padded by `pads` (None: lax's SAME
+    pads of x).  With a bias the conv runs in fp32 so that y rounds once,
+    as the kernel's does; without one it runs in x's dtype (one rounding
+    too)."""
+    if pads is None:
+        pads = _same_pads(x, 3, stride, dilation)
     if b is None:
-        y = conv3d_same(x, w, stride, dilation)
+        y = _conv(x, w, pads, stride, dilation)
         return (y.relu() if relu else y).contiguous()
-    y = conv3d_same(x.float(), w.float(), stride, dilation)
+    y = _conv(x.float(), w.float(), pads, stride, dilation)
     return _epilogue(y, b, relu, x.dtype).contiguous()
 
 
-def _k6(x, w, b, stride, dilation, relu):
+def _k6(x, w, b, stride, dilation, relu, pads=None):
     """One K6 launch (the conv tile of x's dtype: `csrc/conv_fma.cuh` in
-    fp32, `csrc/conv_mma.cuh` in bf16), or its twin on the CPU."""
+    fp32, `csrc/conv_mma.cuh` in bf16), or its twin on the CPU.  `pads`
+    (F.pad's order; None: lax's SAME pads of x) may set the D pads of a
+    slab extended by its halo to 0: the kernel, which writes ⌈D/stride⌉
+    planes, is then cropped to the conv's valid ones."""
+    if pads is None:
+        pads = _same_pads(x, 3, stride, dilation)
     if _cuda.dispatch("conv3d", x, w):
-        return conv3d_twin(x, w, b, stride, dilation, relu)
+        return conv3d_twin(x, w, b, stride, dilation, relu, pads)
     t = _cuda.check("conv3d", x, w)
     bsz, d, h, wd, cin = x.shape
     cout = w.shape[4]
     out = [-(-s // stride) for s in (d, h, wd)]
     y = torch.empty((bsz, *out, cout), dtype=x.dtype, device=x.device)
-    pads = _same_pads(x, 3, stride, dilation)
     _cuda.run(f"conv3d_{t}", x.device, x.data_ptr(), w.data_ptr(),
               _cuda.ptr(_bias(b, x)), y.data_ptr(), bsz, d, h, wd, cin, cout,
               stride, dilation, pads[4], pads[2], pads[0], int(relu))
-    return y
+    valid = (d + pads[4] + pads[5] - 2 * dilation - 1) // stride + 1
+    return y if valid == out[0] else y[:, :valid].contiguous()
 
 
 class _Conv3d(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, b, stride, dilation, relu):
-        y = _k6(x, w, b, stride, dilation, relu)
+    def forward(ctx, x, w, b, stride, dilation, relu, pads):
+        y = _k6(x, w, b, stride, dilation, relu, pads)
         ctx.save_for_backward(x, w, y if relu else None)
-        ctx.conf = (stride, dilation, None if b is None else b.dtype)
+        ctx.conf = (stride, dilation, None if b is None else b.dtype, pads)
         return y
 
     @staticmethod
     def backward(ctx, g):
         x, w, y = ctx.saved_tensors
-        stride, dilation, b_dtype = ctx.conf
+        stride, dilation, b_dtype, pads = ctx.conf
         g = _grad_in(g, y, x)
-        xt, pads = _padded_nchw(x, 3, stride, dilation)
+        xt = _padded_nchw(x, pads)
         wt = w.permute(4, 3, 0, 1, 2)
         gt = g.permute(0, 4, 1, 2, 3)
         need_x, need_w = ctx.needs_input_grad[:2]
@@ -182,20 +218,22 @@ class _Conv3d(torch.autograd.Function):
             dw = dwt.permute(2, 3, 4, 1, 0)
         if b_dtype is not None and ctx.needs_input_grad[2]:
             db = g.float().sum((0, 1, 2, 3)).to(b_dtype)
-        return dx, dw, db, None, None, None
+        return dx, dw, db, None, None, None, None
 
 
 def conv3d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
            stride: int = 1, dilation: int = 1,
            relu: bool = False) -> torch.Tensor:
     """K6: x (B, D, H, W, Cin), w (3, 3, 3, Cin, Cout), b (Cout,) or None,
-    one dtype → y (B, ⌈D/s⌉, ⌈H/s⌉, ⌈W/s⌉, Cout) in that dtype.
+    one dtype → y (B, ⌈D/s⌉, ⌈H/s⌉, ⌈W/s⌉, Cout) in that dtype.  On a
+    D-slab, the launch runs on x with its halo and a D pad of 0.
     Differentiable in x, w and b."""
     _check("conv3d", x, w, b, (3, 3, 3))
     if stride not in (1, 2) or dilation not in (1, 2):
         raise ValueError(f"conv3d: stride {stride} dilation {dilation}")
-    return _Conv3d.apply(x.contiguous(), w.contiguous(), b, stride, dilation,
-                         relu)
+    x, pads = _halo_pads(x.contiguous(), 3, stride, dilation)
+    return _Conv3d.apply(x, w.contiguous(), b, stride, dilation, relu,
+                         tuple(pads))
 
 
 # ---------------------------------------------------------------------------

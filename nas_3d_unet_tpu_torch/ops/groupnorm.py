@@ -28,6 +28,11 @@ autograd Function and writes dx from differentiable ops
 graph the backward is the first-order one above, launch for launch and
 bit for bit.
 
+On a D-slab (`parallel/spatial.py`) both GroupNorms sum the forward's
+moments and the backward's Σdy, Σdy·x over the spatial group before the
+(B, C) algebra, with the global voxel count; dγ and dβ stay the slab's
+own sums, which the step's gradient reduction adds up.
+
 `pallas_group_norm` is the `use_pallas` path's GroupNorm (K3), the
 counterpart of `nas_3d_unet_tpu/ops/pallas/groupnorm.py` `group_norm`
 (:184): forward Σx, Σx² (K5a, or the producer's moments), the fold, and
@@ -46,6 +51,7 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel import spatial
 from . import _cuda, stats
 from .stats import _bcast
 
@@ -83,12 +89,26 @@ def _normalize(x, a, b):
     return (x * a.to(x.dtype)).add_(b.to(x.dtype))
 
 
+def _count(x: torch.Tensor, gsize: int, slab) -> int:
+    """Voxels × channels of one (batch item, group): over the global D on
+    a slab."""
+    n = (x.numel() // (x.shape[0] * x.shape[-1])) * gsize
+    return n if slab is None else n * slab.size
+
+
+def _global_sums(r1, r2, slab):
+    """(Σ, Σ) (B, C) of the whole volume: on a slab, each slab's summed
+    over the spatial group."""
+    if slab is None:
+        return r1, r2
+    return tuple(spatial.all_reduce_sums((r1, r2), slab))
+
+
 class _GroupNorm(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, scale, bias, s1, s2, groups, relu, eps):
-        c = x.shape[-1]
-        gsize = c // groups
-        n = (x.numel() // (x.shape[0] * c)) * gsize
+    def forward(ctx, x, scale, bias, s1, s2, groups, relu, eps, slab):
+        gsize = x.shape[-1] // groups
+        n = _count(x, gsize, slab)
         mean, inv = _fold(s1, s2, groups, n, eps)
         a, b = _affine(x, mean, inv, scale, bias, gsize)
         y = _normalize(x, a, b)
@@ -96,6 +116,7 @@ class _GroupNorm(torch.autograd.Function):
             y = y.relu_()
         ctx.save_for_backward(x, scale, bias, mean, inv)
         ctx.gsize, ctx.n, ctx.relu, ctx.eps = gsize, n, relu, eps
+        ctx.slab = slab
         return y
 
     @staticmethod
@@ -110,18 +131,33 @@ class _GroupNorm(torch.autograd.Function):
                 keep = _normalize(x, a0, b0) > 0
             dy = torch.where(keep, dy, 0)
         if torch.is_grad_enabled():     # create_graph: dx is differentiated
+            if ctx.slab is not None:
+                raise RuntimeError(
+                    "a differentiated GroupNorm backward on a D-slab (the "
+                    "second-order search under spatial sharding, ROADMAP.md "
+                    "queue 1, item 9c)")
             return (*_differentiable_backward(dy, x, scale, gsize, n,
                                               ctx.eps),
-                    None, None, None, None, None)
+                    None, None, None, None, None, None)
         r1, r2 = stats.weighted_sums(dy, x)                  # K5b, (B, C)
-        c1, c2, inv_c, dgamma = _dx_terms(r1, r2, scale, mean, inv, gsize,
-                                          n)
+        # c1, c2 from the whole volume's sums; dγ, dβ from this slab's,
+        # which the step's gradient reduction sums over the group
+        c1, c2, inv_c, _ = _dx_terms(*_global_sums(r1, r2, ctx.slab), scale,
+                                     mean, inv, gsize, n)
+        dgamma = _dgamma(r1, r2, mean, inv, gsize)
         shape = (bsz,) + (1,) * (x.dim() - 2) + (x.shape[-1],)
         # one pass in fp32, rounded once: dy·a + x·c2 + c1
         dx = dy * (inv_c * scale).view(shape)
         dx.addcmul_(x, c2.view(shape))
         dx += c1.view(shape)
-        return dx.to(x.dtype), dgamma, r1.sum(0), None, None, None, None, None
+        return (dx.to(x.dtype), dgamma, r1.sum(0), None, None, None, None,
+                None, None)
+
+
+def _dgamma(r1, r2, mean, inv, gsize: int):
+    """dγ from Σdy, Σdy·x: Σ over the batch of inv·(Σdy·x − mean·Σdy)."""
+    inv_c, mean_c = _by_channel(inv, gsize), _by_channel(mean, gsize)
+    return (inv_c * (r2 - mean_c * r1)).sum(0)
 
 
 def _dx_terms(r1, r2, scale, mean, inv, gsize: int, n: int):
@@ -133,9 +169,8 @@ def _dx_terms(r1, r2, scale, mean, inv, gsize: int, n: int):
     s_tx = inv * (t2 - mean * t1)                            # Σ γ·dy·x̂
     c2 = -(inv * inv) * s_tx / n
     c1 = -inv * t1 / n - c2 * mean
-    inv_c, mean_c = _by_channel(inv, gsize), _by_channel(mean, gsize)
-    dgamma = (inv_c * (r2 - mean_c * r1)).sum(0)
-    return (_by_channel(c1, gsize), _by_channel(c2, gsize), inv_c, dgamma)
+    return (_by_channel(c1, gsize), _by_channel(c2, gsize),
+            _by_channel(inv, gsize), _dgamma(r1, r2, mean, inv, gsize))
 
 
 def _grad_statistics(x, groups: int, n: int, eps: float):
@@ -163,8 +198,13 @@ def group_norm_from_moments(x: torch.Tensor, s1: torch.Tensor,
                             eps: float = EPS) -> torch.Tensor:
     """x (B, ..., C) in fp32 or bf16; s1 = Σx, s2 = Σx² (B, C) fp32 over
     the voxels of each batch item.  Per-(batch, group) statistics over
-    voxels and the group's channels.  The moments get no gradient."""
-    return _GroupNorm.apply(x, scale, bias, s1, s2, groups, relu, eps)
+    voxels and the group's channels.  The moments get no gradient.  On a
+    D-slab (`parallel/spatial.py`) x and the moments are the slab's: the
+    moments are summed over the spatial group before the fold, and the
+    backward's Σdy, Σdy·x too."""
+    slab = spatial.current()
+    s1, s2 = _global_sums(s1, s2, slab)
+    return _GroupNorm.apply(x, scale, bias, s1, s2, groups, relu, eps, slab)
 
 
 def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -252,15 +292,14 @@ def _k3_affine(mean, rstd, scale, bias, gsize):
 
 class _PallasGroupNorm(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, scale, bias, s1, s2, groups, relu, eps):
-        c = x.shape[-1]
-        gsize = c // groups
-        n = (x.numel() // (x.shape[0] * c)) * gsize
+    def forward(ctx, x, scale, bias, s1, s2, groups, relu, eps, slab):
+        gsize = x.shape[-1] // groups
+        n = _count(x, gsize, slab)
         mean, rstd = _fold(s1, s2, groups, n, eps)
         y = group_norm_apply(x, *_k3_affine(mean, rstd, scale, bias, gsize),
                              relu)
         ctx.save_for_backward(x, scale, mean, rstd, y if relu else None)
-        ctx.gsize, ctx.n = gsize, n
+        ctx.gsize, ctx.n, ctx.slab = gsize, n, slab
         return y
 
     @staticmethod
@@ -271,8 +310,11 @@ class _PallasGroupNorm(torch.autograd.Function):
         g = g.to(x.dtype).contiguous()
         r1, r2 = stats.weighted_sums(g, x, y)        # Σg, Σg·x (B, C)
         mean_c, rstd_c = _by_channel(mean, gsize), _by_channel(rstd, gsize)
+        # dγ, dβ from this slab's sums (the step sums them over the
+        # group), the dx terms from the whole volume's
         dgamma = ((r2 - mean_c * r1) * rstd_c).sum(0)
         dbeta = r1.sum(0)
+        r1, r2 = _global_sums(r1, r2, ctx.slab)
         # ĝ = γ·g:  dx = rstd·(ĝ − S1/n − x̂·S2/n), S1 = Σ ĝ over the group,
         # S2 = Σ ĝ·x̂ = (Σ ĝ·x − mean·S1)·rstd  (`_gn_bwd`)
         gamma = scale.float()
@@ -285,7 +327,7 @@ class _PallasGroupNorm(torch.autograd.Function):
         cc = -rstd_c * s1n + rstd_c * rstd_c * mean_c * s2n
         dx = group_norm_dx(g, x, y, a, bc, cc)
         return (dx, dgamma.to(scale.dtype), dbeta.to(scale.dtype), None,
-                None, None, None, None)
+                None, None, None, None, None)
 
 
 def pallas_group_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -295,12 +337,16 @@ def pallas_group_norm(x: torch.Tensor, scale: torch.Tensor,
     """K3: GroupNorm(+ReLU) of x (B, ..., C) in fp32 or bf16, y in x's
     dtype.  `moments` = (Σx, Σx²) (B, C) fp32 when the producer emitted
     them (K1, K2), else K5a takes them.  Differentiable in x, scale and
-    bias; the moments get no gradient."""
+    bias; the moments get no gradient.  On a D-slab the sums are summed
+    over the spatial group, as `group_norm_from_moments`'s are."""
     x = x.contiguous()      # the kernels take dense NDHWC
     if moments is None:
         with torch.no_grad():
             moments = stats.moments(x)
-    return _PallasGroupNorm.apply(x, scale, bias, *moments, groups, relu, eps)
+    slab = spatial.current()
+    return _PallasGroupNorm.apply(x, scale, bias,
+                                  *_global_sums(*moments, slab), groups,
+                                  relu, eps, slab)
 
 
 def pallas_group_norm_twin(x: torch.Tensor, scale: torch.Tensor,

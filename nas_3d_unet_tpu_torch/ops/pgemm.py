@@ -46,6 +46,11 @@ Gradients (autograd Functions, as the reference's custom VJPs):
   s1 and s2 are non-differentiable outputs.  Their consumer, the GroupNorm
   Function of `ops/groupnorm.py`, returns the complete gradient through y.
 
+On a D-slab (`parallel/spatial.py`) a ConvNormAct's K1 runs as K1-dx's
+kernel on x with its halo, cropped, with K5a's moments of the crop
+(`conv3x3x3_stats_slab`); K2 needs no halo, and the GroupNorm sums both
+producers' moments over the spatial group.
+
 Dispatch: a CPU tensor takes the twin (the Functions then run the twin
 forward and the twin conv for dx); a CUDA tensor launches the kernel or
 raises (a shape a conv tile refuses raises too: it goes to no other
@@ -60,7 +65,8 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from . import _cuda
+from ..parallel import spatial
+from . import _cuda, stats
 from .stats import moments_twin
 
 # ---------------------------------------------------------------------------
@@ -196,6 +202,24 @@ def conv3x3x3_stats(x: torch.Tensor, w: torch.Tensor, dilation: int = 1):
     Differentiable in x and w, twice (see the module docstring)."""
     _check_conv("conv3x3x3_stats", x, w, dilation)
     return _ConvStats.apply(x, w, dilation)
+
+
+def conv3x3x3_stats_slab(x: torch.Tensor, w: torch.Tensor,
+                         dilation: int = 1):
+    """K1's (y, Σy, Σy²) on a D-slab (`parallel/spatial.py`): the conv runs
+    on x with `dilation` halo planes each side (K1-dx's kernel, whose SAME
+    pad then falls on the halo), is cropped back to the slab's planes, and
+    K5a takes the crop's moments, which the GroupNorm sums over the spatial
+    group.  K1's own moments epilogue would also sum the output planes of
+    the halo.  The backward is K1-dx's: the crop pads dy with zeros, and
+    the halo's share of dx goes back through the exchange's adjoint."""
+    _check_conv("conv3x3x3_stats_slab", x, w, dilation)
+    d = dilation
+    xe = spatial.halo_d(x, d, d, 0.0, spatial.current())
+    y = conv3x3x3(xe, w, d)[:, d:d + x.shape[1]].contiguous()
+    with torch.no_grad():
+        s1, s2 = stats.moments(y)
+    return y, s1, s2
 
 
 def conv3x3x3(x: torch.Tensor, w: torch.Tensor, dilation: int = 1):

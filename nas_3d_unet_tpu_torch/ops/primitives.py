@@ -43,6 +43,7 @@ from typing import Sequence, Tuple
 import torch
 from torch import nn
 
+from ..parallel import spatial
 from . import conv3d as pconv
 from . import groupnorm, pgemm, pool
 from .conv3d import conv3d_same
@@ -168,7 +169,9 @@ class ConvNormAct(nn.Module):
             return _norm_relu(self.norm, conv3d_same(x, w, self.stride,
                                                      self.dilation))
         x = x.contiguous()
-        if self.kernel == 3:
+        if self.kernel == 3 and spatial.current() is not None:
+            y, s1, s2 = pgemm.conv3x3x3_stats_slab(x, w, self.dilation)
+        elif self.kernel == 3:
             y, s1, s2 = pgemm.conv3x3x3_stats(x, w, self.dilation)
         else:
             b, cin = x.shape[0], x.shape[-1]

@@ -1,13 +1,27 @@
-"""Data parallelism over `torch.distributed`: one process (rank) per GPU.
+"""Data parallelism and spatial sharding over `torch.distributed`: one
+process (rank) per GPU.
 
 Counterpart of `nas_3d_unet_tpu/parallel/mesh.py`.  The JAX package lays a
-GSPMD mesh over its devices and lets XLA insert the gradient all-reduce;
-here every rank holds the whole model, runs its own rows of the global
-batch, and the step averages the gradients over the ranks before the
-optimizer, so every rank applies the same update to the same parameters.
+GSPMD `('data', 'spatial')` mesh over its devices and lets XLA insert the
+collectives; here they are written out.
+
+The layout: `data_parallel` × `spatial_parallel` ranks, rank r at data
+index r // spatial_parallel and spatial index r % spatial_parallel (the
+reference's `devices.reshape(data, spatial)`).  The ranks of one data
+index form a spatial group: they hold the same batch rows, rank j of the
+group D-slab j of them (`parallel/spatial.py`: the halo exchanges and
+cross-slab sums run over the group's process group).  Every rank holds the
+whole model, and the step reduces the gradients before the optimizer, so
+every rank applies the same update to the same parameters: a slab's
+gradient is its part of the spatial group's sum, so the gradients are
+summed over the spatial group and then averaged over the data axis.  That
+is one all-reduce over every rank, divided by the data axis's size
+(`Mesh.all_reduce_mean_`), which gives every rank the same bits; so only
+the spatial groups get process groups of their own.
 
     python -m torch.distributed.run --nproc_per_node N \\
-        -m nas_3d_unet_tpu_torch train -c config.json
+        -m nas_3d_unet_tpu_torch train -c config.json \\
+        [-o parallel.spatial_parallel=S]
 
 `maybe_initialize_distributed` reads torchrun's environment (`RANK`,
 `WORLD_SIZE`, `LOCAL_RANK`, `MASTER_ADDR`, `MASTER_PORT`) and initialises
@@ -16,14 +30,11 @@ the default process group: NCCL for ranks on the card (each on
 does nothing, and `make_mesh` gives a one-rank `Mesh` whose collectives
 launch nothing.
 
-Only the data axis is ported.  `parallel.spatial_parallel` > 1 (the volume's
-D axis split over ranks, with halo exchanges) is ROADMAP.md queue 1, item
-9b, and is refused.
-
-Collectives run in stream order on the current stream, after the backward
-that made their inputs; nothing overlaps them with compute (no bucketed
-gradient hooks), so no two of a process's K5 launches ever run on two
-streams at once (`csrc/stats.cu`'s shared tickets).
+Collectives, the halo exchanges among them, run in stream order on the
+current stream, in the forward and the backward that need them; nothing
+overlaps them with compute on a side stream (no bucketed gradient hooks,
+no exchange ahead of its consumer), so no two of a process's K5 launches
+ever run on two streams at once (`csrc/stats.cu`'s shared tickets).
 """
 
 from __future__ import annotations
@@ -34,6 +45,8 @@ from typing import Any, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
+
+from .spatial import Slab
 
 
 def is_initialized() -> bool:
@@ -97,30 +110,53 @@ def destroy() -> None:
 
 def check_layout(data_parallel: int, spatial_parallel: int,
                  world: Optional[int] = None) -> int:
-    """The data axis's size for `parallel.data_parallel` (-1: every rank)
-    and `parallel.spatial_parallel`; raises for a layout the port does not
-    run."""
+    """The data axis's size for `parallel.data_parallel`
+    (-1: every rank the spatial axis leaves) and
+    `parallel.spatial_parallel` over `world` ranks; raises for a layout
+    that does not fill the world exactly."""
     world = world_size() if world is None else world
-    if spatial_parallel != 1:
+    if spatial_parallel < 1 or world % spatial_parallel:
         raise ValueError(
-            f"parallel.spatial_parallel={spatial_parallel} is not supported "
-            "by the PyTorch port (ROADMAP.md queue 1, item 9b, spatial "
-            "sharding)")
-    if data_parallel not in (-1, world):
+            f"parallel.spatial_parallel={spatial_parallel} must divide the "
+            f"world size {world}: data × spatial must equal the world")
+    if data_parallel not in (-1, world // spatial_parallel):
         raise ValueError(
             f"parallel.data_parallel={data_parallel} must be -1 or the world "
-            f"size {world}: the port runs one rank per device and every rank "
-            "on the data axis (ROADMAP.md queue 1, item 9a)")
-    return world
+            f"size {world} over parallel.spatial_parallel="
+            f"{spatial_parallel}: the port runs one rank per device and data "
+            "× spatial equal to the world (ROADMAP.md queue 1, item 9a)")
+    return world // spatial_parallel
 
 
 @dataclass(frozen=True)
 class Mesh:
-    """The data axis: this process's `rank` of `world`, every rank of the
-    default process group.  With `world` 1 no collective is launched."""
+    """This process's `rank` of `world`, laid out as data × `spatial`
+    (see the module docstring); `spatial_group` is the process group of
+    this rank's spatial group where `spatial` > 1.  With `world` 1 no
+    collective is launched."""
 
     rank: int = 0
     world: int = 1
+    spatial: int = 1
+    spatial_group: Any = None
+
+    @property
+    def data_rank(self) -> int:
+        """This rank's index on the data axis: whose batch rows it holds."""
+        return self.rank // self.spatial
+
+    @property
+    def data_world(self) -> int:
+        """The data axis's size: how many row sets the global batch has."""
+        return self.world // self.spatial
+
+    @property
+    def slab(self) -> Optional[Slab]:
+        """This rank's D-slab of its rows, None without spatial sharding."""
+        if self.spatial == 1:
+            return None
+        return Slab(self.rank % self.spatial, self.spatial,
+                    self.spatial_group)
 
     @staticmethod
     def _flat(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -136,17 +172,24 @@ class Mesh:
             t.copy_(flat[offset:offset + n].view_as(t))
             offset += n
 
-    def all_reduce_mean_(self, tensors: Sequence[torch.Tensor]
-                         ) -> List[torch.Tensor]:
-        """Replace each tensor (all of one dtype) by its mean over the
-        ranks, in place: one flat buffer, summed in one all-reduce, divided
-        by the world.  Every rank receives the same sum.  World 1:
+    def all_reduce_mean_(self, tensors: Sequence[torch.Tensor],
+                         slab_parts: int = 0) -> List[torch.Tensor]:
+        """Replace each tensor (all of one dtype) by its mean over the data
+        axis, in place: one flat buffer, summed in one all-reduce over
+        every rank, divided by the data axis's size.  The first
+        `slab_parts` tensors are a slab's part of a sum over its spatial
+        group (gradients), so they are summed over the group first; the
+        rest are equal on the ranks of a spatial group (losses, metrics)
+        and count once.  Every rank receives the same sum.  World 1:
         untouched."""
         tensors = list(tensors)
         if self.world > 1:
             flat = self._flat(tensors)
+            if self.spatial > 1:
+                n = sum(t.numel() for t in tensors[:slab_parts])
+                flat[n:] /= self.spatial
             dist.all_reduce(flat)
-            self._scatter(tensors, flat.div_(self.world))
+            self._scatter(tensors, flat.div_(self.data_world))
         return tensors
 
     def broadcast_(self, tensors: Sequence[torch.Tensor],
@@ -165,7 +208,9 @@ class Mesh:
         """The mean over the ranks, differentiable: the backward sums the
         incoming gradients over the ranks (`torch.distributed.nn`), so a
         rank's gradient through the mean holds every rank's terms.  All
-        tensors share one dtype.  World 1: the tensors themselves."""
+        tensors share one dtype.  World 1: the tensors themselves.  Data
+        parallelism alone (the second-order search step, which spatial
+        sharding does not run)."""
         tensors = list(tensors)
         if self.world == 1:
             return tensors
@@ -184,13 +229,30 @@ class Mesh:
         dist.all_gather_object(out, obj)
         return out
 
+    def spatial_gather(self, obj: Any) -> List[Any]:
+        """Every rank of this rank's spatial group's `obj`, by slab."""
+        if self.spatial == 1:
+            return [obj]
+        out: List[Any] = [None] * self.spatial
+        dist.all_gather_object(out, obj, group=self.spatial_group)
+        return out
+
 
 def make_mesh(data_parallel: int = -1, spatial_parallel: int = 1) -> Mesh:
-    """The data axis over every rank of the default process group (one
-    rank without one); `data_parallel` must be -1 or the world size and
-    `spatial_parallel` 1 (`check_layout`)."""
-    return Mesh(rank=rank(), world=check_layout(data_parallel,
-                                                spatial_parallel))
+    """The data × spatial layout over every rank of the default process
+    group (one rank without one; `check_layout`).  With `spatial_parallel`
+    > 1 every rank creates each spatial group's process group, in one
+    order (`dist.new_group` is collective), and keeps its own."""
+    spatial = spatial_parallel
+    data = check_layout(data_parallel, spatial)
+    group = None
+    if spatial > 1:
+        for i in range(data):
+            g = dist.new_group(list(range(i * spatial, (i + 1) * spatial)))
+            if i == rank() // spatial:
+                group = g
+    return Mesh(rank=rank(), world=data * spatial, spatial=spatial,
+                spatial_group=group)
 
 
 def local_batch_size(global_batch: int, what: str = "data.batch_size",

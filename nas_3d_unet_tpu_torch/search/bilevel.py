@@ -35,12 +35,18 @@ with that `pc_k` (`models/cell.py`).
 
 The model runs eagerly; there is no jit or donation.  Data parallelism
 (`parallel/mesh.py`, the reference's `bilevel.py:254-300`): with a `Mesh`
-each rank runs its own rows of the global train and val batches, and both
-steps average their gradients (and losses) over the ranks before AdamW.
-In the second-order step the inner gradient is averaged inside the graph
-(`Mesh.all_reduce_mean`), so the virtual step is the global batch's and
-each rank's α gradient holds every rank's Hessian-vector terms; the α
-gradients are then averaged as the first-order ones are.
+each data index runs its own rows of the global train and val batches,
+and both steps average their gradients (and losses) over the data axis
+before AdamW.  In the second-order step the inner gradient is averaged
+inside the graph (`Mesh.all_reduce_mean`), so the virtual step is the
+global batch's and each rank's α gradient holds every rank's
+Hessian-vector terms; the α gradients are then averaged as the
+first-order ones are.  Spatial sharding (`parallel/spatial.py`) runs the
+first-order and warmup steps as the train step does (`cut_slab`, the
+sharded-D context, w's and α's gradients summed over the spatial group);
+the second-order step refuses it (`ROADMAP.md` queue 1, item 9c): its
+inner gradient and the differentiated GroupNorm backward would need the
+spatial sums inside the recorded graph.
 """
 
 from __future__ import annotations
@@ -67,8 +73,9 @@ from ..train.checkpoint import (latest_checkpoint, load_checkpoint,
                                 optimizer_state, restore_optimizer_state,
                                 restore_train_state, save_checkpoint,
                                 train_state)
+from ..parallel import spatial
 from ..parallel.mesh import Mesh, is_main, local_batch_size, make_mesh
-from ..train.loop import (augmenter, evaluate, loss_and_grads,
+from ..train.loop import (augmenter, cut_slab, evaluate, loss_and_grads,
                           make_eval_step, warn_stream_geometry_mismatch)
 from ..train.optim import AdamW, make_optimizer
 from ..utils.device import resolve_device
@@ -106,13 +113,15 @@ def _w_update(bound: ArchBound, w_opt: AdamW, x: torch.Tensor,
               y: torch.Tensor, loss_fn: Callable,
               alphas: Mapping[str, torch.Tensor],
               mesh: Optional[Mesh] = None) -> torch.Tensor:
-    """One w-step under `alphas` (no graph to α), its gradients averaged
-    over `mesh`'s ranks; returns the loss (averaged too)."""
+    """One w-step under `alphas` (no graph to α) on this rank's slab (in
+    the sharded-D context of `mesh`'s slab), its gradients reduced over
+    `mesh`; returns the loss (averaged too)."""
     with torch.no_grad():
         bound.arch_weights = arch_weights_from_alphas(alphas)
-    loss, grads = loss_and_grads(bound, x, y, loss_fn)
+    with spatial.sharded_d(None if mesh is None else mesh.slab):
+        loss, grads = loss_and_grads(bound, x, y, loss_fn)
     if mesh is not None:
-        mesh.all_reduce_mean_([*grads, loss])
+        mesh.all_reduce_mean_([*grads, loss], slab_parts=len(grads))
     w_opt.step(grads)
     return loss
 
@@ -126,7 +135,7 @@ def _alpha_update(a_opt: AdamW, a_grads: Sequence[torch.Tensor],
     a_grads = [g.contiguous() for g in a_grads]
     val_loss = val_loss.detach().clone()
     if mesh is not None:
-        mesh.all_reduce_mean_([*a_grads, val_loss])
+        mesh.all_reduce_mean_([*a_grads, val_loss], slab_parts=len(a_grads))
     a_opt.step(a_grads)
     return val_loss
 
@@ -140,8 +149,9 @@ def make_search_step(net: nn.Module, w_opt: AdamW, a_opt: AdamW,
     """(x_tr, y_tr, x_val, y_val) → {"train_loss", "val_loss"} (0-d fp32
     tensors); updates α (`alphas`, the leaf tensors `a_opt` holds, in
     place) and then the weights (`w_opt`'s, the supernet's).  `mesh`: the
-    batches are this rank's rows of the global ones, and both steps
-    average over the ranks.
+    batches are this data index's rows of the global ones (full D: under
+    spatial sharding the step cuts this rank's slab), and both steps
+    average over the data axis.
 
     `augment`: None, or dict(flip_prob=…, intensity_shift=…,
     intensity_scale=…) for the train batch; `augment_val` also augments
@@ -151,13 +161,16 @@ def make_search_step(net: nn.Module, w_opt: AdamW, a_opt: AdamW,
     loss_fn = get_loss_fn(label_mode)
     aug = augmenter(augment, gen, mesh)
     bound = ArchBound(net)
+    slab = None if mesh is None else mesh.slab
 
     def step(x_tr, y_tr, x_val, y_val) -> Dict[str, torch.Tensor]:
         x_tr, y_tr = aug(x_tr, y_tr)
         if augment_val:
             x_val, y_val = aug(x_val, y_val)
+        x_tr, y_tr, x_val, y_val = cut_slab(slab, net, x_tr, y_tr, x_val,
+                                            y_val)
         # (1) architecture step on the val batch, the weights frozen
-        with _frozen(w_opt.params):
+        with _frozen(w_opt.params), spatial.sharded_d(slab):
             val_loss = loss_fn(net(x_val, arch_weights_from_alphas(alphas)),
                                y_val)
             a_grads = torch.autograd.grad(val_loss, a_opt.params,
@@ -209,7 +222,13 @@ def make_search_step_unrolled(net: nn.Module, w_opt: AdamW, a_opt: AdamW,
     `make_search_step`, but the α-step's gradient is that of the val loss
     after a virtual w-step of size `xi` (`unrolled_alpha_grads`); the
     w-step then runs under the updated α.  Refuses a `use_pallas` net,
-    whose kernels' Functions are not twice differentiable."""
+    whose kernels' Functions are not twice differentiable, and a mesh
+    with spatial sharding."""
+    if mesh is not None and mesh.spatial > 1:
+        raise ValueError(
+            "search.unrolled with parallel.spatial_parallel="
+            f"{mesh.spatial} (the second-order step on D-slabs) is not "
+            "supported by the PyTorch port (ROADMAP.md queue 1, item 9c)")
     if any(getattr(m, "use_pallas", False) or getattr(m, "k6", False)
            for m in net.modules()):
         raise ValueError(
@@ -248,9 +267,10 @@ def make_warmup_step(net: nn.Module, w_opt: AdamW,
     loss_fn = get_loss_fn(label_mode)
     aug = augmenter(augment, gen, mesh)
     bound = ArchBound(net)
+    slab = None if mesh is None else mesh.slab
 
     def step(x_tr, y_tr) -> Dict[str, torch.Tensor]:
-        x_tr, y_tr = aug(x_tr, y_tr)
+        x_tr, y_tr = cut_slab(slab, net, *aug(x_tr, y_tr))
         loss = _w_update(bound, w_opt, x_tr, y_tr, loss_fn, alphas, mesh)
         return {"train_loss": loss, "val_loss": torch.zeros_like(loss)}
 
@@ -284,10 +304,12 @@ class Searcher:
     or `search.w_lr` where that is 0.  The train batch is flipped
     and jittered inside the step, with draws from the Searcher's generator
     (saved in every checkpoint); the patch streams never augment on the
-    host.  `mesh`: the data axis (None: `make_mesh` from `cfg.parallel`);
-    the search batch is the global one, each rank's streams are offset by
-    100003·rank, every rank starts from rank 0's state, the α-split eval
-    is averaged over the ranks and rank 0 writes `genotype.json`."""
+    host.  `mesh`: the layout (None: `make_mesh` from `cfg.parallel`); the
+    search batch is the global one, each data index's streams are offset
+    by 100003·(data index) (the ranks of a spatial group read the same
+    patches and cut their slabs in the steps), every rank starts from rank
+    0's state, the α-split eval is averaged over the data axis and rank 0
+    writes `genotype.json`."""
 
     def __init__(self, supernet: nn.Module, cfg, data_paths: Sequence[str],
                  log_path: Optional[str] = None,
@@ -332,7 +354,8 @@ class Searcher:
         # the α-split eval: loss and per-region Dice with the current α
         # frozen (the reference's `Searching.validate`)
         self.bound = ArchBound(self.net)
-        self.eval_step = make_eval_step(self.bound, label_mode=dc.label_mode)
+        self.eval_step = make_eval_step(self.bound, label_mode=dc.label_mode,
+                                        mesh=self.mesh)
         self.logger = MetricsLogger(
             log_path, tb_dir=(os.path.join(sc.checkpoint_dir, "tb")
                               if sc.tensorboard else None))
@@ -345,7 +368,7 @@ class Searcher:
         # the global batch, each rank streaming its slice
         self.batch = sc.batch_size or dc.batch_size
         self.local_batch = local_batch_size(self.batch, "search batch size",
-                                            world=self.mesh.world)
+                                            world=self.mesh.data_world)
         self.step = 0
         self._resume_meta: dict = {}
 
@@ -429,8 +452,9 @@ class Searcher:
         # resume trajectory-exact: g_w advances every step, g_a and g_eval
         # only in bilevel epochs
         non_warm = max(0, start_epoch - sc.warmup_epochs)
-        # a rank's streams offset by 100003·rank (`bilevel.py:254-300`)
-        seed = sc.seed + 100003 * self.mesh.rank
+        # a data index's streams offset by 100003·(data index)
+        # (`bilevel.py:254-300`)
+        seed = sc.seed + 100003 * self.mesh.data_rank
         g_w = PatchGenerator(self.w_cache, self.patch, self.local_batch,
                              seed=seed + 101, augment=False,
                              start_step=self.step)

@@ -13,16 +13,24 @@ the model's parameters are: on the card unless the caller put the model on
 the CPU.  There is no `steps_per_call` scan.
 
 Data parallelism (`parallel/mesh.py`, the reference's `loop.py:316-365`):
-each rank of a `Mesh` runs its own rows of the global batch, and the step
-averages the gradients (and the loss) over the ranks before AdamW.  Both
-losses are means of per-sample terms (`metrics/losses.py`), so the mean of
-the ranks' gradients is the global batch's.  A microbatch of m slices each
-rank's local rows, m / world of them a slice, so a slice is the global
-batch's strided slice; where world does not divide m the step warns and
-takes the full local batch (`loop.py:316-333`).  The Trainer feeds each
-rank batch / world rows from host streams offset by 100003·rank, starts
-every rank from rank 0's state, and averages the eval metrics over the
-ranks, so the plateau controller takes the same branch everywhere.
+each data index of a `Mesh` runs its own rows of the global batch, and the
+step averages the gradients (and the loss) over the data axis before
+AdamW.  Both losses are means of per-sample terms (`metrics/losses.py`),
+so the mean of the row sets' gradients is the global batch's.  A
+microbatch of m slices each rank's local rows, m / data of them a slice,
+so a slice is the global batch's strided slice; where the data axis does
+not divide m the step warns and takes the full local batch
+(`loop.py:316-333`).  The Trainer feeds each data index batch / data rows
+from host streams offset by 100003·(data index), starts every rank from
+rank 0's state, and averages the eval metrics over the data axis, so the
+plateau controller takes the same branch everywhere.
+
+Spatial sharding (`parallel/spatial.py`): the ranks of a spatial group
+get the same full-D rows, augment them alike (a D flip moves planes
+across slabs, so it comes first), and each cuts its D-slab
+(`cut_slab`, which holds the patch to the slab rule); the forward and
+backward run in the slab's sharded-D context, and the gradients are
+summed over the group before the data axis's mean.
 """
 
 from __future__ import annotations
@@ -43,7 +51,10 @@ from ..data.pipeline import (PatchGenerator, PatientCache, Prefetcher,
 from ..metrics.dice import (class_indices_to_labels, class_logits_to_regions,
                             labels_to_regions, region_dice)
 from ..metrics.losses import get_loss_fn
+from ..models.unet import unet_depth
+from ..parallel import spatial
 from ..parallel.mesh import Mesh, local_batch_size, make_mesh
+from ..parallel.spatial import Slab
 from ..utils.device import resolve_device
 from ..utils.logging import MetricsLogger
 from ..utils.params import count_params
@@ -103,19 +114,31 @@ def augmenter(augment: Optional[dict], gen: Optional[torch.Generator],
               mesh: Optional[Mesh] = None) -> Callable:
     """(x, y) → (x, y) flipped and jittered with draws from `gen`, which
     `augment` needs; identity when `augment` is None.  With a `mesh`, x is
-    this rank's rows of the global batch: the draws are the global
+    this data index's rows of the global batch: the draws are the global
     batch's, and the rank applies its own rows (`rank_rows`)."""
     if augment is None:
         return lambda x, y: (x, y)
     if gen is None:
         raise ValueError("augment needs a generator (gen=)")
-    rank, world = (0, 1) if mesh is None else (mesh.rank, mesh.world)
+    rank, world = (0, 1) if mesh is None else (mesh.data_rank,
+                                                mesh.data_world)
 
     def apply(x, y):
         draws = draw_augment(gen, x.shape[0] * world, x.shape[-1], **augment)
         return augment_batch(x, y, *rank_rows(draws, rank, x.shape[0]))
 
     return apply
+
+
+def cut_slab(slab: Optional[Slab], model: torch.nn.Module,
+             *tensors: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """This rank's D-slab of each full-D batch tensor (B, D, ...), after
+    holding the patch to the slab rule at `model`'s depth; the tensors as
+    they are without a slab."""
+    if slab is None:
+        return tensors
+    spatial.check_slab(tensors[0].shape[1], slab.size, unet_depth(model))
+    return tuple(slab.cut(t) for t in tensors)
 
 
 def make_train_step(model: torch.nn.Module, opt: AdamW,
@@ -132,23 +155,26 @@ def make_train_step(model: torch.nn.Module, opt: AdamW,
     augmentation draws come from `gen`, a generator on the model's device
     that the caller keeps (a checkpoint saves its state), or, without one,
     from a new generator seeded with `seed`.  `mesh`: x and y are this
-    rank's rows of the global batch, `microbatch` is the global one, and
-    the gradients and the loss are averaged over the ranks (see the module
-    docstring)."""
+    data index's rows of the global batch (full D: under spatial sharding
+    the step cuts this rank's slab), `microbatch` is the global one, and
+    the gradients and the loss are averaged over the data axis (see the
+    module docstring)."""
     loss_fn = get_loss_fn(label_mode)
     if gen is None:
         gen = torch.Generator(device=next(model.parameters()).device)
         gen.manual_seed(seed)
     aug = augmenter(augment, gen, mesh)
+    slab = None if mesh is None else mesh.slab
     if mesh is not None:
-        microbatch = local_microbatch(microbatch, mesh.world)
+        microbatch = local_microbatch(microbatch, mesh.data_world)
     model.train()
 
     def step(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-        x, y = aug(x, y)
-        loss, grads = loss_and_grads(model, x, y, loss_fn, microbatch)
+        x, y = cut_slab(slab, model, *aug(x, y))
+        with spatial.sharded_d(slab):
+            loss, grads = loss_and_grads(model, x, y, loss_fn, microbatch)
         if mesh is not None:
-            mesh.all_reduce_mean_([*grads, loss])
+            mesh.all_reduce_mean_([*grads, loss], slab_parts=len(grads))
         opt.step(grads)
         return loss
 
@@ -156,14 +182,22 @@ def make_train_step(model: torch.nn.Module, opt: AdamW,
 
 
 def make_eval_step(model: torch.nn.Module, threshold: float = 0.5,
-                   label_mode: str = "regions"):
+                   label_mode: str = "regions", mesh: Optional[Mesh] = None):
     """(x, y) → {"loss", "dice_wt", "dice_tc", "dice_et"} (0-d tensors).
     Dice is per BraTS region; in class mode the argmax decode is turned
-    into regions first."""
+    into regions first.  Under a `mesh` with spatial sharding, x and y are
+    full-D rows: the step cuts this rank's slab, and the loss and Dice sum
+    over the whole volume."""
     loss_fn = get_loss_fn(label_mode)
+    slab = None if mesh is None else mesh.slab
 
     @torch.no_grad()
     def eval_step(x: torch.Tensor, y: torch.Tensor) -> Dict[str, torch.Tensor]:
+        x, y = cut_slab(slab, model, x, y)
+        with spatial.sharded_d(slab):
+            return metrics(x, y)
+
+    def metrics(x, y):
         logits = model(x)
         loss = loss_fn(logits, y)
         if label_mode == "regions":
@@ -238,7 +272,7 @@ class Trainer:
     drawn from the Trainer's generator (saved in every checkpoint); False:
     the host augmentation of `PatchGenerator`.  `mesh`: the data axis
     (None: `make_mesh` from `cfg.parallel`); `data.batch_size` is the
-    global batch."""
+    global batch, and `data_paths` the data index's share."""
 
     def __init__(self, net: torch.nn.Module, cfg, data_paths: Sequence[str],
                  log_path: Optional[str] = None, device_augment: bool = True,
@@ -251,7 +285,7 @@ class Trainer:
         self.mesh = mesh or make_mesh(cfg.parallel.data_parallel,
                                       cfg.parallel.spatial_parallel)
         self.local_batch = local_batch_size(dc.batch_size,
-                                            world=self.mesh.world)
+                                            world=self.mesh.data_world)
         self.opt = make_optimizer(self.net.parameters(), tc.lr,
                                   tc.weight_decay)
         self.gen = torch.Generator(device=self.device)
@@ -263,7 +297,8 @@ class Trainer:
                                           label_mode=dc.label_mode,
                                           microbatch=tc.microbatch,
                                           gen=self.gen, mesh=self.mesh)
-        self.eval_step = make_eval_step(self.net, label_mode=dc.label_mode)
+        self.eval_step = make_eval_step(self.net, label_mode=dc.label_mode,
+                                        mesh=self.mesh)
         self.plateau = PlateauController(tc.lr_patience, tc.lr_factor,
                                          tc.min_lr)
         self.logger = MetricsLogger(
@@ -324,11 +359,12 @@ class Trainer:
     def _generators(self, seed: int) -> Tuple[PatchGenerator,
                                               PatchGenerator]:
         """This rank's train and val streams, `local_batch` rows a batch.
-        A rank's seeds are offset by 100003·rank (`loop.py:355-365`), so
-        no two ranks' streams meet and rank 0 keeps the one-process
-        ones."""
+        A data index's seeds are offset by 100003·(data index)
+        (`loop.py:355-365`), so no two row sets' streams meet, the ranks of
+        a spatial group read the same patches, and rank 0 keeps the
+        one-process ones."""
         dc = self.cfg.data
-        seed = seed + 100003 * self.mesh.rank
+        seed = seed + 100003 * self.mesh.data_rank
         gtrain = PatchGenerator(self.train_cache, dc.patch_size,
                                 self.local_batch, seed=seed,
                                 augment=self.host_augment,
@@ -412,8 +448,8 @@ class Trainer:
 def evaluate(eval_step: Callable, gen: PatchGenerator, val_steps: int,
              device: torch.device, mesh: Mesh) -> Dict[str, float]:
     """The mean of each of `eval_step`'s metrics over `val_steps` batches
-    of `gen`, then over the ranks (each rank's mean weighs the same: every
-    rank evaluates `val_steps` batches of the same size)."""
+    of `gen`, then over the data axis (each row set's mean weighs the
+    same: every rank evaluates `val_steps` batches of the same size)."""
     accum: Dict[str, list] = {}
     for _ in range(val_steps):
         x, y = gen.next()

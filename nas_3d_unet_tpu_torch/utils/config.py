@@ -8,10 +8,14 @@ the JAX package accepts is accepted here, so one configuration loads in both.
 
 Values that ask for something the port does not do are refused when the
 dataclass is built, with the `ROADMAP.md` item that would bring it:
-`train.steps_per_call` > 1 and `parallel.spatial_parallel` > 1.
-`parallel.data_parallel` loads whatever it is, as in the JAX package, and
-`make_mesh` (`parallel/mesh.py`) refuses it unless it is -1 or the world
-size of the process group (1 without one).  `model.packed` is read and has no
+`train.steps_per_call` > 1, and `search.unrolled` with
+`parallel.spatial_parallel` > 1 (item 9c).  Spatial sharding also needs a
+`data.patch_size` D that slabs split evenly (`parallel/spatial.py`
+`check_slab`: a multiple of spatial_parallel · 2^depth, at least 2 planes
+in the deepest slab).  `parallel.data_parallel` loads whatever it is, as in
+the JAX package, and `make_mesh` (`parallel/mesh.py`) refuses a layout
+whose data × spatial is not the world size of the process group (1
+without one).  `model.packed` is read and has no
 effect: it selects a TPU layout that the port runs as logical NDHWC.
 `search.unrolled` with `model.use_pallas` loads here and is refused by the
 `Searcher` (`search/bilevel.py`).
@@ -24,6 +28,8 @@ import dataclasses
 import json
 from dataclasses import dataclass, field
 from typing import Any, List, Optional, Tuple
+
+from ..parallel.spatial import check_slab
 
 
 def _refuse(bad: bool, what: str, where: str) -> None:
@@ -153,19 +159,14 @@ class InferConfig:
 
 @dataclass(frozen=True)
 class ParallelConfig:
-    """Device layout: one rank per device, every rank on the data axis;
-    `make_mesh` (`parallel/mesh.py`) holds `data_parallel` to the world
-    size of the run that builds it."""
+    """Device layout: one rank per device, data × spatial ranks;
+    `make_mesh` (`parallel/mesh.py`) holds the product to the world size
+    of the run that builds it."""
 
     data_axis: str = "data"
     spatial_axis: str = "spatial"
-    data_parallel: int = -1                   # -1 = every rank
-    spatial_parallel: int = 1
-
-    def __post_init__(self):
-        _refuse(self.spatial_parallel > 1,
-                f"parallel.spatial_parallel={self.spatial_parallel}",
-                "ROADMAP.md queue 1, item 9b, spatial sharding")
+    data_parallel: int = -1                   # -1 = every rank left
+    spatial_parallel: int = 1                 # D-slabs of one row set
 
 
 @dataclass(frozen=True)
@@ -176,6 +177,16 @@ class Config:
     train: TrainConfig = field(default_factory=TrainConfig)
     infer: InferConfig = field(default_factory=InferConfig)
     parallel: ParallelConfig = field(default_factory=ParallelConfig)
+
+    def __post_init__(self):
+        sp = self.parallel.spatial_parallel
+        if sp > 1:
+            _refuse(self.search.unrolled,
+                    f"search.unrolled with parallel.spatial_parallel={sp}",
+                    "ROADMAP.md queue 1, item 9c, the second-order search "
+                    "under spatial sharding")
+            check_slab(self.data.patch_size[0], sp, self.model.depth,
+                       "data.patch_size D")
 
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)

@@ -65,7 +65,19 @@ def test_unknown_keys_raise(bad):
 
 REFUSED = [({"train.steps_per_call": 2}, "not ported by decision"),
            ({"parallel.data_parallel": 2}, r"world size 1\b.*item 9a"),
-           ({"parallel.spatial_parallel": 4}, "item 9b, spatial sharding")]
+           # spatial sharding: a patch D slabs do not split evenly at the
+           # model's depth, and one whose deepest slab is under 2 planes
+           ({"parallel.spatial_parallel": 2, "data.patch_size": (24,) * 3},
+            r"patch_size D 24 .* multiple of 2·2\^3 = 16"),
+           ({"parallel.spatial_parallel": 8, "data.patch_size": (64,) * 3},
+            r"at least 2 planes in the deepest slab"),
+           # the second-order search under spatial sharding
+           ({"parallel.spatial_parallel": 2, "search.unrolled": True},
+            "item 9c"),
+           # a layout whose data × spatial is not the world (1 here)
+           ({"parallel.spatial_parallel": 4}, "must divide the world size 1"),
+           ({"parallel.spatial_parallel": 2, "parallel.data_parallel": 1},
+            "must divide the world size 1")]
 
 
 @pytest.mark.parametrize("ov,item", REFUSED, ids=[str(o) for o, _ in REFUSED])
@@ -85,13 +97,16 @@ def test_unported_settings_are_refused(ov, item):
 
 PORTED = [{"model.remat": True}, {"model.remat_edges": True},
           {"model.remat": True, "model.remat_edges": False},
-          {"parallel.data_parallel": 1}, {"parallel.data_parallel": -1}]
+          {"parallel.data_parallel": 1}, {"parallel.data_parallel": -1},
+          {"parallel.spatial_parallel": 2}, {"parallel.spatial_parallel": 4},
+          {"parallel.spatial_parallel": 2, "data.patch_size": (32,) * 3}]
 
 
 @pytest.mark.parametrize("ov", PORTED, ids=[str(o) for o in PORTED])
 def test_ported_layout_settings_load(ov):
-    """Activation checkpointing and the data axis over every rank (one
-    rank here, without a process group) load in both packages alike."""
+    """Activation checkpointing, the data axis over every rank (one rank
+    here, without a process group) and spatial sharding with a patch that
+    its slabs split evenly load in both packages alike."""
     port = tcfg.load_config(None, ov).to_dict()
     assert _norm(port) == _norm(jcfg.load_config(None, ov).to_dict())
 

@@ -1,7 +1,8 @@
 """The port (nas_3d_unet_tpu_torch/), the scripts that drive it on the
 card (chip_smoke.py, profile_slice.py, grad_parity.py, ab_default_path.py)
-and the ranks of its data-parallel tests (tests/torch_dp_worker.py) import
-no JAX stack
+and the ranks of its data-parallel and spatial-sharding tests
+(tests/torch_dp_worker.py, tests/torch_spatial_worker.py) import no JAX
+stack
 and nothing of the JAX package: an AST scan of every import statement, top
 level or inside a function.  `export_flax_params.py` is left out of the
 scan on purpose: it reads a JAX checkpoint where flax is installed, and is
@@ -31,7 +32,8 @@ def _sources():
     return sorted(PKG.rglob("*.py")) + [
         ROOT / name for name in ("chip_smoke.py", "profile_slice.py",
                                  "grad_parity.py", "ab_default_path.py",
-                                 "tests/torch_dp_worker.py")]
+                                 "tests/torch_dp_worker.py",
+                                 "tests/torch_spatial_worker.py")]
 
 
 def test_scan_sees_the_package():
@@ -52,10 +54,12 @@ def test_scan_sees_the_package():
             "nas_3d_unet_tpu_torch/train/loop.py",
             "nas_3d_unet_tpu_torch/models/unet.py",
             "nas_3d_unet_tpu_torch/parallel/mesh.py",
+            "nas_3d_unet_tpu_torch/parallel/spatial.py",
             "nas_3d_unet_tpu_torch/cli.py",
             "nas_3d_unet_tpu_torch/__main__.py",
             "chip_smoke.py", "profile_slice.py", "grad_parity.py",
-            "tests/torch_dp_worker.py"} <= names
+            "tests/torch_dp_worker.py",
+            "tests/torch_spatial_worker.py"} <= names
     assert "export_flax_params.py" not in names
 
 

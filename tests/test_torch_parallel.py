@@ -37,8 +37,9 @@ after 2 steps; the losses at rtol 2e-5):
     the uninterrupted one;
   * two-rank `predict_dataset` (each rank its own patients) gathering
     labels bit-equal to one rank's;
-  * the CLI under torchrun at 2 ranks, and `parallel.spatial_parallel` 2
-    refused, naming ROADMAP.md item 9b.
+  * the CLI under torchrun at 2 ranks, and the layouts and settings
+    `parallel.spatial_parallel` 2 does not run refused with their reason
+    (tests/test_torch_spatial.py holds spatial sharding itself).
 """
 
 import json
@@ -205,7 +206,8 @@ def _rounding_zeros(pc_k: int) -> dict:
     aw = jax_aw({k: jnp.asarray(v) for k, v in w.alphas_np().items()})
     x, y = map(jnp.asarray, w.search_batches(0)[:2])
     loss = jax_loss_fn("regions")
-    g = _jax_flat(jax.grad(lambda p: loss(net.apply(p, x, aw), y))(params))
+    g = _jax_flat(jax.jit(jax.grad(lambda p: loss(net.apply(p, x, aw), y)))(
+        params))
     top = max(np.abs(v).max() for v in g.values() if v.size)
     return {k: np.abs(v) <= ZERO_REL * top for k, v in g.items()}
 
@@ -395,8 +397,24 @@ def test_torchrun_trains_two_ranks_from_the_cli(runs):
     assert (ckpt / "best.npz").exists() and (ckpt / "ckpt_2.npz").exists()
 
 
-def test_spatial_parallel_is_refused_by_the_cli(tmp_path):
-    with pytest.raises(ValueError, match="item 9b, spatial sharding"):
-        cli.main(["train", "--device", "cpu", "-o",
-                  "parallel.spatial_parallel=2", "-o",
-                  f"train.checkpoint_dir={tmp_path}"])
+SPATIAL_REFUSED = [
+    # a layout whose data × spatial is not the world (one process here)
+    (["parallel.spatial_parallel=2"], "must divide the world size 1"),
+    # a patch D that slabs do not split evenly at the model's depth
+    (["parallel.spatial_parallel=2", "data.patch_size=(24,24,24)"],
+     "multiple of 2·2\\^3"),
+    # the second-order search under spatial sharding
+    (["parallel.spatial_parallel=2", "search.unrolled=True"], "item 9c")]
+
+
+@pytest.mark.parametrize("ov,match", SPATIAL_REFUSED,
+                         ids=["layout", "slab_rule", "unrolled"])
+def test_spatial_parallel_is_refused_by_the_cli(tmp_path, ov, match):
+    """What the port does not run under `parallel.spatial_parallel` > 1
+    is refused with the reason."""
+    args = ["train", "--device", "cpu", "-o",
+            f"train.checkpoint_dir={tmp_path}"]
+    for o in ov:
+        args += ["-o", o]
+    with pytest.raises(ValueError, match=match):
+        cli.main(args)

@@ -92,12 +92,13 @@ def supernet(pc_k: int = 1, **kw) -> SuperNet:
 
 
 def rows(mesh, *arrays):
-    """This rank's rows of global-batch arrays, as tensors."""
+    """This rank's rows of global-batch arrays (its data index's, full D),
+    as tensors."""
     out = []
     for a in arrays:
         if mesh is not None:
-            n = a.shape[0] // mesh.world
-            a = a[mesh.rank * n:(mesh.rank + 1) * n]
+            n = a.shape[0] // mesh.data_world
+            a = a[mesh.data_rank * n:(mesh.data_rank + 1) * n]
         out.append(torch.from_numpy(np.ascontiguousarray(a)))
     return out
 
@@ -201,20 +202,21 @@ class _Writes:
             p.stop()
 
 
-def trainer_case(mesh, store: str, out: str) -> dict:
+def trainer_case(mesh, store: str, out: str, extra=None) -> dict:
     """A 2-epoch Trainer run, and the same run stopped after 1 epoch and
     resumed: both final states, their LR trajectories, the files this
-    rank wrote and whether its logger holds a file."""
+    rank wrote and whether its logger holds a file.  `extra`: config
+    overrides."""
     from nas_3d_unet_tpu_torch.data.pipeline import dataset_paths
     from nas_3d_unet_tpu_torch.models.unet import make_derived
 
-    paths = dataset_paths(store, mesh.rank, mesh.world)
+    paths = dataset_paths(store, mesh.data_rank, mesh.data_world)
     res = {}
     with _Writes() as writes:
         for run, epochs in (("full", (2,)), ("resumed", (1, 2))):
             ckpt = os.path.join(out, f"trainer_{run}")
             for e in epochs:
-                cfg = loop_config(ckpt)
+                cfg = loop_config(ckpt, **(extra or {}))
                 tr = loop.Trainer(make_derived(cfg.model, 3,
                                                default_genotype(1)),
                                   cfg, paths,
@@ -229,19 +231,19 @@ def trainer_case(mesh, store: str, out: str) -> dict:
     return res
 
 
-def searcher_case(mesh, store: str, out: str) -> dict:
+def searcher_case(mesh, store: str, out: str, extra=None) -> dict:
     """As `trainer_case`, for a 1 warmup + 1 bilevel epoch search; with
     the genotypes."""
     from nas_3d_unet_tpu_torch.data.pipeline import dataset_paths
     from nas_3d_unet_tpu_torch.models.unet import make_supernet
 
-    paths = dataset_paths(store, mesh.rank, mesh.world)
+    paths = dataset_paths(store, mesh.data_rank, mesh.data_world)
     res = {}
     with _Writes() as writes:
         for run, epochs in (("full", (2,)), ("resumed", (1, 2))):
             ckpt = os.path.join(out, f"searcher_{run}")
             for e in epochs:
-                cfg = loop_config(ckpt, **{"model.depth": 1})
+                cfg = loop_config(ckpt, **{"model.depth": 1, **(extra or {})})
                 s = bilevel.Searcher(make_supernet(cfg.model, 3), cfg, paths,
                                      device="cpu", mesh=mesh)
                 state, geno = s.search(epochs=e, steps_per_epoch=2)
