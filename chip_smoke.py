@@ -103,6 +103,21 @@ Phases, each printed as JSON lines:
      against the tables) and SU_STEPS timed at 128^3: s a step,
      patches/s, peak memory, finite losses, α moved, launches equal to
      the tables' × steps, the genotype.
+ 6e'. search_unrolled_pallas: the second-order step on the shipped
+     supernet with model.use_pallas (K6, K7 and K4 on the edge ops, K3 for
+     every GroupNorm, K1 for the stem, K2 for the projections) at 128^3,
+     batch 1, bf16: its kernels against their twins at every geometry one
+     step hands them (SUP_ tables: K3 dx also unmasked, as K3 dx's own
+     backward runs it, the masked K5b and K5b, K5a in every K3 backward's
+     rebuilt statistics); one step's α gradient and val loss on the kernel
+     path against the twin path at ξ = PARITY_XI (UNROLLED_ALPHA_LIMITS;
+     at SUP_PARITY_PATCH^3, where the twin path fits the card)
+     with the second-order term's share, and again with K3's statistics
+     held constant in its differentiated backward (a planted fault that
+     must miss the limits); then one step noted (its geometries against
+     the tables) and SUP_STEPS timed: s a step, patches/s, peak memory,
+     finite losses, α moved, launches equal to the tables' × steps, the
+     genotype.
  6f. search_pc: `search.partial_channels` 2 (the supernet rebuilt with
      pc_k 2, weights from --seed): its kernels at every geometry a
      first-order step (SPC_) and an unrolled step (SB_) hand them; a
@@ -149,9 +164,12 @@ Phases, each printed as JSON lines:
      one-process runs: the first step's gradients of the bf16 flagship
      train step (128^3, batch 2) and of its `use_pallas` twin (the
      limits of phases 6 and 9), and the first-order search step's α
-     (ALPHA_LIMITS) and w gradients (128^3, batch 1), the ranks' reduced
-     gradients bit-equal; a planted fault, the GroupNorm moments left
-     un-reduced in the forward, must fail the train step's limits;
+     (ALPHA_LIMITS) and w gradients (128^3, batch 1), and the
+     second-order step's (DP_UNROLLED_PATCH^3, batch 1, ξ = SP_SECOND_XI,
+     UNROLLED_ALPHA_LIMITS), the ranks' reduced gradients bit-equal; two
+     planted faults must fail their limits: the GroupNorm moments left
+     un-reduced in the forward (the train step's), and the loss sums'
+     identity adjoint kept in the second-order step's inner graph;
      SP_STEPS train steps with AdamW and augmentation (the ranks'
      parameters bit-equal); `predict_labels` of a synthetic
      160x192x152 patient, each rank stitching its D-slab, bit-equal to one
@@ -224,8 +242,8 @@ Phases, each printed as JSON lines:
 The "done" line also holds each search phase's s a step, patches/s, peak
 memory and launches a step, the search phases' seconds, each remat
 setting's s a step and peak memory, phase "dp"'s seconds, world, backend
-and s a train step per rank, phase "spatial"'s seconds and s a train
-step per rank, and the whole script's.
+and s a train step per rank, phase "spatial"'s seconds, s a train
+step and s of the second-order step per rank, and the whole script's.
 Then the nvidia-smi line, the kernels summary line and, last,
 `{"ok": true, "device": {...}}`.  In the kernels line a serving kernel's
 `ms`, `plain_ms`, `library_ms` and `bound_ms` are one flagship forward's
@@ -521,6 +539,74 @@ SB_TABLES = [("conv3x3x3_stats", SB_K1), ("conv3x3x3", SB_K1DX),
              ("gemm_stats", SB_K2), ("moments", SB_K5A),
              ("weighted_sums", SB_K5B)]
 SU_STEPS, SPC_STEPS, SB_STEPS = 2, 3, 1    # timed, after one noted step
+# Phase "search_unrolled_pallas": launches per second-order step of the
+# shipped supernet with model.use_pallas (SUP_; counted by `noting_kernels`
+# on the CPU at 16^3, the edges times 8, and the same at 32^3 times 4).
+# The stem alone runs K1 (its input needs no dx, so no K1-dx), the 1³
+# projections K2; the edge ops' 3³ convs run K6 (Cin, Cout, edge, stride,
+# dilation: the merged ops at Cout k·C), the separable convs' pointwise
+# K7 and the up ops K4 (C, edge); every GroupNorm is K3.  Under the graph
+# each K3 backward rebuilds its statistics (K5a), takes the masked K5b and
+# launches K3 dx through `_GroupNormDx`, whose own backward launches K3 dx
+# twice (masked for g; unmasked, SUP_K3DXU, for x), the masked K5b (for
+# A) and K5b (for B and C).
+SUP_K1 = [(4, 48, 128, 1, 3)]
+SUP_K2 = [(48, 16, 128, 3), (48, 32, 128, 6), (96, 16, 64, 3), (96, 32, 64, 3),
+          (96, 64, 64, 3), (192, 32, 32, 3), (192, 64, 32, 3),
+          (192, 128, 32, 3), (384, 64, 16, 3)]
+SUP_K6 = [(16, 16, 128, 1, 1, 3), (16, 16, 128, 1, 2, 3),
+          (16, 32, 128, 1, 1, 3), (16, 32, 128, 1, 2, 3),
+          (16, 48, 128, 1, 1, 6), (16, 48, 128, 1, 2, 3),
+          (32, 32, 64, 1, 1, 6), (32, 32, 64, 1, 2, 6), (32, 64, 64, 1, 1, 6),
+          (32, 64, 64, 1, 2, 6), (32, 96, 64, 1, 1, 6), (32, 96, 64, 1, 2, 3),
+          (32, 96, 128, 2, 1, 6), (32, 96, 128, 2, 2, 6),
+          (64, 64, 32, 1, 1, 6), (64, 64, 32, 1, 2, 6), (64, 128, 32, 1, 1, 6),
+          (64, 128, 32, 1, 2, 6), (64, 192, 32, 1, 1, 6),
+          (64, 192, 32, 1, 2, 3), (64, 192, 64, 2, 1, 6),
+          (64, 192, 64, 2, 2, 6), (128, 128, 16, 1, 1, 3),
+          (128, 128, 16, 1, 2, 3), (128, 256, 16, 1, 1, 3),
+          (128, 256, 16, 1, 2, 3), (128, 384, 32, 2, 1, 6),
+          (128, 384, 32, 2, 2, 6)]
+SUP_K7 = [(16, 128, 27), (32, 64, 54), (64, 32, 54), (128, 16, 27)]
+SUP_K4 = [(16, 64, 3), (32, 32, 3), (64, 16, 3)]
+SUP_K3 = [(16, 64, 3), (16, 128, 36), (32, 32, 3), (32, 64, 69), (32, 128, 12),
+          (48, 128, 15), (64, 16, 3), (64, 32, 69), (64, 64, 18), (96, 64, 24),
+          (128, 16, 33), (128, 32, 18), (192, 32, 24), (256, 16, 6),
+          (384, 16, 12)]
+SUP_K3DX = [(16, 64, 5), (16, 128, 56), (32, 32, 5), (32, 64, 109),
+            (32, 128, 18), (48, 128, 22), (64, 16, 5), (64, 32, 112),
+            (64, 64, 29), (96, 64, 36), (128, 16, 55), (128, 32, 30),
+            (192, 32, 38), (256, 16, 10), (384, 16, 20)]
+SUP_K3DXU = [(16, 64, 1), (16, 128, 12), (32, 32, 1), (32, 64, 23),
+             (32, 128, 4), (48, 128, 5), (64, 16, 1), (64, 32, 23),
+             (64, 64, 6), (96, 64, 8), (128, 16, 11), (128, 32, 6),
+             (192, 32, 8), (256, 16, 2), (384, 16, 4)]
+SUP_K5A = [(16, 64, 1), (16, 128, 45), (32, 32, 1), (32, 64, 89),
+           (32, 128, 10), (48, 128, 17), (64, 16, 1), (64, 32, 89),
+           (64, 64, 21), (96, 64, 32), (128, 16, 44), (128, 32, 21),
+           (192, 32, 32), (256, 16, 8), (384, 16, 16)]
+SUP_K5B = [(16, 64, 1), (16, 128, 12), (32, 32, 1), (32, 64, 23), (32, 128, 4),
+           (48, 128, 5), (64, 16, 1), (64, 32, 23), (64, 64, 6), (96, 64, 8),
+           (128, 16, 11), (128, 32, 6), (192, 32, 8), (256, 16, 2),
+           (384, 16, 4)]
+SUP_K5BM = [(16, 64, 5), (16, 128, 56), (32, 32, 5), (32, 64, 109),
+            (32, 128, 18), (48, 128, 22), (64, 16, 5), (64, 32, 112),
+            (64, 64, 29), (96, 64, 36), (128, 16, 55), (128, 32, 30),
+            (192, 32, 38), (256, 16, 10), (384, 16, 20)]
+SUP_TABLES = [("conv3x3x3_stats", SUP_K1), ("gemm_stats", SUP_K2),
+              ("conv3d", SUP_K6), ("pointwise_conv", SUP_K7),
+              ("conv_transpose2x", SUP_K4), ("group_norm_apply", SUP_K3),
+              ("group_norm_dx", SUP_K3DX),
+              ("group_norm_dx_unmasked", SUP_K3DXU), ("moments", SUP_K5A),
+              ("weighted_sums", SUP_K5B), ("weighted_sums_masked", SUP_K5BM)]
+SUP_STEPS = 1
+# the use_pallas step's α parity runs at this patch: at 128^3 the twin
+# path (plain autograd through K3's twin, fp32 copies of every GroupNorm's
+# input in the recorded backward) ran out of the card's 80 GB; at 96^3 it
+# took 35.4 GB, the kernel path 16.2 (NVIDIA H100 80GB HBM3, 700 W)
+SUP_PARITY_PATCH = 96
+# the launch counter's name of a table's kernel where the two differ
+LAUNCH_NAME = {"group_norm_dx_unmasked": "group_norm_dx"}
 # phase "cli"'s search: 2 steps an epoch, 1 warmup epoch (run 1), then
 # resumed for 1 bilevel epoch with 1 eval batch (run 2)
 CLI_SEARCH = ["search.steps_per_epoch=2", "search.warmup_epochs=1",
@@ -650,24 +736,26 @@ def device_ms(fn, args, iters=20, spin_cycles=20_000_000):
     events around them time the device alone, where the call's `ms` also
     holds the host's time; the host's wall clock over the same queued loop
     times the host alone (the launch path: wrapper, checks, allocation,
-    ctypes).  Raises if the device caught up with the host (the spin too
-    short to hide it)."""
+    ctypes).  Where the device caught up with the host (the spin too
+    short to hide it: a slow call, or the host held up), the loop runs
+    again behind a spin 4 times as long; raises if that is caught up too."""
     fn(*args)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    torch.cuda._sleep(spin_cycles)
-    start.record()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn(*args)
-    host = (time.perf_counter() - t0) * 1e3 / iters
-    end.record()
-    ahead = not start.query()       # still spinning: the host was ahead
-    torch.cuda.synchronize()
-    if not ahead:
-        raise AssertionError("device_ms: the host did not stay ahead")
-    return start.elapsed_time(end) / iters, host
+    for spin in (spin_cycles, 4 * spin_cycles):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(spin)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn(*args)
+        host = (time.perf_counter() - t0) * 1e3 / iters
+        end.record()
+        ahead = not start.query()   # still spinning: the host was ahead
+        torch.cuda.synchronize()
+        if ahead:
+            return start.elapsed_time(end) / iters, host
+    raise AssertionError("device_ms: the host did not stay ahead")
 
 
 def split_ms(kernel, library, args):
@@ -984,11 +1072,12 @@ def check_transpose(dev, gen, cin, cout, v, batch, dtype, relu=False):
     return rec
 
 
-def check_gn(dev, gen, name, c, v, batch, dtype):
+def check_gn(dev, gen, name, c, v, batch, dtype, masked=True):
     """K3's apply (`y = relu(x·s + t)`, library: F.group_norm with its
     statistics, on the permuted tensor) or dx (`a·g + b·x + c`, g masked
-    by y > 0) against its twin at one geometry, as the flagship calls
-    them (ReLU fused)."""
+    by y > 0; unmasked with `masked` False, as K3 dx's own backward runs
+    it) against its twin at one geometry, as the flagship calls them (ReLU
+    fused)."""
     from nas_3d_unet_tpu_torch.ops import groupnorm
 
     shape = (batch, v, v, v, c)
@@ -1012,14 +1101,16 @@ def check_gn(dev, gen, name, c, v, batch, dtype):
     else:
         g = torch.randn(shape, generator=gen, device=dev).to(dtype)
         y = torch.randn(shape, generator=gen, device=dev).relu().to(dtype)
-        args = (g, x, y, vec(), vec(), vec())
+        if not masked:
+            y = torch.ones_like(y)
+        args = (g, x, y if masked else None, vec(), vec(), vec())
         kernel, twin = groupnorm.group_norm_dx, groupnorm.group_norm_dx_twin
         # library: the whole GroupNorm backward's dx (which also takes its
         # own sums), with the ReLU mask applied to g, on NCDHW copies and
         # the statistics and γ of x from native_group_norm
         groups = min(8, c)
         gamma = (vec()[0] * 0.5 + 1).to(dtype)
-        gc, xc, yc = map(_ncdhw, args[:3])
+        gc, xc, yc = map(_ncdhw, (g, x, y))   # y all ones: unmasked
         _, mean, rstd = torch.ops.aten.native_group_norm(
             xc, gamma, None, batch, c, v ** 3, groups, 1e-6)
 
@@ -1035,8 +1126,10 @@ def check_gn(dev, gen, name, c, v, batch, dtype):
         times = _timings(kernel, twin, library, args)
         times.update(split_ms(kernel, library, args))
     torch.cuda.synchronize()
-    rec = {"c": c, "volume": v, "batch": batch, "bitwise_repeatable": rep,
-           **_y_check(yk, yt), **times}
+    if not masked:
+        nbytes -= n * e                 # no y to read
+    rec = {"c": c, "volume": v, "batch": batch, "masked": masked,
+           "bitwise_repeatable": rep, **_y_check(yk, yt), **times}
     rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, flops, dtype)
     rec["ok"] = rec["y_ok"] and rep
     return rec
@@ -1318,7 +1411,9 @@ def noting_kernels(seen):
         return apply_(x, s, t, relu)
 
     def dx_noted(g, x, y, a, b, c):
-        seen[("group_norm_dx", x.shape[-1], x.shape[1])] += 1
+        # unmasked: the b·x term of K3 dx's own backward (`_GroupNormDx`)
+        name = "group_norm_dx" if y is not None else "group_norm_dx_unmasked"
+        seen[(name, x.shape[-1], x.shape[1])] += 1
         return dx(g, x, y, a, b, c)
 
     return _patched({(pgemm, "_k1"): k1_noted, (pgemm, "_k2"): k2_noted,
@@ -1634,18 +1729,33 @@ def check_step_kernels(phase, dev, gen, summary, groups):
     bf16 = torch.bfloat16
     for name, rows in groups:
         for *geom, n in rows:
+            kernel = f"{LAUNCH_NAME.get(name, name)}_bf16"
             if name.startswith("conv3x3x3"):
-                _run_check(phase, f"{name}_bf16", check_conv, summary, n,
+                _run_check(phase, kernel, check_conv, summary, n,
                            dev, gen, *geom, SEARCH_BATCH, bf16,
                            name == "conv3x3x3_stats")
             elif name == "gemm_stats":
-                _run_check(phase, f"{name}_bf16", check_gemm, summary, n,
+                _run_check(phase, kernel, check_gemm, summary, n,
                            dev, gen, *geom, SEARCH_BATCH, bf16)
+            elif name == "conv3d":
+                _run_check(phase, kernel, check_conv3d, summary, n, dev, gen,
+                           *geom, SEARCH_BATCH, bf16)
+            elif name in ("pointwise_conv", "conv_transpose2x"):
+                c, v = geom
+                fn = check_pointwise if name == "pointwise_conv" \
+                    else check_transpose
+                _run_check(phase, kernel, fn, summary, n, dev, gen, c, c, v,
+                           SEARCH_BATCH, bf16)
+            elif name.startswith("group_norm"):
+                _run_check(phase, kernel, check_gn, summary, n, dev, gen,
+                           LAUNCH_NAME.get(name, name), *geom, SEARCH_BATCH,
+                           bf16, name != "group_norm_dx_unmasked")
             else:
-                _run_check(phase, f"{name}_bf16", check_stats, summary, n,
+                _run_check(phase, kernel, check_stats, summary, n,
                            dev, gen, name, *geom, SEARCH_BATCH, bf16)
-    return {f"{name}_bf16": summary.entry(f"{name}_bf16")
-            for name, rows in groups if rows}
+    return {f"{n}_bf16": summary.entry(f"{n}_bf16")
+            for n in {LAUNCH_NAME.get(name, name)
+                      for name, rows in groups if rows}}
 
 
 def phase_search_kernels(dev, gen, summary):
@@ -1858,24 +1968,34 @@ def phase_search(dev, seed):
     return rec
 
 
-def unrolled_parity(net, alphas, batches, kernel_ctx=None, xi=PARITY_XI):
+def unrolled_parity(net, alphas, batches, kernel_ctx=None, xi=PARITY_XI,
+                    faults=None):
     """The second-order α-step's val loss and α gradients (at ξ = `xi`) on
     the kernel path (inside `kernel_ctx`) and on the twin path, leaf by
     leaf (UNROLLED_ALPHA_LIMITS), and the second-order term's share,
     ‖g − g₁‖ / ‖g₁‖ on the kernel path, g₁ the first-order α gradient of
-    the same val batch."""
+    the same val batch.  `faults`: {name: context} of planted faults, each
+    a kernel-path run against the same twin path ("fault_<name>"), which
+    must miss the limits ("faults_caught")."""
     from nas_3d_unet_tpu_torch.metrics.losses import dice_ce_loss
     from nas_3d_unet_tpu_torch.models.unet import arch_weights_from_alphas
     from nas_3d_unet_tpu_torch.search.bilevel import unrolled_alpha_grads
 
     a_params = list(alphas.values())
     out = {}
-    for path, ctx in (("kernel", kernel_ctx or contextlib.nullcontext()),
-                      ("twin", twin_path())):
+    paths = [("kernel", kernel_ctx or contextlib.nullcontext()),
+             ("twin", twin_path())]
+    paths += [(f"fault_{name}", ctx) for name, ctx in (faults or {}).items()]
+    peak = {}
+    for path, ctx in paths:
+        torch.cuda.reset_peak_memory_stats()
         with ctx:
             loss, grads = unrolled_alpha_grads(net, alphas, a_params, xi,
                                                *batches, dice_ce_loss)
         out[path] = (loss.item(), [g.double() for g in grads])
+        peak[path] = torch.cuda.max_memory_allocated() / 2 ** 30
+        del loss, grads
+        torch.cuda.empty_cache()
     first = torch.autograd.grad(
         dice_ce_loss(net(batches[2], arch_weights_from_alphas(alphas)),
                      batches[3]), a_params)
@@ -1883,23 +2003,32 @@ def unrolled_parity(net, alphas, batches, kernel_ctx=None, xi=PARITY_XI):
     g = torch.cat([t.flatten() for t in out["kernel"][1]])
     g1 = torch.cat([t.double().flatten() for t in first])
     rec = {"loss_kernel": out["kernel"][0], "loss_twin": out["twin"][0],
+           "peak_gb": peak,
            "second_order_share": ((g - g1).norm() / g1.norm()).item(),
            "alpha": leaf_stats(list(alphas), out["kernel"][1],
                                out["twin"][1], UNROLLED_ALPHA_LIMITS)}
     rec["ok"] = rec["alpha"]["ok"] and math.isfinite(rec["loss_kernel"])
+    for name in faults or {}:
+        rec[f"fault_{name}"] = leaf_stats(
+            list(alphas), out[f"fault_{name}"][1], out["twin"][1],
+            UNROLLED_ALPHA_LIMITS)
+    if faults:
+        rec["faults_caught"] = not any(rec[f"fault_{name}"]["ok"]
+                                       for name in faults)
+        rec["ok"] = rec["ok"] and rec["faults_caught"]
     return rec
 
 
-def search_inputs(dev, seed, pc_k=1):
+def search_inputs(dev, seed, pc_k=1, use_pallas=False):
     """The shipped supernet (`search_supernet`, rebuilt with `pc_k` as the
-    Searcher does, its weights drawn again from `seed`) and its α on the
-    card, the batches (patch 0 trains, patch 1 is the val batch) and the
-    config."""
+    Searcher does, or with `use_pallas`, its weights drawn again from
+    `seed`) and its α on the card, the batches (patch 0 trains, patch 1 is
+    the val batch) and the config."""
     from nas_3d_unet_tpu_torch import bridge
 
     net, alphas, cfg = search_supernet(seed)
-    if pc_k > 1:
-        net = net.clone(pc_k=pc_k)
+    if pc_k > 1 or use_pallas:
+        net = net.clone(pc_k=pc_k, use_pallas=use_pallas)
         bridge.load_flax_params(net, bridge.random_flax_params(net, seed))
     x, y = synthetic_batch(dev, seed)
     return (net.to(dev), {k: v.to(dev).requires_grad_()
@@ -1927,7 +2056,10 @@ def timed_search_steps(phase, dev, seed, net, alphas, cfg, batches,
         make_optimizer(alphas.values(), sc.alpha_lr, sc.alpha_weight_decay),
         gen)
     tables = _table(*groups)
-    per_step = {f"{k}_bf16": sum(r[-1] for r in rows) for k, rows in groups}
+    per_step = collections.Counter()
+    for k, rows in groups:
+        per_step[f"{LAUNCH_NAME.get(k, k)}_bf16"] += sum(r[-1] for r in rows)
+    per_step = dict(per_step)
     seen = collections.Counter()
     torch.cuda.reset_peak_memory_stats(dev)
     with noting_kernels(seen):
@@ -1975,6 +2107,8 @@ def timed_search_steps(phase, dev, seed, net, alphas, cfg, batches,
 
 def _parity_check(phase, rec, **extra):
     emit({"phase": phase, **extra, **rec})
+    if rec.get("faults_caught") is False:
+        raise AssertionError(f"{phase}: a planted fault passes the limits")
     if not rec["ok"]:
         raise AssertionError(f"{phase}: the kernel-path gradients disagree "
                              "with the twin path")
@@ -2002,6 +2136,48 @@ def phase_search_unrolled(dev, gen, seed):
         lambda w_opt, a_opt, g: make_search_step_unrolled(
             net, w_opt, a_opt, alphas, xi, AUGMENT, gen=g),
         SU_TABLES, SU_STEPS, xi=xi)
+    return rec, time.perf_counter() - t_phase
+
+
+def k3_statistics_constant():
+    """A planted fault, the code before K3's backward was twice
+    differentiable: K3's statistics held constant in its differentiated
+    backward (`groupnorm._grad_statistics` detached)."""
+    from nas_3d_unet_tpu_torch.ops import groupnorm
+
+    cut = groupnorm._grad_statistics
+    return mock.patch.object(groupnorm, "_grad_statistics",
+                             lambda *a: tuple(t.detach() for t in cut(*a)))
+
+
+def phase_search_unrolled_pallas(dev, gen, seed):
+    """The second-order step on the shipped supernet with model.use_pallas
+    (K6, K7 and K4 on the edge ops, K3 for every GroupNorm): its kernels
+    at every geometry it hands them (SUP_ tables), its α gradient on the
+    kernel path against the twin path, and with K3's statistics held
+    constant (a planted fault that must miss the limits), then one noted
+    and SUP_STEPS timed steps, all at 128^3 in bf16."""
+    from nas_3d_unet_tpu_torch.search.bilevel import \
+        make_search_step_unrolled
+
+    t_phase = time.perf_counter()
+    per_step = check_step_kernels("search_unrolled_pallas_kernel", dev, gen,
+                                  Summary(), SUP_TABLES)
+    emit({"phase": "search_unrolled_pallas_kernels", "per_step": per_step,
+          "seconds": time.perf_counter() - t_phase})
+    net, alphas, batches, cfg = search_inputs(dev, seed, use_pallas=True)
+    xi = cfg.search.xi or cfg.search.w_lr
+    e = SUP_PARITY_PATCH
+    _parity_check("search_unrolled_pallas_parity", unrolled_parity(
+        net, alphas, [t[:, :e, :e, :e].contiguous() for t in batches],
+        faults={"k3_statistics_constant": k3_statistics_constant()}),
+        xi=PARITY_XI, patch=e, patch_why="memory: the twin path at 128^3 "
+        "does not fit the card")
+    rec = timed_search_steps(
+        "search_unrolled_pallas", dev, seed, net, alphas, cfg, batches,
+        lambda w_opt, a_opt, g: make_search_step_unrolled(
+            net, w_opt, a_opt, alphas, xi, AUGMENT, gen=g),
+        SUP_TABLES, SUP_STEPS, xi=xi, use_pallas=True)
     return rec, time.perf_counter() - t_phase
 
 
@@ -2619,6 +2795,14 @@ def phase_dp(dev, seed, tmp):
 SP_WORLD = 2
 SP_STEPS = 3
 SP_TIMEOUT = 900
+# ξ of the second-order step on slabs (at DP_UNROLLED_PATCH^3, batch 1):
+# the planted fault (the loss sums' identity adjoint in the inner graph)
+# drops only the cross-slab terms of the Dice sums' curvature, and at
+# PARITY_XI that moved α 0.0821 / 0.0396 / 0.99928 (rel. L2 max / median
+# / cosine min), inside UNROLLED_ALPHA_LIMITS; at 0.1 it read 0.2119 /
+# 0.0671 / 0.98020, outside all three, the sound step 0.0521 / 0.0373 /
+# 0.99867 (chip_smoke.py phase "spatial", NVIDIA H100 80GB HBM3, 700 W)
+SP_SECOND_XI = 0.1
 
 
 def spatial_launches(one_process):
@@ -2651,18 +2835,30 @@ def _moments_not_reduced():
     return mock.patch.object(groupnorm, "_global_sums", faulty)
 
 
+def _identity_adjoint_kept():
+    """A planted fault: the second-order step's slabs keep the first-order
+    convention (the loss sums' identity adjoint, each rank's loss seeded
+    with 1), so its inner graph drops the cross-slab Hessian terms."""
+    from nas_3d_unet_tpu_torch.search import bilevel
+
+    return mock.patch.object(bilevel, "_exact", lambda slab: slab)
+
+
 def spatial_runs(dev, seed, mesh):
     """The runs phase "spatial" compares, under `mesh` (None: in one
     process): {kind: (gradients, launches, s, peak GB)} for the first step
     of the derived bf16 train step ("derived"; with a mesh also "fault",
-    `_moments_not_reduced`), its `use_pallas` twin ("pallas") and the
+    `_moments_not_reduced`), its `use_pallas` twin ("pallas"), the
     first-order search step ("search": α's gradients, then w's, the
-    former's count in "search_alphas"); "steps":
+    former's count in "search_alphas") and the second-order one at
+    DP_UNROLLED_PATCH^3, ξ = SP_SECOND_XI ("second", the same order; with a
+    mesh also "second_fault", `_identity_adjoint_kept`); "steps":
     SP_STEPS AdamW steps with augmentation (the parameters' digest);
     "predict": one synthetic patient's labels.  Nothing else is
     updated (`_Recorder`)."""
     from nas_3d_unet_tpu_torch.ops import _cuda
-    from nas_3d_unet_tpu_torch.search.bilevel import make_search_step
+    from nas_3d_unet_tpu_torch.search.bilevel import (
+        make_search_step, make_search_step_unrolled)
     from nas_3d_unet_tpu_torch.train.loop import make_train_step
     from nas_3d_unet_tpu_torch.train.optim import make_optimizer
 
@@ -2699,6 +2895,20 @@ def spatial_runs(dev, seed, mesh):
                      secs, peak)
     out["search_alphas"] = len(a_rec.grads)
     del net, alphas, w_rec, a_rec
+    b = (*_dp_batch(dev, seed, DP_UNROLLED_PATCH, 1),
+         *_dp_batch(dev, seed + 1, DP_UNROLLED_PATCH, 1))
+    kinds = [("second", None)]
+    if mesh is not None:
+        kinds.append(("second_fault", _identity_adjoint_kept()))
+    for kind, fault in kinds:
+        net, alphas, _, _ = search_inputs(dev, seed)
+        w_rec, a_rec = _Recorder(net.parameters()), _Recorder(alphas.values())
+        with fault or contextlib.nullcontext():
+            launches, secs, peak = timed(lambda: make_search_step_unrolled(
+                net, w_rec, a_rec, alphas, SP_SECOND_XI, mesh=mesh)(*b))
+        out[kind] = ([g.cpu() for g in a_rec.grads + w_rec.grads], launches,
+                     secs, peak)
+        del net, alphas, w_rec, a_rec
     if mesh is not None:
         net = flagship_net(seed, "bfloat16").to(dev)
         gen = torch.Generator(device=dev)
@@ -2796,27 +3006,31 @@ def phase_spatial(dev, seed, tmp):
            "reference_s": ref_s, "ranks_s": ranks_s}
     ok = {}
     # gradients: the ranks' (summed over the group) against one process's
+    sound = {"fault": "derived", "second_fault": "second"}
     for kind, limits in (("derived", GRAD_LIMITS), ("pallas", P_GRAD_LIMITS),
-                         ("search", None), ("fault", GRAD_LIMITS)):
-        got, want = runs[0][kind][0], ref["derived" if kind == "fault"
-                                         else kind][0]
+                         ("search", ALPHA_LIMITS),
+                         ("second", UNROLLED_ALPHA_LIMITS),
+                         ("fault", GRAD_LIMITS),
+                         ("second_fault", UNROLLED_ALPHA_LIMITS)):
+        got, want = runs[0][kind][0], ref[sound.get(kind, kind)][0]
         r = {}
-        if kind == "search":
+        if kind.startswith("second") or kind == "search":
             k = ref["search_alphas"]
             r["alpha"] = leaf_stats([f"a{i}" for i in range(k)],
                                     [g.double() for g in got[:k]],
                                     [g.double() for g in want[:k]],
-                                    ALPHA_LIMITS)
+                                    limits)
             r["w"] = leaf_stats([f"w{i}" for i in range(len(got) - k)],
                                 [g.double() for g in got[k:]],
                                 [g.double() for g in want[k:]])
-            good = r["alpha"]["ok"] and r["w"]["ok"]
+            good = r["alpha"]["ok"] and (r["w"]["ok"]
+                                         or kind == "second_fault")
         else:
             r["w"] = leaf_stats([f"w{i}" for i in range(len(got))],
                                 [g.double() for g in got],
                                 [g.double() for g in want], limits)
             good = r["w"]["ok"]
-        if kind != "fault":
+        if kind not in sound:
             r["ranks_bit_equal"] = all(
                 _same(a, b) for a, b in zip(runs[0][kind][0],
                                              runs[1][kind][0]))
@@ -2834,6 +3048,13 @@ def phase_spatial(dev, seed, tmp):
         rec[f"grads_{kind}"] = r
         ok[kind] = good
     ok["fault_caught"] = not ok.pop("fault")
+    ok["second_fault_caught"] = not ok.pop("second_fault")
+    rec["second_patch"] = DP_UNROLLED_PATCH
+    rec["second_patch_why"] = ("time: at 128^3 the second-order step takes "
+                               "~27 s a run, and the phase runs it 5 times")
+    rec["second_xi"] = SP_SECOND_XI
+    rec["second_xi_why"] = ("at PARITY_XI the planted fault moves α less "
+                            "than the limits allow")
     # SP_STEPS AdamW steps: the ranks' parameters bit-equal, launches
     one_step = spatial_launches(ref["derived"][1])
     steps = [run["steps"] for run in runs]
@@ -2868,10 +3089,14 @@ def phase_spatial(dev, seed, tmp):
         if kind == "fault_caught" and not good:
             raise AssertionError("spatial: the GroupNorm moments left "
                                  "un-reduced pass the train step's limits")
+        if kind == "second_fault_caught" and not good:
+            raise AssertionError("spatial: the second-order step with the "
+                                 "loss sums' identity adjoint passes the "
+                                 "limits")
         if not good:
             raise AssertionError(f"spatial {kind}: gradients off the "
                                  "one-process step's limits or ranks differ")
-    for kind in ("derived", "pallas", "search"):
+    for kind in ("derived", "pallas", "search", "second"):
         if not rec[f"grads_{kind}"]["launches_exact"]:
             raise AssertionError(f"spatial {kind} launches: "
                                  f"{rec[f'grads_{kind}']}")
@@ -3726,6 +3951,8 @@ def main() -> int:
             search_kernels_s = phase_search_kernels(dev, gen, Summary())
             search = phase_search(dev, args.seed)
             unrolled, unrolled_s = phase_search_unrolled(dev, gen, args.seed)
+            unrolled_p, unrolled_p_s = phase_search_unrolled_pallas(
+                dev, gen, args.seed)
             pc, both, pc_s = phase_search_pc(dev, gen, args.seed)
             remat, remat_s = phase_remat(dev, args.seed)
             dp = phase_dp(dev, args.seed, cli_tmp)
@@ -3753,11 +3980,13 @@ def main() -> int:
           "search_s": search["seconds"],
           "search_launches_per_step": search["launches_per_bilevel_step"],
           **{f"{name}_{key}": rec[key] for name, rec in (
-              ("search_unrolled", unrolled), ("search_pc", pc),
+              ("search_unrolled", unrolled),
+              ("search_unrolled_pallas", unrolled_p), ("search_pc", pc),
               ("search_pc_unrolled", both))
              for key in ("step_s", "patches_per_s", "peak_mem_gb",
                          "launches_per_step")},
-          "search_unrolled_s": unrolled_s, "search_pc_s": pc_s,
+          "search_unrolled_s": unrolled_s,
+          "search_unrolled_pallas_s": unrolled_p_s, "search_pc_s": pc_s,
           **{f"remat_{kind}_{name}_{key}": r[key]
              for kind, rec in remat.items()
              for name, r in rec.items()
@@ -3767,6 +3996,7 @@ def main() -> int:
           "dp_step_s": dp["step_s"], "dp_world": dp["world"],
           "dp_backend": dp["backend"], "spatial_s": sp["seconds"],
           "spatial_step_s": sp["steps"]["step_s"],
+          "spatial_second_order_s": sp["grads_second"]["first_call_s"],
           "script_s": time.perf_counter() - t_script,
           "card": smi, "build_s": build_s})
     # each kernel's launches in the run of its path: the default path's

@@ -30,11 +30,10 @@ ranks of the same patches (`parallel/spatial.py`):
         -m nas_3d_unet_tpu_torch {train,search,predict} -c config.json \
         -o parallel.spatial_parallel=S
 
-`train` and `search` need `data.patch_size`'s D to be a multiple of
-S·2^depth with at least 2 planes in the deepest slab, and `search` the
-first-order step (`search.unrolled` is refused, ROADMAP.md item 9c);
-`predict` shards the stitch's buffers, with labels bit-identical to one
-process.
+`train` and `search` (first- or second-order) need `data.patch_size`'s
+D to be a multiple of S·2^depth with at least 2 planes in the deepest
+slab; `predict` shards the stitch's buffers, with labels bit-identical to
+one process.
 """
 
 from __future__ import annotations

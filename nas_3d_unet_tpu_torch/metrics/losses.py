@@ -5,10 +5,13 @@ form (the JAX package's `_dice_ce_loss_packed` is a TPU lane device with the
 same math).  Everything is computed in fp32 whatever the logits' dtype.
 
 On a D-slab (`parallel/spatial.py`) the Dice sums Σpy, Σp, Σy and the
-cross-entropy's sum are summed over the spatial group (`spatial_sum`,
-whose backward is the identity) and the mean divides by the global voxel
-count: every rank of the group holds the same loss, and its gradient
-holds its own slab's terms.
+cross-entropy's sum are summed over the spatial group (`spatial_sum`)
+and the mean divides by the global voxel count: every rank of the group
+holds the same loss, and its gradient holds its own slab's terms.  The
+sum's backward is the identity, or, on a slab under the exact convention
+(the second-order search step, which seeds each rank's loss with
+1/size), the sum of the cotangents over the group: that module's
+docstring says why the second-order graph needs it.
 """
 
 from __future__ import annotations

@@ -31,7 +31,10 @@ XLA version (`_conv3d_bwd_rule`, `_pointwise_bwd_rule`,
 `_transpose2x_bwd_rule`), each autograd Function runs the kernel forward
 and the backward of its twin: cuDNN's `convolution_backward` for K6 and
 K4, matmuls for K7.  The cotangent is cast to x's dtype first and masked
-by y > 0 where the ReLU was fused.  Where no graph is recorded (grad mode
+by y > 0 where the ReLU was fused.  Those backwards are differentiable
+ops on the saved x and w (the mask from the kernel's y is a constant),
+so a backward run with `create_graph` (the second-order search step) is
+differentiated by autograd: each Function is twice differentiable.  Where no graph is recorded (grad mode
 off, or no input that needs a gradient: serving), K7 and K4 launch their
 kernel without the Function.
 

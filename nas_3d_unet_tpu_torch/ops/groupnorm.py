@@ -31,7 +31,11 @@ bit for bit.
 On a D-slab (`parallel/spatial.py`) both GroupNorms sum the forward's
 moments and the backward's Σdy, Σdy·x over the spatial group before the
 (B, C) algebra, with the global voxel count; dγ and dβ stay the slab's
-own sums, which the step's gradient reduction adds up.
+own sums, which the step's gradient reduction adds up.  In a
+differentiated backward those sums, and the moments it rebuilds, are
+summed inside the graph (`spatial.all_reduce_sums` through
+`spatial.summed`, whose adjoint is the same sum): the cotangents that
+reach a slab's sums from every rank's dx add up.
 
 `pallas_group_norm` is the `use_pallas` path's GroupNorm (K3), the
 counterpart of `nas_3d_unet_tpu/ops/pallas/groupnorm.py` `group_norm`
@@ -44,7 +48,13 @@ dtype first (:238).  Its two elementwise passes are kernels
 (`csrc/groupnorm.cu`): `group_norm_apply` and `group_norm_dx`.  The
 reference takes its lane-packed Pallas path only where C divides 128 and
 its two-pass XLA reference elsewhere; the port takes every shape through
-the one formula (variance `E[x²] − mean²`, eps 1e-6).
+the one formula (variance `E[x²] − mean²`, eps 1e-6).  Its backward is
+twice differentiable as the default path's is: with grad mode on it
+rebuilds mean and rstd from x through K5a's Function, takes the masked K5b
+through its Function and launches K3 dx through `_GroupNormDx`, whose
+backward has the closed form (two more K3 dx launches and two K5b);
+without a graph it is the first-order backward, launch for launch and
+bit for bit.
 """
 
 from __future__ import annotations
@@ -53,7 +63,7 @@ import torch
 
 from ..parallel import spatial
 from . import _cuda, stats
-from .stats import _bcast
+from .stats import _acc, _bcast
 
 EPS = 1e-6
 
@@ -98,7 +108,7 @@ def _count(x: torch.Tensor, gsize: int, slab) -> int:
 
 def _global_sums(r1, r2, slab):
     """(Σ, Σ) (B, C) of the whole volume: on a slab, each slab's summed
-    over the spatial group."""
+    over the spatial group (inside the graph where one is recorded)."""
     if slab is None:
         return r1, r2
     return tuple(spatial.all_reduce_sums((r1, r2), slab))
@@ -131,13 +141,8 @@ class _GroupNorm(torch.autograd.Function):
                 keep = _normalize(x, a0, b0) > 0
             dy = torch.where(keep, dy, 0)
         if torch.is_grad_enabled():     # create_graph: dx is differentiated
-            if ctx.slab is not None:
-                raise RuntimeError(
-                    "a differentiated GroupNorm backward on a D-slab (the "
-                    "second-order search under spatial sharding, ROADMAP.md "
-                    "queue 1, item 9c)")
             return (*_differentiable_backward(dy, x, scale, gsize, n,
-                                              ctx.eps),
+                                              ctx.eps, ctx.slab),
                     None, None, None, None, None, None)
         r1, r2 = stats.weighted_sums(dy, x)                  # K5b, (B, C)
         # c1, c2 from the whole volume's sums; dγ, dβ from this slab's,
@@ -173,23 +178,27 @@ def _dx_terms(r1, r2, scale, mean, inv, gsize: int, n: int):
             _by_channel(inv, gsize), _dgamma(r1, r2, mean, inv, gsize))
 
 
-def _grad_statistics(x, groups: int, n: int, eps: float):
+def _grad_statistics(x, groups: int, n: int, eps: float, slab=None):
     """Per-(batch, group) mean and inverse std of x as differentiable
-    functions of x: K5a's moments through its autograd Function."""
-    return _fold(*stats.moments(x), groups, n, eps)
+    functions of x: K5a's moments through its autograd Function, on a
+    slab summed over the spatial group inside the graph."""
+    return _fold(*_global_sums(*stats.moments(x), slab), groups, n, eps)
 
 
-def _differentiable_backward(dy, x, scale, gsize: int, n: int, eps: float):
+def _differentiable_backward(dy, x, scale, gsize: int, n: int, eps: float,
+                             slab=None):
     """(dx, dγ, dβ) of the GroupNorm from differentiable ops: the
     first-order formula with mean and inv rebuilt from x
     (`_grad_statistics`) and K5b through its Function, so that autograd
     also sees dx's dependence on x through the statistics.  dy is masked
-    already."""
-    mean, inv = _grad_statistics(x, x.shape[-1] // gsize, n, eps)
+    already.  On a slab the dx terms come from the group's sums, dγ and
+    dβ from the slab's."""
+    mean, inv = _grad_statistics(x, x.shape[-1] // gsize, n, eps, slab)
     r1, r2 = stats.weighted_sums(dy, x)                      # K5b, (B, C)
-    c1, c2, inv_c, dgamma = _dx_terms(r1, r2, scale, mean, inv, gsize, n)
+    c1, c2, inv_c, _ = _dx_terms(*_global_sums(r1, r2, slab), scale, mean,
+                                 inv, gsize, n)
     dx = dy * _bcast(inv_c * scale, x) + x * _bcast(c2, x) + _bcast(c1, x)
-    return dx.to(x.dtype), dgamma, r1.sum(0)
+    return dx.to(x.dtype), _dgamma(r1, r2, mean, inv, gsize), r1.sum(0)
 
 
 def group_norm_from_moments(x: torch.Tensor, s1: torch.Tensor,
@@ -230,9 +239,9 @@ def _vec_ok(c: int, *ts: torch.Tensor) -> int:
 
 def group_norm_apply_twin(x: torch.Tensor, s: torch.Tensor, t: torch.Tensor,
                           relu: bool) -> torch.Tensor:
-    """Plain K3 apply: `x·s + t` in fp32 per (batch, channel), optional
-    ReLU, rounded once to x's dtype."""
-    y = torch.addcmul(_bcast(t, x), x.float(), _bcast(s, x))
+    """Plain K3 apply: `x·s + t` in fp32 (float64 for float64 x) per
+    (batch, channel), optional ReLU, rounded once to x's dtype."""
+    y = torch.addcmul(_bcast(t, x), _acc(x), _bcast(s, x))
     return (y.relu_() if relu else y).to(x.dtype)
 
 
@@ -255,12 +264,12 @@ def group_norm_apply(x: torch.Tensor, s: torch.Tensor, t: torch.Tensor,
 def group_norm_dx_twin(g: torch.Tensor, x: torch.Tensor,
                        y: torch.Tensor | None, a: torch.Tensor,
                        bc: torch.Tensor, cc: torch.Tensor) -> torch.Tensor:
-    """Plain K3 dx: `a·g + b·x + c` in fp32 (g masked by y > 0 when y is
-    given), rounded once to x's dtype."""
-    gf = g.float()
+    """Plain K3 dx: `a·g + b·x + c` in fp32 (float64 for float64 inputs;
+    g masked by y > 0 when y is given), rounded once to x's dtype."""
+    gf = _acc(g)
     if y is not None:
         gf = torch.where(y > 0, gf, 0.0)
-    dx = _bcast(a, x) * gf + _bcast(bc, x) * x.float() + _bcast(cc, x)
+    dx = _bcast(a, x) * gf + _bcast(bc, x) * _acc(x) + _bcast(cc, x)
     return dx.to(x.dtype)
 
 
@@ -286,8 +295,67 @@ def group_norm_dx(g: torch.Tensor, x: torch.Tensor, y: torch.Tensor | None,
 
 def _k3_affine(mean, rstd, scale, bias, gsize):
     """(s, t) (B, C) fp32: s = γ·rstd, t = β − s·mean (`_gn_fwd`)."""
-    s = scale.float() * _by_channel(rstd, gsize)
-    return s, bias.float() - s * _by_channel(mean, gsize)
+    s = _acc(scale) * _by_channel(rstd, gsize)
+    return s, _acc(bias) - s * _by_channel(mean, gsize)
+
+
+def _k3_dx_terms(r1, r2, scale, mean, rstd, gsize: int, n: int):
+    """(A, B, C) (B, C) fp32 of K3's dx = A·g + B·x + C from the whole
+    volume's Σg, Σg·x (`_gn_bwd`): with ĝ = γ·g,
+    dx = rstd·(ĝ − S1/n − x̂·S2/n), S1 = Σ ĝ over the group,
+    S2 = Σ ĝ·x̂ = (Σ ĝ·x − mean·S1)·rstd."""
+    bsz = r1.shape[0]
+    mean_c, rstd_c = _by_channel(mean, gsize), _by_channel(rstd, gsize)
+    gamma = _acc(scale)
+    t1 = (gamma * r1).view(bsz, -1, gsize).sum(-1)
+    t2 = (gamma * r2).view(bsz, -1, gsize).sum(-1)
+    t2 = (t2 - mean * t1) * rstd
+    s1n, s2n = _by_channel(t1 / n, gsize), _by_channel(t2 / n, gsize)
+    a = gamma * rstd_c
+    bc = -rstd_c * rstd_c * s2n
+    cc = -rstd_c * s1n + rstd_c * rstd_c * mean_c * s2n
+    return a, bc, cc
+
+
+class _GroupNormDx(torch.autograd.Function):
+    """K3 dx where a graph is recorded: dx = A·(m⊙g) + B·x + C (m = y > 0
+    with the ReLU fused, else 1), the same launch, and the closed-form
+    backward for a cotangent u: dg = A·(m⊙u) and dx = B·u, each one K3 dx
+    launch with the other coefficients zero (through this Function again
+    where that backward is itself differentiated); dA = Σ m·u·g (masked
+    K5b), dB = Σ u·x and dC = Σ u (K5b)."""
+
+    @staticmethod
+    def forward(ctx, g, x, y, a, bc, cc):
+        ctx.save_for_backward(g, x, y, a, bc)
+        return group_norm_dx(g, x, y, a, bc, cc)
+
+    @staticmethod
+    def backward(ctx, u):
+        g, x, y, a, bc = ctx.saved_tensors
+        u = u.contiguous()
+        need = ctx.needs_input_grad
+        dg = dx = da = db = dc = None
+        zero = torch.zeros_like(a)
+        if need[0]:
+            dg = _k3_dx(u, u, y, a, zero, zero)
+        if need[1]:
+            dx = _k3_dx(u, u, None, zero, bc, zero)
+        if need[3]:
+            da = stats.weighted_sums(u, g, y)[1]
+        if need[4] or need[5]:
+            dc, db = stats.weighted_sums(u, x)
+        return dg, dx, None, da, db, dc
+
+
+def _k3_dx(g, x, y, a, bc, cc):
+    """K3 dx through `_GroupNormDx` where a graph is recorded (grad mode on
+    and an input needs a gradient), elsewhere the launch alone: the same
+    bits either way."""
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (g, x, a, bc, cc)):
+        return _GroupNormDx.apply(g, x, y, a, bc, cc)
+    return group_norm_dx(g, x, y, a, bc, cc)
 
 
 class _PallasGroupNorm(torch.autograd.Function):
@@ -299,35 +367,29 @@ class _PallasGroupNorm(torch.autograd.Function):
         y = group_norm_apply(x, *_k3_affine(mean, rstd, scale, bias, gsize),
                              relu)
         ctx.save_for_backward(x, scale, mean, rstd, y if relu else None)
-        ctx.gsize, ctx.n, ctx.slab = gsize, n, slab
+        ctx.gsize, ctx.n, ctx.eps, ctx.slab = gsize, n, eps, slab
         return y
 
     @staticmethod
     def backward(ctx, g):
         x, scale, mean, rstd, y = ctx.saved_tensors
-        gsize, n = ctx.gsize, ctx.n
-        bsz = x.shape[0]
+        gsize, n, slab = ctx.gsize, ctx.n, ctx.slab
         g = g.to(x.dtype).contiguous()
+        if torch.is_grad_enabled():     # create_graph: dx is differentiated
+            # the statistics rebuilt from x, both K5 and K3 dx through
+            # their Functions
+            mean, rstd = _grad_statistics(x, x.shape[-1] // gsize, n,
+                                          ctx.eps, slab)
         r1, r2 = stats.weighted_sums(g, x, y)        # Σg, Σg·x (B, C)
         mean_c, rstd_c = _by_channel(mean, gsize), _by_channel(rstd, gsize)
         # dγ, dβ from this slab's sums (the step sums them over the
         # group), the dx terms from the whole volume's
         dgamma = ((r2 - mean_c * r1) * rstd_c).sum(0)
         dbeta = r1.sum(0)
-        r1, r2 = _global_sums(r1, r2, ctx.slab)
-        # ĝ = γ·g:  dx = rstd·(ĝ − S1/n − x̂·S2/n), S1 = Σ ĝ over the group,
-        # S2 = Σ ĝ·x̂ = (Σ ĝ·x − mean·S1)·rstd  (`_gn_bwd`)
-        gamma = scale.float()
-        t1 = (gamma * r1).view(bsz, -1, gsize).sum(-1)
-        t2 = (gamma * r2).view(bsz, -1, gsize).sum(-1)
-        t2 = (t2 - mean * t1) * rstd
-        s1n, s2n = _by_channel(t1 / n, gsize), _by_channel(t2 / n, gsize)
-        a = gamma * rstd_c
-        bc = -rstd_c * rstd_c * s2n
-        cc = -rstd_c * s1n + rstd_c * rstd_c * mean_c * s2n
-        dx = group_norm_dx(g, x, y, a, bc, cc)
-        return (dx, dgamma.to(scale.dtype), dbeta.to(scale.dtype), None,
-                None, None, None, None, None)
+        terms = _k3_dx_terms(*_global_sums(r1, r2, slab), scale, mean, rstd,
+                             gsize, n)
+        return (_k3_dx(g, x, y, *terms), dgamma.to(scale.dtype),
+                dbeta.to(scale.dtype), None, None, None, None, None, None)
 
 
 def pallas_group_norm(x: torch.Tensor, scale: torch.Tensor,

@@ -17,7 +17,10 @@ gradient is its part of the spatial group's sum, so the gradients are
 summed over the spatial group and then averaged over the data axis.  That
 is one all-reduce over every rank, divided by the data axis's size
 (`Mesh.all_reduce_mean_`), which gives every rank the same bits; so only
-the spatial groups get process groups of their own.
+the spatial groups get process groups of their own.  The second-order
+search step reduces its inner gradient inside the recorded graph instead,
+as the spatial sum (`Mesh.spatial_sum`) and then the mean over the ranks
+(`Mesh.all_reduce_mean`), both differentiable.
 
     python -m torch.distributed.run --nproc_per_node N \\
         -m nas_3d_unet_tpu_torch train -c config.json \\
@@ -46,7 +49,7 @@ from typing import Any, List, Optional, Sequence
 import torch
 import torch.distributed as dist
 
-from .spatial import Slab
+from .spatial import Slab, all_reduce_sums, summed
 
 
 def is_initialized() -> bool:
@@ -203,21 +206,33 @@ class Mesh:
             self._scatter(tensors, flat)
         return tensors
 
+    def spatial_sum(self, tensors: Sequence[torch.Tensor]
+                    ) -> List[torch.Tensor]:
+        """Each tensor summed over this rank's spatial group, in one
+        all-reduce; where a graph is recorded, differentiable: the adjoint
+        is the same sum of the cotangents (`spatial.all_reduce_sums`).
+        For a slab's part of a gradient, inside the second-order step's
+        graph.  All tensors share one dtype.  Without spatial sharding:
+        the tensors themselves."""
+        tensors = list(tensors)
+        if self.spatial == 1:
+            return tensors
+        return all_reduce_sums(tensors, self.slab)
+
     def all_reduce_mean(self, tensors: Sequence[torch.Tensor]
                         ) -> List[torch.Tensor]:
-        """The mean over the ranks, differentiable: the backward sums the
-        incoming gradients over the ranks (`torch.distributed.nn`), so a
-        rank's gradient through the mean holds every rank's terms.  All
-        tensors share one dtype.  World 1: the tensors themselves.  Data
-        parallelism alone (the second-order search step, which spatial
-        sharding does not run)."""
+        """The mean over every rank, differentiable: the adjoint averages
+        the cotangents over the ranks in the same way, so a rank's
+        gradient through the mean holds every rank's terms.  Of tensors
+        that are equal on the ranks of each spatial group (a gradient
+        after `spatial_sum`) it is the mean over the data axis, and its
+        adjoint that mean's.  All tensors share one dtype.  World 1: the
+        tensors themselves."""
         tensors = list(tensors)
         if self.world == 1:
             return tensors
-        from torch.distributed.nn.functional import all_reduce
-
-        flat = torch.cat([t.reshape(-1) for t in tensors])
-        flat = all_reduce(flat, group=dist.group.WORLD) / self.world
+        flat = summed(torch.cat([t.reshape(-1) for t in tensors]), None)
+        flat = flat / self.world
         return [c.view_as(t) for c, t in
                 zip(flat.split([t.numel() for t in tensors]), tensors)]
 

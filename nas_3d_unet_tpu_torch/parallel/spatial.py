@@ -20,16 +20,37 @@ the ops that reach across D ask for what they need here.
                   of the next after it; at the global ends `fill` (zero,
                   −inf) or, with `fill=None`, nothing.  Its backward is the
                   adjoint: the halo planes' gradients go back to the rank
-                  they came from and are added into its boundary planes.
-  `all_reduce_sums`  (B, C) sums of every slab, summed over the group (no
-                  graph): the GroupNorm moments and the backward's Σdy,
-                  Σdy·x.
-  `spatial_sum`   the same sum inside a graph whose backward is the
-                  identity: every rank then holds the same replicated value
-                  (a loss), and each rank's gradient is its own slab's
-                  terms, which the step sums over the group.  The adjoint of
-                  `torch.distributed.nn`'s all-reduce would sum the
-                  cotangents and scale every gradient by the group's size.
+                  they came from and are added into its boundary planes,
+                  a Function (`_HaloAdjoint`) whose own backward is the
+                  exchange again, so a gradient of a gradient passes it.
+  `all_reduce_sums`  (B, C) sums of every slab, summed over the group:
+                  the GroupNorm moments and the backward's Σdy, Σdy·x.
+                  Where a graph is recorded (a GroupNorm backward that is
+                  itself differentiated) it is the differentiable sum.
+  `summed`        the differentiable sum over a process group, whose
+                  adjoint is the same sum of the cotangents (and so on, to
+                  any order).
+  `spatial_sum`   the cross-slab sum of the loss's sums (Dice, CE).  Its
+                  adjoint is one of two conventions, which the slab names
+                  (`Slab.exact`):
+                  - first order (the default): the identity.  Every rank
+                    holds the same replicated loss and seeds it with 1,
+                    every rank's cotangent of the sum is then the same, and
+                    each rank's gradient is its own slab's terms, which the
+                    step sums over the group.  No collective runs in the
+                    backward; the train, warmup and first-order search
+                    steps use it.
+                  - exact (the second-order search step): the true adjoint,
+                    the sum of the cotangents over the group, and each rank
+                    seeds its replicated loss with 1/size, so that the
+                    ranks' copies add up to one loss.  Then every
+                    collective on the path has its true adjoint, a rank's
+                    gradient is again its slab's part of the group's sum,
+                    and that holds for a gradient of a gradient too: in
+                    the second-order graph the cotangents that reach the
+                    loss's sums from each rank's inner gradient differ
+                    from rank to rank, and the identity would drop the
+                    cross-slab terms of the Hessian-vector product.
 
 Every exchange is one all-reduce over the spatial group of a byte buffer
 in which each rank fills its own slot and the others are zero: the bytes
@@ -64,6 +85,7 @@ class Slab:
     index: int
     size: int
     group: Any = None
+    exact: bool = False     # the loss sums' adjoint: the sum, not identity
 
     @property
     def first(self) -> bool:
@@ -176,12 +198,25 @@ class _Halo(torch.autograd.Function):
 
         head = from_prev if from_prev is not None else end(lo)
         tail = from_next if from_next is not None else end(hi)
-        ctx.geom = (slab, lo, hi, d, 0 if head is None else lo)
+        ctx.geom = (slab, lo, hi, d, 0 if head is None else lo, fill)
         return torch.cat([t for t in (head, x, tail) if t is not None], 1)
 
     @staticmethod
     def backward(ctx, g):
-        slab, lo, hi, d, lo_n = ctx.geom
+        return (_HaloAdjoint.apply(g.contiguous(), *ctx.geom), None, None,
+                None, None)
+
+
+class _HaloAdjoint(torch.autograd.Function):
+    """The halo exchange's adjoint as a Function: the halo planes' cotangents
+    go back to the rank they came from and are added into its boundary
+    planes.  Its own adjoint is the forward exchange, with zeros where the
+    forward filled a global end: so the exchange is differentiable to any
+    order."""
+
+    @staticmethod
+    def forward(ctx, g, slab, lo, hi, d, lo_n, fill):
+        ctx.geom = (slab, lo, hi, fill)
         g_lo, g_hi = g[:, :lo_n], g[:, lo_n + d:]
         # a global end's halo (the fill) sends zeros that nobody reads
         if g_lo.shape[1] != lo:
@@ -194,7 +229,14 @@ class _Halo(torch.autograd.Function):
             dx[:, :hi] += from_prev
         if from_next is not None:       # the next rank's lo halo
             dx[:, d - lo:] += from_next
-        return dx, None, None, None, None
+        return dx
+
+    @staticmethod
+    def backward(ctx, u):
+        slab, lo, hi, fill = ctx.geom
+        return (_Halo.apply(u.contiguous(), slab, lo, hi,
+                            None if fill is None else 0.0),
+                None, None, None, None, None, None)
 
 
 def halo_d(x: torch.Tensor, lo: int, hi: int, fill: Optional[float],
@@ -209,12 +251,39 @@ def halo_d(x: torch.Tensor, lo: int, hi: int, fill: Optional[float],
     return _Halo.apply(x.contiguous(), slab, lo, hi, fill)
 
 
+class _Sum(torch.autograd.Function):
+    """The sum over a process group; its adjoint is the same sum."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        out = t.clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return _Sum.apply(g.contiguous(), ctx.group), None
+
+
+def summed(t: torch.Tensor, group: Any) -> torch.Tensor:
+    """t summed over the ranks of `group` (None: every rank),
+    differentiable to any order: the adjoint sums the cotangents over the
+    same ranks."""
+    return _Sum.apply(t, group)
+
+
 def all_reduce_sums(tensors: Sequence[torch.Tensor],
                     slab: Slab) -> List[torch.Tensor]:
     """Each tensor (all of one dtype) summed over `slab`'s spatial group,
-    as new tensors, in one all-reduce; no graph is recorded."""
-    with torch.no_grad():
-        flat = torch.cat([t.reshape(-1) for t in tensors])
+    as new tensors, in one all-reduce.  Where a graph is recorded (grad
+    mode on and a tensor needs a gradient) through `summed`; elsewhere no
+    graph is recorded."""
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    if torch.is_grad_enabled() and flat.requires_grad:
+        flat = summed(flat, slab.group)
+    else:
+        flat = flat.detach()
         dist.all_reduce(flat, group=slab.group)
     return [c.view_as(t) for c, t in
             zip(flat.split([t.numel() for t in tensors]), tensors)]
@@ -234,5 +303,8 @@ class _SpatialSum(torch.autograd.Function):
 
 def spatial_sum(t: torch.Tensor, slab: Slab) -> torch.Tensor:
     """t summed over `slab`'s spatial group; the backward passes the
-    cotangent through unchanged (see the module docstring)."""
+    cotangent through unchanged, or, on an `exact` slab, sums it over the
+    group (see the module docstring)."""
+    if slab.exact:
+        return summed(t, slab.group)
     return _SpatialSum.apply(t, slab)

@@ -26,10 +26,11 @@ follow).
 through the virtual weights, every supernet parameter moved by ξ times its
 train gradient with no optimizer in between, then the w-step runs as
 above.  The inner gradient is taken with `create_graph`, so the α
-gradient differentiates the backwards of the default path's Functions (K1
-and K1-dx, K2, the GroupNorm with its K5 sums): each is twice
-differentiable.  The `use_pallas` Functions (K6, K7, K4, K3) are not, and
-the step refuses a net that holds them (`ROADMAP.md` queue 1, item 14).
+gradient differentiates the backwards of every kernel's Function on the
+path: the default path's (K1 and K1-dx, K2, the GroupNorm with its K5
+sums) and the `use_pallas` path's (K6, K7 and K4, whose backwards are
+cuDNN's and matmuls, and K3, whose dx runs through `_GroupNormDx`), each
+twice differentiable.
 `search.partial_channels` > 1 (PC-DARTS) builds the `Searcher`'s supernet
 with that `pc_k` (`models/cell.py`).
 
@@ -37,21 +38,23 @@ The model runs eagerly; there is no jit or donation.  Data parallelism
 (`parallel/mesh.py`, the reference's `bilevel.py:254-300`): with a `Mesh`
 each data index runs its own rows of the global train and val batches,
 and both steps average their gradients (and losses) over the data axis
-before AdamW.  In the second-order step the inner gradient is averaged
-inside the graph (`Mesh.all_reduce_mean`), so the virtual step is the
-global batch's and each rank's α gradient holds every rank's
-Hessian-vector terms; the α gradients are then averaged as the
-first-order ones are.  Spatial sharding (`parallel/spatial.py`) runs the
-first-order and warmup steps as the train step does (`cut_slab`, the
-sharded-D context, w's and α's gradients summed over the spatial group);
-the second-order step refuses it (`ROADMAP.md` queue 1, item 9c): its
-inner gradient and the differentiated GroupNorm backward would need the
-spatial sums inside the recorded graph.
+before AdamW.  Spatial sharding (`parallel/spatial.py`) runs every step
+as the train step does (`cut_slab`, the sharded-D context, w's and α's
+gradients summed over the spatial group).  In the second-order step the
+inner gradient is reduced inside the graph: summed over the spatial group
+and averaged over the data axis (`Mesh.spatial_sum`, `Mesh.all_reduce_mean`,
+both differentiable), so the virtual step is the global batch's and each
+rank's α gradient holds every rank's Hessian-vector terms; the α gradients
+are then reduced as the first-order ones are.  On slabs that step runs
+under the exact convention of `parallel/spatial.py` (`Slab.exact`): the
+loss's cross-slab sums have the sum as their adjoint, and each rank seeds
+its replicated losses with 1/size.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import time
@@ -185,6 +188,21 @@ def make_search_step(net: nn.Module, w_opt: AdamW, a_opt: AdamW,
     return step
 
 
+def _exact(slab: Optional[spatial.Slab]) -> Optional[spatial.Slab]:
+    """`slab` under the exact adjoint convention (`parallel/spatial.py`),
+    which the second-order graph needs."""
+    return None if slab is None else dataclasses.replace(slab, exact=True)
+
+
+def _seed(loss: torch.Tensor,
+          slab: Optional[spatial.Slab]) -> torch.Tensor:
+    """The cotangent a rank seeds its replicated `loss` with under
+    `slab`'s convention: 1/size where the loss sums' adjoint is the sum,
+    else 1."""
+    exact = slab is not None and slab.exact
+    return torch.full_like(loss, 1.0 / slab.size if exact else 1.0)
+
+
 def unrolled_alpha_grads(net: nn.Module, alphas: Mapping[str, torch.Tensor],
                          a_params: Sequence[torch.Tensor], xi: float,
                          x_tr, y_tr, x_val, y_val, loss_fn: Callable,
@@ -195,19 +213,28 @@ def unrolled_alpha_grads(net: nn.Module, alphas: Mapping[str, torch.Tensor],
     `val_after_virtual_step` (`bilevel.py:128-132`) and its gradient.
     The virtual weights cover every parameter of `net`, which runs on them
     through `functional_call`; the inner gradient keeps its graph, so the
-    α gradient holds the Hessian-vector term.  `mesh`: the inner gradient
-    is the mean over the ranks, taken inside the graph; the loss and the α
-    gradients returned are this rank's (the step averages them)."""
+    α gradient holds the Hessian-vector term.  `mesh`: the batches are
+    this rank's (its data index's rows; under spatial sharding its slab of
+    them, run in the sharded-D context with exact adjoints), the inner
+    gradient is summed over the spatial group and averaged over the data
+    axis inside the graph; the loss and the α gradients returned are this
+    rank's (the step reduces them)."""
+    slab = _exact(None if mesh is None else mesh.slab)
     names, params = zip(*net.named_parameters())
     aw = arch_weights_from_alphas(alphas)
-    g_w = torch.autograd.grad(loss_fn(net(x_tr, aw), y_tr), params,
-                              create_graph=True)
+    with spatial.sharded_d(slab):
+        loss = loss_fn(net(x_tr, aw), y_tr)
+        g_w = torch.autograd.grad(loss, params, _seed(loss, slab),
+                                  create_graph=True)
     if mesh is not None:
-        g_w = mesh.all_reduce_mean(g_w)
+        g_w = mesh.all_reduce_mean(mesh.spatial_sum(g_w))
     w_virt = {n: p - xi * g for n, p, g in zip(names, params, g_w)}
-    val_loss = loss_fn(functional_call(net, w_virt, (x_val, aw)), y_val)
-    a_grads = torch.autograd.grad(val_loss, a_params, allow_unused=True,
-                                  materialize_grads=True)
+    with spatial.sharded_d(slab):
+        val_loss = loss_fn(functional_call(net, w_virt, (x_val, aw)), y_val)
+        a_grads = torch.autograd.grad(val_loss, a_params,
+                                      _seed(val_loss, slab),
+                                      allow_unused=True,
+                                      materialize_grads=True)
     return val_loss.detach(), list(a_grads)
 
 
@@ -221,28 +248,18 @@ def make_search_step_unrolled(net: nn.Module, w_opt: AdamW, a_opt: AdamW,
     """The second-order DARTS step (`search.unrolled`): as
     `make_search_step`, but the α-step's gradient is that of the val loss
     after a virtual w-step of size `xi` (`unrolled_alpha_grads`); the
-    w-step then runs under the updated α.  Refuses a `use_pallas` net,
-    whose kernels' Functions are not twice differentiable, and a mesh
-    with spatial sharding."""
-    if mesh is not None and mesh.spatial > 1:
-        raise ValueError(
-            "search.unrolled with parallel.spatial_parallel="
-            f"{mesh.spatial} (the second-order step on D-slabs) is not "
-            "supported by the PyTorch port (ROADMAP.md queue 1, item 9c)")
-    if any(getattr(m, "use_pallas", False) or getattr(m, "k6", False)
-           for m in net.modules()):
-        raise ValueError(
-            "search.unrolled with model.use_pallas (the second-order step "
-            "through the use_pallas kernels) is not supported by the "
-            "PyTorch port (ROADMAP.md queue 1, item 14)")
+    w-step then runs under the updated α."""
     loss_fn = get_loss_fn(label_mode)
     aug = augmenter(augment, gen, mesh)
     bound = ArchBound(net)
+    slab = None if mesh is None else mesh.slab
 
     def step(x_tr, y_tr, x_val, y_val) -> Dict[str, torch.Tensor]:
         x_tr, y_tr = aug(x_tr, y_tr)
         if augment_val:
             x_val, y_val = aug(x_val, y_val)
+        x_tr, y_tr, x_val, y_val = cut_slab(slab, net, x_tr, y_tr, x_val,
+                                            y_val)
         # (1) architecture step on the unrolled objective
         val_loss, a_grads = unrolled_alpha_grads(
             net, alphas, a_opt.params, xi, x_tr, y_tr, x_val, y_val, loss_fn,

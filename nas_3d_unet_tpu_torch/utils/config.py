@@ -7,9 +7,8 @@ dataclasses with the same fields, defaults and checks, `config_from_dict`,
 the JAX package accepts is accepted here, so one configuration loads in both.
 
 Values that ask for something the port does not do are refused when the
-dataclass is built, with the `ROADMAP.md` item that would bring it:
-`train.steps_per_call` > 1, and `search.unrolled` with
-`parallel.spatial_parallel` > 1 (item 9c).  Spatial sharding also needs a
+dataclass is built, with the reason: `train.steps_per_call` > 1, which
+is not ported by decision.  Spatial sharding needs a
 `data.patch_size` D that slabs split evenly (`parallel/spatial.py`
 `check_slab`: a multiple of spatial_parallel · 2^depth, at least 2 planes
 in the deepest slab).  `parallel.data_parallel` loads whatever it is, as in
@@ -17,8 +16,6 @@ the JAX package, and `make_mesh` (`parallel/mesh.py`) refuses a layout
 whose data × spatial is not the world size of the process group (1
 without one).  `model.packed` is read and has no
 effect: it selects a TPU layout that the port runs as logical NDHWC.
-`search.unrolled` with `model.use_pallas` loads here and is refused by the
-`Searcher` (`search/bilevel.py`).
 """
 
 from __future__ import annotations
@@ -181,10 +178,6 @@ class Config:
     def __post_init__(self):
         sp = self.parallel.spatial_parallel
         if sp > 1:
-            _refuse(self.search.unrolled,
-                    f"search.unrolled with parallel.spatial_parallel={sp}",
-                    "ROADMAP.md queue 1, item 9c, the second-order search "
-                    "under spatial sharding")
             check_slab(self.data.patch_size[0], sp, self.model.depth,
                        "data.patch_size D")
 

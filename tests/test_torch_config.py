@@ -71,9 +71,6 @@ REFUSED = [({"train.steps_per_call": 2}, "not ported by decision"),
             r"patch_size D 24 .* multiple of 2·2\^3 = 16"),
            ({"parallel.spatial_parallel": 8, "data.patch_size": (64,) * 3},
             r"at least 2 planes in the deepest slab"),
-           # the second-order search under spatial sharding
-           ({"parallel.spatial_parallel": 2, "search.unrolled": True},
-            "item 9c"),
            # a layout whose data × spatial is not the world (1 here)
            ({"parallel.spatial_parallel": 4}, "must divide the world size 1"),
            ({"parallel.spatial_parallel": 2, "parallel.data_parallel": 1},
@@ -99,14 +96,21 @@ PORTED = [{"model.remat": True}, {"model.remat_edges": True},
           {"model.remat": True, "model.remat_edges": False},
           {"parallel.data_parallel": 1}, {"parallel.data_parallel": -1},
           {"parallel.spatial_parallel": 2}, {"parallel.spatial_parallel": 4},
-          {"parallel.spatial_parallel": 2, "data.patch_size": (32,) * 3}]
+          {"parallel.spatial_parallel": 2, "data.patch_size": (32,) * 3},
+          # the second-order search under spatial sharding, on the
+          # use_pallas supernet, and both
+          {"parallel.spatial_parallel": 2, "search.unrolled": True},
+          {"search.unrolled": True, "model.use_pallas": True},
+          {"parallel.spatial_parallel": 2, "search.unrolled": True,
+           "model.use_pallas": True}]
 
 
 @pytest.mark.parametrize("ov", PORTED, ids=[str(o) for o in PORTED])
 def test_ported_layout_settings_load(ov):
     """Activation checkpointing, the data axis over every rank (one rank
-    here, without a process group) and spatial sharding with a patch that
-    its slabs split evenly load in both packages alike."""
+    here, without a process group), spatial sharding with a patch that
+    its slabs split evenly, and the second-order search with it and on the
+    `use_pallas` supernet load in both packages alike."""
     port = tcfg.load_config(None, ov).to_dict()
     assert _norm(port) == _norm(jcfg.load_config(None, ov).to_dict())
 

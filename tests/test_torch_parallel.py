@@ -403,8 +403,10 @@ SPATIAL_REFUSED = [
     # a patch D that slabs do not split evenly at the model's depth
     (["parallel.spatial_parallel=2", "data.patch_size=(24,24,24)"],
      "multiple of 2·2\\^3"),
-    # the second-order search under spatial sharding
-    (["parallel.spatial_parallel=2", "search.unrolled=True"], "item 9c")]
+    # the second-order search under spatial sharding loads: at one rank
+    # only the layout is refused (tests/test_torch_spatial.py runs it)
+    (["parallel.spatial_parallel=2", "search.unrolled=True"],
+     "must divide the world size 1")]
 
 
 @pytest.mark.parametrize("ov,match", SPATIAL_REFUSED,

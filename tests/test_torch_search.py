@@ -294,7 +294,13 @@ def test_ported_search_settings_run_in_the_searcher(stores, tmp_path, ov):
 def test_unported_search_settings_are_refused_by_the_searcher(stores,
                                                              tmp_path, ov,
                                                              item):
+    """The second-order step on the `use_pallas` supernet, which the
+    Searcher refused until `item`, loads and searches a warmup and a
+    bilevel epoch to a genotype."""
     _, npzs = stores
     load_config(None, ov)
-    with pytest.raises(ValueError, match=item):
-        _searcher(npzs, tmp_path, **ov)
+    s = _searcher(npzs, tmp_path, **ov)
+    assert any(getattr(m, "k6", False) for m in s.net.modules())
+    state, geno = s.search(epochs=2, steps_per_epoch=2)
+    assert int(state["step"]) == 4
+    geno.validate()

@@ -15,20 +15,32 @@ twice-differentiable backwards it runs through, on the CPU.
     point is checked smooth first (a 1e-6 relative change of x moves the port's α
     gradients by less than 1e-4), as test_torch_supernet.py does.  The
     kernels' wrappers (`pgemm._k1`, `_k2`, `stats._moments`,
-    `_weighted_sums`) run on detached inputs there and in the checks
+    `_weighted_sums`, `conv3d._k6`, `_k7`, `_k4`,
+    `groupnorm.group_norm_apply`, `group_norm_dx`) run on detached inputs
+    there and in the checks
     below, so autograd sees them no more than it sees a launch on the
     card: only the Functions' backwards carry the second derivative.
   * The control: with GroupNorm's mean and inv held constant in its
     differentiable backward (the second-order path through them cut), the
     same comparison fails.
-  * Second derivatives op by op: `torch.autograd.gradgradcheck` in float64
-    of K1 (`_ConvStats`, dilation 1 and 2), K1-dx (`_Conv3x3x3`), K2
-    (`_GemmStats`), the GroupNorm (from K1's moments and from K5a's, with
-    and without its ReLU) and the K5 Functions (K5a, K5b, masked K5b);
+  * The `use_pallas` supernet (K6, K7 and K4 on the edge ops, K3 for every
+    GroupNorm) from the same weights against the same JAX gradient: the
+    JAX `use_pallas` step runs only in interpret mode on the CPU, where
+    reverse-over-reverse through it fails, and the plain step is the same
+    function.  With K3's statistics held constant in its differentiated
+    backward it fails.
+  * Derivatives op by op: `torch.autograd.gradcheck` and `gradgradcheck`
+    in float64 of K1 (`_ConvStats`, dilation 1 and 2), K1-dx
+    (`_Conv3x3x3`), K2 (`_GemmStats`), the GroupNorm (from K1's moments and
+    from K5a's, with and without its ReLU), the K5 Functions (K5a, K5b,
+    masked K5b), K6 (`_Conv3d`, stride 1 and 2), K7 (`_Pointwise`), K4
+    (`_Transpose2x`), K3 (`_PallasGroupNorm`, as the GroupNorm) and K3
+    dx's Function (`_GroupNormDx`, masked and not);
     the pools and the trilinear upsample against JAX's reverse-over-
     reverse (a Hessian-vector product) in fp32.
-  * The first-order step enters none of the second-order code, and the
-    first-order GroupNorm backward keeps its formula's bits.
+  * The first-order step enters none of the second-order code, on either
+    supernet, and the first-order GroupNorm and K3 backwards keep their
+    formulas' bits.
   * `search.unrolled` with `search.partial_channels: 2`: a `Searcher`
     search and its resume, trajectory-exact, and the `search` command,
     each emitting a valid genotype; `search.xi` 0 means ξ = `search.w_lr`.
@@ -53,7 +65,7 @@ from nas_3d_unet_tpu_torch.metrics.losses import get_loss_fn
 from nas_3d_unet_tpu_torch.models.genotype import Genotype
 from nas_3d_unet_tpu_torch.models.unet import (SuperNet,
                                                arch_weights_from_alphas)
-from nas_3d_unet_tpu_torch.ops import groupnorm, pgemm, pool, stats
+from nas_3d_unet_tpu_torch.ops import conv3d, groupnorm, pgemm, pool, stats
 from nas_3d_unet_tpu_torch.search import bilevel
 from nas_3d_unet_tpu_torch.train.optim import make_optimizer
 from tests.test_torch_search import _searcher, stores  # noqa: F401
@@ -87,7 +99,10 @@ def opaque_kernels():
 
     with pytest.MonkeyPatch.context() as mp:
         for mod, name in ((pgemm, "_k1"), (pgemm, "_k2"),
-                          (stats, "_moments"), (stats, "_weighted_sums")):
+                          (stats, "_moments"), (stats, "_weighted_sums"),
+                          (conv3d, "_k6"), (conv3d, "_k7"), (conv3d, "_k4"),
+                          (groupnorm, "group_norm_apply"),
+                          (groupnorm, "group_norm_dx")):
             mp.setattr(mod, name, opaque(getattr(mod, name)))
         yield
 
@@ -168,11 +183,46 @@ def test_the_parity_fails_with_groupnorm_statistics_held_constant(
     assert _mismatches(grads, jg)
 
 
+def _pallas(net):
+    """`net`'s `use_pallas` twin with its weights: the same parameters."""
+    pnet = net.clone(use_pallas=True)
+    assert pnet.state_dict().keys() == net.state_dict().keys()
+    pnet.load_state_dict(net.state_dict())
+    return pnet
+
+
+def test_pallas_unrolled_alpha_gradient_matches_jax(unrolled_pair):
+    """The `use_pallas` supernet's second-order α gradient and val loss
+    against the JAX plain step's from the same weights: K6, K7 and K4
+    carry the second derivative through cuDNN's and the matmuls' double
+    backward, K3 through `_GroupNormDx` and the K5 Functions."""
+    net, al, batches, jl, jg = unrolled_pair
+    pnet = _pallas(net)
+    assert any(getattr(m, "k6", False) for m in pnet.modules())
+    loss, grads = _port_unrolled(pnet, al, batches)
+    assert abs(loss - jl) <= ATOL + RTOL * abs(jl)
+    for k, g in grads.items():
+        np.testing.assert_allclose(g, jg[k], rtol=RTOL, atol=ATOL,
+                                   err_msg=k)
+
+
+def test_the_pallas_parity_fails_with_k3_statistics_held_constant(
+        unrolled_pair, monkeypatch):
+    net, al, batches, _, jg = unrolled_pair
+    cut = groupnorm._grad_statistics
+    monkeypatch.setattr(groupnorm, "_grad_statistics",
+                        lambda *a: tuple(t.detach() for t in cut(*a)))
+    _, grads = _port_unrolled(_pallas(net), al, batches)
+    assert _mismatches(grads, jg)
+
+
 def _gradgradcheck(fn, inputs):
-    """`gradgradcheck` under `opaque_kernels`, after checking that every
-    first derivative is itself part of a graph: gradgradcheck passes over
-    a derivative autograd cannot see.  One thread: thousands of tiny ops,
-    which threads only slow down beside the other test workers."""
+    """`gradcheck` and `gradgradcheck` under `opaque_kernels`, after
+    checking that every first derivative is itself part of a graph:
+    gradgradcheck passes over a derivative autograd cannot see, and holds
+    the backward's derivative, not the backward (gradcheck does).  One
+    thread: thousands of tiny ops, which threads only slow down beside the
+    other test workers."""
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
@@ -183,7 +233,8 @@ def _gradgradcheck(fn, inputs):
                 outs, inputs, [torch.ones_like(o, requires_grad=True)
                                for o in outs], create_graph=True)
             assert all(g.requires_grad for g in grads)
-            return torch.autograd.gradgradcheck(fn, inputs)
+            return (torch.autograd.gradcheck(fn, inputs)
+                    and torch.autograd.gradgradcheck(fn, inputs))
     finally:
         torch.set_num_threads(threads)
 
@@ -236,6 +287,58 @@ def test_k5_functions_are_twice_differentiable(masked):
         x.shape)) if masked else None
     assert _gradgradcheck(stats.moments, (x,))
     assert _gradgradcheck(lambda a, b: stats.weighted_sums(a, b, y), (g, x))
+
+
+@pytest.mark.parametrize("relu", [False, True], ids=["affine", "relu"])
+@pytest.mark.parametrize("producer", ["k1", "k5a"])
+def test_pallas_groupnorm_is_twice_differentiable(producer, relu):
+    """K3 (`_PallasGroupNorm`) on K1's moments and on K5a's."""
+    x = _f64(2, 2, 3, 2, 2, seed=7)
+    w = _f64(3, 3, 3, 2, 4, seed=8).detach()
+    scale = torch.from_numpy(1 + 0.3 * np.random.default_rng(9)
+                             .standard_normal(4)).requires_grad_()
+    bias = _f64(4, seed=10)
+
+    def k1_gn(a, g, s):
+        y, s1, s2 = pgemm.conv3x3x3_stats(a, w)
+        return groupnorm.pallas_group_norm(y, g, s, 2, relu, moments=(s1, s2))
+
+    def k5a_gn(a, g, s):
+        return groupnorm.pallas_group_norm(pgemm.conv3x3x3(a, w), g, s, 2,
+                                           relu)
+
+    fn = k1_gn if producer == "k1" else k5a_gn
+    assert _gradgradcheck(fn, (x, scale, bias))
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_k3_dx_function_is_twice_differentiable(masked):
+    """`_GroupNormDx`: dx = A·(m⊙g) + B·x + C and its closed-form
+    backward, in g, x and the (B, C) coefficients."""
+    g, x = _f64(2, 3, 2, 4, 3, seed=40), _f64(2, 3, 2, 4, 3, seed=41)
+    y = torch.from_numpy(np.random.default_rng(42).standard_normal(
+        x.shape)) if masked else None
+    a, b, c = (_f64(2, 3, seed=s) for s in (43, 44, 45))
+    assert _gradgradcheck(
+        lambda *t: groupnorm._GroupNormDx.apply(t[0], t[1], y, *t[2:]),
+        (g, x, a, b, c))
+
+
+CONVS = {"k6_s1": lambda x, w: conv3d.conv3d(x, w, None, 1),
+         "k6_s2": lambda x, w: conv3d.conv3d(x, w, None, 2),
+         "k7": lambda x, w: conv3d.pointwise_conv(x, w),
+         "k4": lambda x, w: conv3d.conv_transpose2x(x, w)}
+CONV_W = {"k6_s1": (3, 3, 3, 2, 3), "k6_s2": (3, 3, 3, 2, 3), "k7": (2, 3),
+          "k4": (2, 2, 2, 2, 3)}
+
+
+@pytest.mark.parametrize("name", sorted(CONVS))
+def test_pallas_convs_are_twice_differentiable(name):
+    """K6 (`_Conv3d`, stride 1 and 2), K7 (`_Pointwise`) and K4
+    (`_Transpose2x`): backwards of cuDNN's and matmuls on the saved x and
+    w, which autograd differentiates."""
+    x, w = _f64(1, 3, 2, 3, 2, seed=50), _f64(*CONV_W[name], seed=51)
+    assert _gradgradcheck(CONVS[name], (x, w))
 
 
 POOLS = {"max_pool3": (lambda x: pool.max_pool3(x, 1), "max_pool3"),
@@ -295,6 +398,56 @@ def test_first_order_step_runs_no_second_order_code(monkeypatch):
         make_optimizer(al.values(), 3e-4, 1e-3), al)
     m = step(*map(torch.from_numpy, (*_batch(5), *_batch(6))))
     assert np.isfinite(m["train_loss"].item() + m["val_loss"].item())
+
+
+def test_first_order_pallas_step_runs_no_second_order_code(monkeypatch):
+    """As the test above, on the `use_pallas` supernet: no K3 dx Function
+    and no K5 Function runs."""
+    def refuse(*_a, **_k):
+        raise AssertionError("second-order code on the first-order path")
+
+    for mod, name in ((groupnorm._GroupNormDx, "forward"),
+                      (stats._Moments, "forward"),
+                      (stats._WeightedSums, "forward")):
+        monkeypatch.setattr(mod, name, refuse)
+    net = SuperNet(use_pallas=True, **KW)
+    _params(net, 1)
+    al = {k: torch.from_numpy(v).requires_grad_()
+          for k, v in sorted(_alphas(2, 2).items())}
+    step = bilevel.make_search_step(
+        net, make_optimizer(net.parameters(), 3e-4, 1e-4),
+        make_optimizer(al.values(), 3e-4, 1e-3), al)
+    m = step(*map(torch.from_numpy, (*_batch(5), *_batch(6))))
+    assert np.isfinite(m["train_loss"].item() + m["val_loss"].item())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_first_order_pallas_groupnorm_backward_keeps_its_bits(dtype):
+    """K3's first-order backward against its formula (`_gn_bwd`), written
+    out: the masked K5b's sums, the (B, C) algebra and one K3 dx pass."""
+    x = torch.from_numpy(_x((2, 3, 4, 5, 8), 30)).to(dtype).requires_grad_()
+    scale = torch.from_numpy(1 + 0.3 * _x((8,), 31)).requires_grad_()
+    bias = torch.from_numpy(_x((8,), 32)).requires_grad_()
+    dy = torch.from_numpy(_x((2, 3, 4, 5, 8), 33)).to(dtype)
+    y = groupnorm.pallas_group_norm(x, scale, bias, 4, relu=True)
+    got = torch.autograd.grad(y, (x, scale, bias), dy)
+    xd, sc, gsize, n = x.detach(), scale.detach(), 2, 3 * 4 * 5 * 2
+    mean, rstd = groupnorm._fold(*stats.moments_twin(xd), 4, n,
+                                 groupnorm.EPS)
+    by = (lambda t: groupnorm._by_channel(t, gsize))
+    s = sc * by(rstd)
+    yk = groupnorm.group_norm_apply_twin(xd, s, bias.detach() - s * by(mean),
+                                         True)
+    r1, r2 = stats.weighted_sums_twin(dy, xd, yk)
+    t1 = (sc * r1).view(2, -1, gsize).sum(-1)
+    t2 = ((sc * r2).view(2, -1, gsize).sum(-1) - mean * t1) * rstd
+    s1n, s2n = by(t1 / n), by(t2 / n)
+    dx = groupnorm.group_norm_dx_twin(
+        dy, xd, yk, sc * by(rstd), -by(rstd) * by(rstd) * s2n,
+        -by(rstd) * s1n + by(rstd) * by(rstd) * by(mean) * s2n)
+    want = (dx, ((r2 - by(mean) * r1) * by(rstd)).sum(0), r1.sum(0))
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

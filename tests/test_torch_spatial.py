@@ -14,9 +14,10 @@ One module fixture starts everything at once, then waits:
 and, while they run, the JAX references in this process: the JAX
 package's train step, 3 steps, on `make_mesh(data_parallel=1 or 2,
 spatial_parallel=2)` with the batch's D sharded over `spatial`
-(tests/test_parallel.py:136-195), and its first-order and `pc_k` 2 search
-steps on the (1, 2) mesh, from the same weights (through the bridge), α
-and global batches (numpy, from seeds).
+(tests/test_parallel.py:136-195), its first-order and `pc_k` 2 search
+steps on the (1, 2) mesh and its second-order step on the (1, 2) and (2, 2)
+meshes, from the same weights (through the bridge), α and global batches
+(numpy, from seeds).
 
 Held here:
   * every candidate op, both `use_pallas` values, on slabs against the
@@ -29,15 +30,24 @@ Held here:
     (tests/test_parallel.py:173-195's);
   * the search steps against JAX's at tests/test_torch_parallel.py's
     tolerance (atol 2e-5 / rtol 2e-4, the `pc_k` 2 step without the
-    entries whose JAX gradient is zero to rounding);
+    entries whose JAX gradient is zero to rounding), the second-order one
+    at data 1 × spatial 2 and at 2 × 2, where the spatial sum of the inner
+    gradient and its data mean are apart;
+  * the second-order α gradient of the supernet and of its `use_pallas`
+    twin on slabs against one process at atol 2e-5 / rtol 1e-4, failing
+    with the loss sums' identity adjoint kept in the inner graph (a
+    planted fault), and on the `use_pallas` net with K3's statistics held
+    constant;
+  * `gradcheck` and `gradgradcheck` of the halo exchange, its adjoint and
+    the differentiable sum across the two ranks;
   * the `use_pallas` net's and a net of pools, dilations and the upsample
     gradients against one process, and remat bit-equal to remat off;
   * every rank of a layout bit-equal to the others;
   * the Trainer and the Searcher: ranks equal, resume exact, files from
     rank 0 alone; `predict_dataset`'s labels and the CLI's NIfTI files
     bit-identical to one process;
-  * the refusals: the second-order step and a patch D against the slab
-    rule.
+  * the second-order step built under spatial sharding, and the refusal
+    of a patch D against the slab rule.
 """
 
 import json
@@ -86,6 +96,8 @@ CLI_OVERRIDES = ["data.patch_size=(8,8,8)", "infer.patch_size=(8,8,8)",
                  "train.steps_per_epoch=2", "search.epochs=2",
                  "search.warmup_epochs=1", "search.steps_per_epoch=2",
                  "search.val_steps=1"]
+# the command's search: the second-order step on the use_pallas supernet
+SEARCH_OVERRIDES = ["search.unrolled=True", "model.use_pallas=True"]
 PARAM_FREE = ("none", "identity", "avg_pool3", "max_pool3", "down_avg_pool",
               "down_max_pool")
 
@@ -106,15 +118,15 @@ def _ranks(world, out, store):
     return procs
 
 
-def _cli_args(cmd, root, store, spatial=True):
+def _cli_args(cmd, root, store, spatial=True, extra=()):
     args = [cmd, "--device", "cpu", "-o", f"data.processed_dir={store}",
             "-o", f"train.checkpoint_dir={root}/ckpt",
             "-o", f"infer.checkpoint_dir={root}/ckpt",
             "-o", f"infer.output_dir={root}/pred{'' if spatial else '1'}",
             "-o", f"search.checkpoint_dir={root}/search",
             "-o", f"train.genotype_path={root}/none.json"]
-    for ov in CLI_OVERRIDES + (["parallel.spatial_parallel=2"] if spatial
-                               else []):
+    for ov in CLI_OVERRIDES + list(extra) + (
+            ["parallel.spatial_parallel=2"] if spatial else []):
         args += ["-o", ov]
     return args
 
@@ -171,9 +183,9 @@ def _jax_train(data, params):
     return {"loss": np.asarray(losses), **_jax_flat(state.params)}
 
 
-def _jax_search(kind):
-    """JAX's first-order (or `pc_k` 2) search step on the 1 × 2 spatial
-    mesh, `torch_dp_worker.STEPS` times."""
+def _jax_search(kind, data=1):
+    """JAX's first-order, `pc_k` 2 or second-order search step on the
+    `data` × 2 spatial mesh, `torch_dp_worker.STEPS` times."""
     pc_k = 2 if kind == "pc" else 1
     net = JaxSuperNet(remat=False, packed=False, dtype_name="float32",
                       pc_k=pc_k, **w.S_KW)
@@ -182,12 +194,16 @@ def _jax_search(kind):
     alphas = {k: jnp.asarray(v) for k, v in w.alphas_np().items()}
     w_tx = optax.flatten(optax.adamw(w.W_LR, weight_decay=w.W_WD))
     a_tx = optax.adamw(w.A_LR, weight_decay=w.A_WD)
-    mesh = jmesh.make_mesh(data_parallel=1, spatial_parallel=2)
+    mesh = jmesh.make_mesh(data_parallel=data, spatial_parallel=2)
     state = jmesh.replicate(mesh, jbilevel.SearchState(
         params=params, w_opt=w_tx.init(params), alphas=alphas,
         a_opt=a_tx.init(alphas), step=jnp.asarray(0, jnp.int32),
         rng=jax.random.PRNGKey(0)))
-    step = jbilevel.make_search_step(net.apply, w_tx, a_tx)
+    if kind == "unrolled":
+        step = jbilevel.make_search_step_unrolled(net.apply, w_tx, a_tx,
+                                                  w.XI)
+    else:
+        step = jbilevel.make_search_step(net.apply, w_tx, a_tx)
     losses = []
     for i in range(w.STEPS):
         b = jmesh.shard_batch(mesh, tuple(map(jnp.asarray,
@@ -212,7 +228,8 @@ def runs(tmp_path_factory):
     procs.append(_shell([_torchrun(_cli_args("train", root, store)),
                          _torchrun(_cli_args("predict", root, store))],
                         root / "train_predict.txt", "torchrun train+predict"))
-    procs.append(_shell([_torchrun(_cli_args("search", root, store))],
+    procs.append(_shell([_torchrun(_cli_args("search", root, store,
+                                             extra=SEARCH_OVERRIDES))],
                         root / "search.txt", "torchrun search"))
     try:
         # the workers' train case waits for the weights (written whole)
@@ -225,7 +242,8 @@ def runs(tmp_path_factory):
             os.replace(tmp, root / layout / sw.REF_PARAMS)
         jax_refs = {"train_1x2": _jax_train(1, params),
                     "train_2x2": _jax_train(2, params),
-                    **{k: _jax_search(k) for k in sw.SEARCH_KINDS}}
+                    **{k: _jax_search(k) for k in sw.SEARCH_KINDS},
+                    sw.UNROLLED_2X2: _jax_search("unrolled", 2)}
         pc_zeros = _rounding_zeros(2)
     finally:
         for proc, log, name in procs:
@@ -235,9 +253,10 @@ def runs(tmp_path_factory):
     for layout, world in LAYOUTS.items():
         d = root / layout
         names = ["train"] + (["ops", "nets", *sw.SEARCH_KINDS,
+                              "second_order",
                               "trainer_full", "trainer_resumed",
                               "searcher_full", "searcher_resumed"]
-                             if layout == "1x2" else [])
+                             if layout == "1x2" else [sw.UNROLLED_2X2])
         out[layout] = [{n: _load(d / f"{n}_rank{r}.npz") for n in names}
                        for r in range(world)]
         out[f"{layout}_loops"] = [json.load(open(d / f"loops_rank{r}.json"))
@@ -297,22 +316,75 @@ def test_train_steps_match_jax_spatial_step(runs, layout):
                                        rtol=STEP_RTOL, err_msg=k)
 
 
-@pytest.mark.parametrize("kind", sw.SEARCH_KINDS)
-def test_search_step_matches_jax_spatial_step(runs, kind):
-    got, want = runs["1x2"][0][kind], runs["jax"][kind]
+def _search_mismatches(got, want, skip=None):
+    """The keys of `want` that `got` misses at the search tolerance (the
+    losses at LOSS_RTOL; entries `skip` marks True left out)."""
     assert set(got) == set(want)
-    skip = runs["pc_zeros"] if kind == "pc" else {}
+    bad = []
     for k in want:
-        if k == "loss":
-            np.testing.assert_allclose(got[k], want[k], rtol=LOSS_RTOL)
-            continue
-        held = ~skip[k] if k in skip else ...
-        np.testing.assert_allclose(got[k][held], want[k][held],
-                                   atol=SEARCH_ATOL, rtol=SEARCH_RTOL,
-                                   err_msg=f"{kind} {k}")
+        held = ~skip[k] if skip and k in skip else ...
+        ok = (np.allclose(got[k], want[k], rtol=LOSS_RTOL, atol=0)
+              if k == "loss" else
+              np.allclose(got[k][held], want[k][held], atol=SEARCH_ATOL,
+                          rtol=SEARCH_RTOL))
+        bad += [] if ok else [k]
+    return bad
+
+
+@pytest.mark.parametrize("kind", [*sw.SEARCH_KINDS, sw.UNROLLED_2X2])
+def test_search_step_matches_jax_spatial_step(runs, kind):
+    """The first-order, `pc_k` 2 and second-order steps at data 1 ×
+    spatial 2, and the second-order one at 2 × 2."""
+    layout = "2x2" if kind == sw.UNROLLED_2X2 else "1x2"
+    got, want = runs[layout][0][kind], runs["jax"][kind]
+    skip = runs["pc_zeros"] if kind == "pc" else {}
+    assert not _search_mismatches(got, want, skip), kind
     a0 = w.alphas_np()
     assert all(not np.array_equal(got[k], a0[k[7:]]) for k in got
                if k.startswith("alphas/") and got[k].size)
+
+
+def _second_order(runs, net):
+    """{α leaf or "loss": {tag: array}} of the worker's `second_order`
+    case for `net` ("default" or "pallas"), rank 0's."""
+    out = {}
+    for key, a in runs["1x2"][0]["second_order"].items():
+        name, tag = key[len(net) + 1:].rsplit("_", 1)
+        if key.startswith(net + "/") and a.size:
+            out.setdefault(name, {})[tag] = a
+    return out
+
+
+def _held(leaves, tag):
+    return all(np.allclose(v[tag], v["want"], atol=ATOL, rtol=RTOL)
+               for k, v in leaves.items() if k != "loss")
+
+
+@pytest.mark.parametrize("net", ["default", "pallas"])
+def test_second_order_gradient_on_slabs_matches_one_process(runs, net):
+    """The second-order α gradient and val loss of the supernet and of
+    its `use_pallas` twin (K6, K7, K4 and K3 through their twins, every
+    backward differentiated on the slab) against one process; with the
+    loss sums' identity adjoint kept in the inner graph (a planted fault:
+    the cross-slab Hessian terms dropped) they miss, and so they do on the
+    `use_pallas` net with K3's statistics held constant."""
+    leaves = _second_order(runs, net)
+    assert len(leaves) > 2
+    for k, v in leaves.items():
+        np.testing.assert_allclose(v["got"], v["want"], atol=ATOL,
+                                   rtol=RTOL, err_msg=k)
+    assert not _held(leaves, "adjoint")
+    if net == "pallas":
+        assert not _held(leaves, "k3")
+
+
+@pytest.mark.parametrize("check", ["halo_zero", "halo_none", "halo_adjoint",
+                                   "summed"])
+def test_exchanges_are_twice_differentiable_across_ranks(runs, check):
+    """`gradcheck` and `gradgradcheck` in float64 on the 2-rank group:
+    the halo exchange (zero fill, no fill), its adjoint's Function and
+    the differentiable sum."""
+    assert all(runs["1x2_loops"][r]["grad_checks"][check] for r in range(2))
 
 
 @pytest.mark.parametrize("net", ["pallas", "wide"])
@@ -394,8 +466,9 @@ def test_predict_labels_equal_one_process(runs, layout):
 
 
 def test_torchrun_runs_train_predict_and_search_spatially(runs):
-    """The commands under torchrun at spatial 2: rank 0 alone prints and
-    writes, and `predict`'s NIfTI files are one process's bits."""
+    """The commands under torchrun at spatial 2 (`search` with the
+    second-order step on the `use_pallas` supernet): rank 0 alone prints
+    and writes, and `predict`'s NIfTI files are one process's bits."""
     root, store = runs["root"], runs["store"]
     for log, event in (("train_predict.txt", "train_done"),
                        ("train_predict.txt", "predict_done"),
@@ -414,6 +487,8 @@ def test_torchrun_runs_train_predict_and_search_spatially(runs):
 
 
 def test_refusals_under_spatial_sharding(runs):
+    """The second-order step, once refused here, is built and runs a
+    step; a patch D against the slab rule is still refused."""
     ref = runs["1x2_loops"][0]["refusals"]
-    assert "item 9c" in ref["unrolled"]
+    assert np.isfinite(ref["unrolled"])
     assert "patch D 8" in ref["slab_rule"] and "2·2^2" in ref["slab_rule"]

@@ -10,28 +10,38 @@ It runs the cases of its layout and writes OUT_DIR/<case>_rank<r>.npz (and
 OUT_DIR/loops_rank<r>.json): at data 1 × spatial 2 every candidate op on
 slabs against the one-process op (forward, dx and the parameters'
 gradients, both `use_pallas` values), the max pool on tied input, three
-train steps of the derived net, the first-order and `pc_k` 2 search steps,
-a `use_pallas` and a pools-dilations-upsample net's gradients against one
+train steps of the derived net, the first-order, `pc_k` 2 and
+second-order search steps, the second-order α gradient of the supernet
+and of its `use_pallas` twin against one process (and with planted
+faults: the loss sums' identity adjoint kept in the inner graph, K3's
+statistics held constant), `gradcheck` and `gradgradcheck` of the halo
+exchange, its adjoint and the differentiable sum across the two ranks, a
+`use_pallas` and a pools-dilations-upsample net's gradients against one
 process, remat bit-equal to remat off, the Trainer, the Searcher and
-`predict_dataset`, and the refusal of the second-order step; at data 2 ×
-spatial 2 the train steps and `predict_dataset`.  The parent test
+`predict_dataset`, the second-order step built under spatial sharding and
+the slab rule's refusal; at data 2 × spatial 2 the train and second-order
+search steps and `predict_dataset`.  The parent test
 (tests/test_torch_spatial.py) builds the JAX references from the same
 functions and compares.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import sys
 import time
+from unittest import mock
 
 import numpy as np
 import torch
 
 from nas_3d_unet_tpu_torch import bridge
 from nas_3d_unet_tpu_torch.models.genotype import Genotype, default_genotype
+from nas_3d_unet_tpu_torch.metrics.losses import dice_ce_loss
 from nas_3d_unet_tpu_torch.models.unet import DerivedNet
+from nas_3d_unet_tpu_torch.ops import groupnorm
 from nas_3d_unet_tpu_torch.ops.primitives import (DOWN_OPS, NORMAL_OPS,
                                                   UP_OPS, make_op)
 from nas_3d_unet_tpu_torch.ops.pool import max_pool3, upsample2x
@@ -71,7 +81,8 @@ WIDE = Genotype(n_nodes=2,
 OP_SHAPE = (2, 8, 6, 5, 4)
 OPS = [(name, up) for name in (*NORMAL_OPS, *DOWN_OPS, *UP_OPS)
        for up in (False, True)]
-SEARCH_KINDS = ("search", "pc")
+SEARCH_KINDS = ("search", "pc", "unrolled")
+UNROLLED_2X2 = "unrolled_2x2"       # the second-order step at 2 × 2
 LOOP_OV = {"model.depth": 1, "parallel.spatial_parallel": 2}
 
 
@@ -224,20 +235,104 @@ def net_cases(mesh) -> dict:
     return out
 
 
+def identity_adjoint_kept():
+    """A planted fault: the second-order step's slabs keep the first-order
+    convention (the loss sums' identity adjoint, each rank's loss seeded
+    with 1), so its inner graph drops the cross-slab Hessian terms."""
+    return mock.patch.object(bilevel, "_exact", lambda slab: slab)
+
+
+def k3_statistics_constant():
+    """A planted fault: the differentiated GroupNorm backward holds its
+    statistics constant (K3's, on a `use_pallas` net)."""
+    cut = groupnorm._grad_statistics
+    return mock.patch.object(groupnorm, "_grad_statistics",
+                             lambda *a: tuple(t.detach() for t in cut(*a)))
+
+
+def second_order(mesh) -> dict:
+    """The second-order α gradient and val loss (ξ = XI, the first global
+    batch's first row) of the supernet and of its `use_pallas` twin, keyed
+    `<net>/<α leaf>_<tag>`: in one process ("want"), on this rank's slab
+    reduced over the group as the step reduces them ("got"), and on the
+    slab with a planted fault: the loss sums' identity adjoint kept in the
+    inner graph ("adjoint"), and, on the `use_pallas` net, K3's
+    statistics held constant ("k3")."""
+    out = {}
+    for net_key, up in (("default", False), ("pallas", True)):
+        cases = [("want", None, None), ("got", mesh, None),
+                 ("adjoint", mesh, identity_adjoint_kept())]
+        if up:
+            cases.append(("k3", mesh, k3_statistics_constant()))
+        for tag, m, fault in cases:
+            net = w.supernet(use_pallas=up)
+            alphas = {k: torch.from_numpy(v).requires_grad_()
+                      for k, v in w.alphas_np().items()}
+            b = [torch.from_numpy(a[:1]) for a in w.search_batches(0)]
+            b = loop.cut_slab(None if m is None else m.slab, net, *b)
+            with fault or contextlib.nullcontext():
+                loss, grads = bilevel.unrolled_alpha_grads(
+                    net, alphas, list(alphas.values()), w.XI, *b,
+                    dice_ce_loss, m)
+            grads = [g.contiguous() for g in grads]
+            if m is not None:
+                m.all_reduce_mean_([*grads, loss], slab_parts=len(grads))
+            out[f"{net_key}/loss_{tag}"] = loss.numpy()
+            for k, g in zip(alphas, grads):
+                out[f"{net_key}/{k}_{tag}"] = g.numpy()
+    return out
+
+
+def _flipped(fn, slab):
+    """fn on D-flipped tensors on the last slab: with two ranks each then
+    sends its last planes and receives the other's, so the two ranks'
+    Jacobians are the same matrices and `gradcheck`'s numerical
+    perturbations, made at the same entries on both ranks at once, meet
+    the analytical ones (every collective is one call on both)."""
+    if not slab.last:
+        return fn
+    return lambda t: fn(t.flip(1)).flip(1)
+
+
+def grad_checks(mesh) -> dict:
+    """`gradcheck` and `gradgradcheck` in float64 across the two ranks of
+    the spatial group: the halo exchange (zero fill and no fill at the
+    global ends), its adjoint as a Function of its own, and the
+    differentiable sum."""
+    slab = mesh.slab
+    torch.manual_seed(0)
+    x = torch.randn((1, 3, 2, 2), dtype=torch.float64, requires_grad=True)
+    halo = {"halo_zero": (1, 1, 0.0), "halo_none": (2, 2, None)}
+    checks = {k: _flipped(lambda t, a=a: spatial.halo_d(t, *a, slab), slab)
+              for k, a in halo.items()}
+    lo_n = 0 if slab.first else 1
+    checks["halo_adjoint"] = _flipped(
+        lambda g: spatial._HaloAdjoint.apply(g, slab, 1, 1, 2, lo_n, None),
+        slab)
+    checks["summed"] = lambda t: spatial.summed(t * t, slab.group)
+    out = {}
+    for name, fn in checks.items():
+        t = x[:, :3 if name == "halo_adjoint" else 2].detach() \
+            .requires_grad_()
+        out[name] = all(check(fn, (t,), raise_exception=False) for check in
+                        (torch.autograd.gradcheck,
+                         torch.autograd.gradgradcheck))
+    return out
+
+
 def refusals(mesh) -> dict:
-    """The second-order step's refusal of a spatial mesh, and the slab
-    rule's of a patch at the wrong depth, as their messages."""
+    """The second-order step built under spatial sharding (one step's
+    val loss), and the slab rule's refusal of a patch at the wrong depth,
+    as its message."""
     out = {}
     net = w.supernet()
     alphas = {k: torch.from_numpy(v).requires_grad_()
               for k, v in w.alphas_np().items()}
-    try:
-        bilevel.make_search_step_unrolled(
-            net, make_optimizer(net.parameters(), 1e-3, 0.0),
-            make_optimizer(alphas.values(), 1e-3, 0.0), alphas, 0.5,
-            mesh=mesh)
-    except ValueError as e:
-        out["unrolled"] = str(e)
+    step = bilevel.make_search_step_unrolled(
+        net, make_optimizer(net.parameters(), 1e-3, 0.0),
+        make_optimizer(alphas.values(), 1e-3, 0.0), alphas, 0.5, mesh=mesh)
+    out["unrolled"] = step(*w.rows(mesh, *w.search_batches(0)))[
+        "val_loss"].item()
     net = derived_net()
     step = loop.make_train_step(net, make_optimizer(net.parameters(), LR, WD),
                                 mesh=mesh)
@@ -274,6 +369,9 @@ def main(out: str, store: str) -> int:
         _save(out, "nets", r, net_cases(mesh))
         for kind in SEARCH_KINDS:
             _save(out, kind, r, w.search_case(mesh, kind))
+        _save(out, "second_order", r, second_order(mesh))
+    else:
+        _save(out, UNROLLED_2X2, r, w.search_case(mesh, "unrolled"))
     res = loops(mesh, store, out)
     for name in ("trainer", "searcher"):
         if name in res:
@@ -281,6 +379,7 @@ def main(out: str, store: str) -> int:
                 _save(out, f"{name}_{run}", r, res[name].pop(f"state_{run}"))
     if mesh.data_world == 1:
         res["refusals"] = refusals(mesh)
+        res["grad_checks"] = grad_checks(mesh)
     with open(os.path.join(out, f"loops_rank{r}.json"), "w") as f:
         json.dump(res, f)
     _save(out, "train", r, train_case(mesh, out))   # last: REF_PARAMS
