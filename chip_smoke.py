@@ -7,7 +7,9 @@ Phases, each printed as JSON lines:
   1. device: CUDA must be present (else exit 2); the card's name and power
      limit from nvidia-smi.
   2. build: compiles nas_3d_unet_tpu_torch/csrc/*.cu from scratch (one
-     nvcc per source, in parallel, sm_90a) and times it.
+     nvcc per source, in parallel, sm_90a) and times it; then the C++
+     host path's library (data/native/preproc.cpp, g++), which must
+     build.
   3. kernels: the serving kernels in fp32 against their plain PyTorch twins
      at every geometry the flagship net gives them (batch 2): K1
      conv3x3x3_stats (the FMA conv tile with its moments epilogue; plus a
@@ -47,13 +49,22 @@ Phases, each printed as JSON lines:
      the shapes the step hands the kernels against phase 5's geometries,
      then 3 warm-up and 5 timed steps: patches/s, the loss per step (all
      finite), peak device memory, and launches equal to (per step, counted
-     from the modules) x 5.
+     from the modules) x 5; then, in a child process (a trace taken in
+     this one left every later trace empty), the same step under
+     `utils/profiling.py` `trace` and `annotate`, whose trace file must
+     hold the annotation and device events of the hand kernels
+     (`conv_mma_kernel`, `gemm_mma_kernel`, `stats_sums_kernel`), and
+     `device_memory_stats` a peak above 0.
  6b. cli: the package's commands, in-process through `cli.main`, from the
      root config.json at full width (train: bf16, 128^3, batch 2,
      microbatch 1; predict: the fp32 body) with 2 epochs of 3 steps and a
      validation fraction of 0.25.  Writes 4 BraTS-layout patients (2 HGG,
      2 LGG) of 240x240x155 from --seed, runs `preprocess` (4 .npz with
-     their keys), `train` (finite losses, two epoch records, metadata.json,
+     their keys; the C++ host path must have run, 4 z-scores and one box
+     a patient, and a second `preprocess` under NAS3D_NO_NATIVE on the
+     numpy path gives the same crops and labels and images within 1e-5;
+     s/patient of both printed), `train` (finite losses, two epoch
+     records, metadata.json,
      best.npz; launches = per microbatch x 12 + per forward x 16 eval
      forwards), `train` for 1 epoch in a fresh dir and again for 2, which
      resumes at step 3 (a checkpoint loaded onto the card and saved again
@@ -125,18 +136,22 @@ Phases, each printed as JSON lines:
      unrolled α gradient (as 6e) against the twin path; then, as 6e,
      SPC_STEPS timed
      first-order steps and SB_STEPS timed unrolled steps (both settings).
- 6g. remat: activation checkpointing (`model.remat` on the cells,
-     `model.remat_edges` on the supernet's edges) at full width on one
-     rank, under cuDNN's deterministic algorithms: the derived bf16 train
-     step (batch 2 of 128^3, microbatch 1; remat off and on the cells),
-     the shipped supernet's first-order and second-order steps (128^3,
-     batch 1; off, cells, cells and edges), one step's gradients each
-     (nothing updated).  Gradients bit-equal to remat off's; where they differ, remat off is run again:
-     if it repeats, the setting is run again (up to REMAT_RERUNS times)
-     and must give off's bits (else "remat changes the bits" fails the
-     phase; the step alone lands on another pattern now and then), if it
-     does not, the gradients must lie within the step's limits; the
-     reason is printed.  Launches equal to remat off's plus the
+ 6g. remat: repeatability and activation checkpointing (`model.remat`
+     on the cells, `model.remat_edges` on the supernet's edges) at full
+     width on one rank, under cuDNN's deterministic algorithms: the
+     derived bf16 train step (batch 2 of 128^3, microbatch 1; remat off
+     and on the cells), the shipped supernet's first-order step (128^3,
+     batch 1) and second-order step (REMAT_SECOND_PATCH^3; off, cells,
+     cells and edges) and its PC step (pc_k 2, first-order, 128^3; off
+     only), one step's gradients each (nothing updated).  Remat off runs REPEAT_RUNS times: one
+     digest of the gradients and losses means the step repeats.  For a
+     step that does not, one more run under
+     `torch.use_deterministic_algorithms(True, warn_only=True)` names the
+     ops without a deterministic implementation, and the phase fails
+     unless one is named.  A setting's
+     gradients must equal remat off's bit for bit where the step repeats;
+     where it does not (the op named in the reason), they must lie within
+     the step's limits.  Launches equal to remat off's plus the
      checkpointed regions' forward kernels (K1, K2, K5a, counted from the
      modules, `remat_per_forward`) once per backward through them (2 a
      train step, 2 a first-order step, 4 a second-order one), peak memory
@@ -177,6 +192,26 @@ Phases, each printed as JSON lines:
      one-process step's with K1's moments moved to K1-dx's kernel and
      K5a, `spatial_launches`), s a step, peak GB.  Both ranks share one
      card: not scaling numbers.
+ 6j. quality: the chip-scale twins of experiments/r4_learn_chip.py and
+     r5_genotype_chip.py through the commands, on NIfTI written from
+     --seed (4 patients of 96x112x80, 64^3 patches, batch 1, the shipped
+     bf16 body at base 16, depth 3, 3 nodes): (a) `preprocess`, `train`
+     (default genotype, 4 x 50 steps, lr 1e-3) and `predict` on the
+     learnable blob task, mean WT Dice >= 0.7; (b) the shift task (the
+     label is the t1ce blob shifted by +6 voxels an axis; no
+     augmentation): `search` (3 x 40 steps, 1 warmup epoch, α lr 3e-2;
+     r5's 5 x 40 does not fit the script's time), `train` of the
+     searched genotype (4 x 50) and `predict`, WT >= 0.7 and >= 3
+     conv-family ops in the genotype; (c) the same search on the noise
+     control (the label blob placed apart from the image's): the signal's
+     final conv mass above the control's.  The patients are written and
+     preprocessed first; then each task's commands run in a child
+     process beside phases 6h and 6i (whose s a step then share the
+     card with them), under cuDNN's deterministic algorithms.  The native preprocessing
+     ran, and every search and train launched K1, K1-dx, K2, K5a and
+     K5b (each child prints its launches).
+     Prints Dice, conv counts, conv and none masses, and each stage's
+     seconds.
  7. pallas_kernels: the `use_pallas` configuration's kernels against their
      twins at every geometry it gives them: K6 conv3d (stride 1 and 2) in
      fp32 at batch 2 (the FMA conv tile) and in bf16 at batch 1 (the
@@ -271,6 +306,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -538,7 +574,7 @@ SPC_TABLES = [("conv3x3x3_stats", SPC_K1), ("conv3x3x3", SPC_K1DX),
 SB_TABLES = [("conv3x3x3_stats", SB_K1), ("conv3x3x3", SB_K1DX),
              ("gemm_stats", SB_K2), ("moments", SB_K5A),
              ("weighted_sums", SB_K5B)]
-SU_STEPS, SPC_STEPS, SB_STEPS = 2, 3, 1    # timed, after one noted step
+SU_STEPS, SPC_STEPS, SB_STEPS = 1, 3, 1    # timed, after one noted step
 # Phase "search_unrolled_pallas": launches per second-order step of the
 # shipped supernet with model.use_pallas (SUP_; counted by `noting_kernels`
 # on the CPU at 16^3, the edges times 8, and the same at 32^3 times 4).
@@ -1664,6 +1700,85 @@ def grad_parity(net, x, y, kernel_ctx=None, use_pallas=False):
                          P_GRAD_LIMITS if use_pallas else GRAD_LIMITS)}
 
 
+TRACE_ANNOTATION = "chip_smoke.train_step"
+# the hand kernels' device functions a train step launches (K1 and K1-dx
+# on the tensor-core conv, K2 on the tensor-core GEMM, K5a/K5b)
+TRACE_KERNELS = ("conv_mma_kernel", "gemm_mma_kernel", "stats_sums_kernel")
+
+
+def traced_step(dev, step):
+    """One warm `step()` under `utils/profiling.py`'s `trace` and
+    `annotate`: the trace file it writes holds the annotation and the
+    hand kernels' device events; `device_memory_stats` has a peak."""
+    from nas_3d_unet_tpu_torch.utils.profiling import (annotate,
+                                                       device_memory_stats,
+                                                       trace)
+
+    with tempfile.TemporaryDirectory() as log_dir:
+        with trace(log_dir):
+            with annotate(TRACE_ANNOTATION):
+                step().item()
+        files = os.listdir(log_dir)
+        with open(os.path.join(log_dir, files[0])) as f:
+            events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    rec = {"trace_files": files,
+           "annotation_events": sorted({e.get("cat") for e in events
+                                        if e.get("name") == TRACE_ANNOTATION}),
+           "hand_kernel_events": {k: sum(k in n for n in kernels)
+                                  for k in TRACE_KERNELS},
+           "kernel_events": len(kernels),
+           "peak_allocated_gb": device_memory_stats(dev).get(
+               "allocated_bytes.all.peak", 0) / 2 ** 30}
+    if len(files) != 1 or not rec["annotation_events"] \
+            or not all(rec["hand_kernel_events"].values()) \
+            or not rec["peak_allocated_gb"] > 0:
+        raise AssertionError(f"traced train step: {rec}")
+    return rec
+
+
+def trace_step_main(args) -> int:
+    """The traced train step in a process of its own (`--trace-dir`): the
+    flagship bf16 step as phase "train" runs it, two warm steps, then
+    `traced_step`; the record goes to <trace-dir>/traced_step.json.  In
+    the script's own process, every `torch.profiler` trace taken after
+    this one held no kernel (phase "sass")."""
+    from nas_3d_unet_tpu_torch import _build
+    from nas_3d_unet_tpu_torch.train.loop import make_train_step
+    from nas_3d_unet_tpu_torch.train.optim import make_optimizer
+    from nas_3d_unet_tpu_torch.utils.precision import strict_fp32
+
+    dev = torch.device(args.trace_device)
+    _build.load()
+    with strict_fp32():
+        net = flagship_net(args.seed, "bfloat16").to(dev)
+        step = make_train_step(net, make_optimizer(net.parameters(), 3e-4,
+                                                   1e-4),
+                               augment=AUGMENT, microbatch=MICRO,
+                               seed=args.seed)
+        x, y = synthetic_batch(dev, args.seed)
+        for _ in range(2):
+            step(x, y).item()
+        rec = traced_step(dev, lambda: step(x, y))
+    with open(os.path.join(args.trace_dir, "traced_step.json"), "w") as f:
+        json.dump(rec, f)
+    return 0
+
+
+def traced_in_child(dev, seed):
+    """`trace_step_main` in a child process of this script; its record."""
+    with tempfile.TemporaryDirectory() as tmp:
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--seed", str(seed),
+             "--trace-dir", tmp, "--trace-device", str(dev)],
+            capture_output=True, text=True, timeout=600)
+        if proc.returncode:
+            raise AssertionError(f"traced train step: exit "
+                                 f"{proc.returncode}\n{proc.stderr[-3000:]}")
+        with open(os.path.join(tmp, "traced_step.json")) as f:
+            return json.load(f)
+
+
 def phase_train(dev, seed, use_pallas=False):
     """Training (phase 6, or phase 9 with use_pallas)."""
     from nas_3d_unet_tpu_torch.ops import _cuda
@@ -1706,13 +1821,14 @@ def phase_train(dev, seed, use_pallas=False):
     per = _modules_per_forward(net)
     slices = TRAIN_BATCH // MICRO
     expected = {f"{k}_bf16": n * slices * TIMED_STEPS for k, n in per.items()}
+    traced = None if use_pallas else traced_in_child(dev, seed)
     rec = {"phase": phase, "batch": TRAIN_BATCH, "patch": TRAIN_PATCH,
            "microbatch": MICRO, "dtype": "bfloat16",
            "patches_per_s": TRAIN_BATCH / step_s, "step_s": step_s,
            "warmup_losses": warm, "warmup_s": warm_s, "losses": losses,
            "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
            "launches_per_microbatch": per, "launches": launches,
-           "expected_launches": expected}
+           "expected_launches": expected, "traced_step": traced}
     emit(rec)
     if not all(map(math.isfinite, warm + losses)):
         raise AssertionError(f"non-finite loss {warm + losses}")
@@ -2227,11 +2343,13 @@ def phase_search_pc(dev, gen, seed):
 REMAT_SETTINGS = {"off": (False, False), "cells": (True, False),
                   "cells_edges": (True, True)}
 REMAT_KERNELS = ("conv3x3x3_stats", "gemm_stats", "moments")
-# under cuDNN's deterministic algorithms the first-order step's gradients
-# still land on another of a few bit patterns now and then, with remat off
-# too (`grad_parity.py --remat-repeats`, PERF.md); a setting that differs
-# from remat off while remat off repeats is run again up to this many times
-REMAT_RERUNS = 2
+# runs of a step (remat off, cuDNN held to deterministic algorithms) whose
+# gradients must give one digest for the step to count as repeating
+REPEAT_RUNS = 4
+# the second-order step's edge in phase "remat": its six runs at 128^3
+# took 140 s of the script's time on the H100 (grad_parity.py --repeats
+# holds it at 128^3); the upsample and every other op run at 64^3 too
+REMAT_SECOND_PATCH = 64
 
 
 def _set_remat(net, cells, edges):
@@ -2273,8 +2391,9 @@ def _remat_expected(base, cells, edges, passes, on_cells, on_edges):
 
 def _remat_grads(kind, net, alphas, batches, xi):
     """One step's gradients, nothing updated: the derived train step's
-    (`loss_and_grads`, microbatch MICRO), or a first-order or second-order
-    search step's α then w gradients (`_Recorder`s); with the losses."""
+    (`loss_and_grads`, microbatch MICRO), or a first-order (also with
+    partial channels: "pc") or second-order search step's α then w
+    gradients (`_Recorder`s); with the losses."""
     from nas_3d_unet_tpu_torch.metrics.losses import dice_ce_loss
     from nas_3d_unet_tpu_torch.search.bilevel import (
         make_search_step, make_search_step_unrolled)
@@ -2284,7 +2403,7 @@ def _remat_grads(kind, net, alphas, batches, xi):
         loss, grads = loss_and_grads(net, *batches, dice_ce_loss, MICRO)
         return [loss.item()], [], [g.clone() for g in grads]
     w_rec, a_rec = _Recorder(net.parameters()), _Recorder(alphas.values())
-    if kind == "first":
+    if kind in ("first", "pc"):
         step = make_search_step(net, w_rec, a_rec, alphas)
     else:
         step = make_search_step_unrolled(net, w_rec, a_rec, alphas, xi)
@@ -2296,18 +2415,40 @@ def _same(a, b):
     return len(a) == len(b) and all(torch.equal(u, v) for u, v in zip(a, b))
 
 
+def nondeterministic_ops(fn):
+    """What `torch.use_deterministic_algorithms(True, warn_only=True)`
+    warns of while `fn()` runs: the ops that have no deterministic
+    implementation on the card (each warning's first sentence)."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            fn()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    return sorted({str(w.message).split(". ")[0][:200] for w in caught
+                   if "determinis" in str(w.message)})
+
+
 def phase_remat(dev, seed):
-    """Activation checkpointing at full width on one rank, under cuDNN's
-    deterministic algorithms: the derived bf16 train step (batch 2 of
-    128^3, microbatch 1), the shipped supernet's first-order and second-
-    order steps (128^3, batch 1), each with remat off, on the cells, and
-    on the cells and the edges (the derived net has no edges: off and
-    cells).  Gradients bit-equal to remat off (else within the step's
-    limits where remat off itself does not repeat; where it does, a
-    setting that differs must give off's bits on one of REMAT_RERUNS more
-    runs), launches equal to remat off's plus the checkpointed regions'
-    forward kernels once per backward through them, and each setting's
-    peak memory and s a step."""
+    """Repeatability and activation checkpointing at full width on one
+    rank, under cuDNN's deterministic algorithms: the derived bf16 train
+    step (batch 2 of 128^3, microbatch 1), the shipped supernet's
+    first-order step (128^3, batch 1), second-order step
+    (REMAT_SECOND_PATCH^3, batch 1) and PC step (pc_k 2, first-order,
+    128^3).  Each step with remat off runs REPEAT_RUNS
+    times; one digest of its gradients and losses means it repeats.  For
+    a step that does not, one more run reads the ops
+    `use_deterministic_algorithms` names, and the phase fails unless one
+    is named.
+    Then remat on the cells (and the cells and edges of the supernet; the
+    PC step is not checkpointed): gradients bit-equal to remat off's
+    where off repeats (else, the op named, within the step's limits),
+    launches equal to remat off's plus the checkpointed regions' forward
+    kernels once per backward through them, each setting's peak memory
+    and s a step."""
     from nas_3d_unet_tpu_torch.ops import _cuda
 
     t_phase = time.perf_counter()
@@ -2326,15 +2467,24 @@ def phase_remat(dev, seed):
         net, alphas, batches, cfg = search_inputs(dev, seed)
         xi = cfg.search.xi or cfg.search.w_lr
         first = {f"{k}_bf16": n for k, n in _search_per_step(net)[1].items()}
-        second = {f"{k}_bf16": sum(r[-1] for r in rows)
-                  for k, rows in SU_TABLES}
+
+        def per_step(tables):
+            return {f"{k}_bf16": sum(r[-1] for r in rows)
+                    for k, rows in tables}
+
+        e = REMAT_SECOND_PATCH
         # first-order: the α-step's backward and the w-step's; second-
         # order: the α-step's inner and outer backwards (the train
         # forward's regions twice, the val forward's once), the w-step's
         steps += [("first", net, alphas, batches, first, 2, ALPHA_LIMITS),
-                  ("second", net, alphas, batches, second, 4,
-                   UNROLLED_ALPHA_LIMITS)]
+                  ("second", net, alphas,
+                   [t[:, :e, :e, :e].contiguous() for t in batches],
+                   per_step(SU_TABLES), 4, UNROLLED_ALPHA_LIMITS),
+                  ("pc", None, None, None, per_step(SPC_TABLES), 2,
+                   PC_ALPHA_LIMITS)]
         for kind, model, al, b, base, passes, a_limits in steps:
+            if kind == "pc":            # its own supernet, built when due
+                model, al, b, _ = search_inputs(dev, seed, pc_k=2)
             cells, edges = remat_per_forward(model)
             names = [n for n, _ in model.named_parameters()]
 
@@ -2351,58 +2501,58 @@ def phase_remat(dev, seed):
                      "peak_mem_gb": torch.cuda.max_memory_allocated(dev)
                      / 2 ** 30,
                      "losses": losses, "launches": dict(_cuda.LAUNCHES),
-                     "digest": _digest([*ga, *gw])[:16]}
+                     "digest": _digest([*ga, *gw, torch.tensor(losses)])[:16]}
                 _set_remat(model, False, False)
                 model.zero_grad(set_to_none=True)
                 return r, (ga, gw)
 
-            settings = (["off", "cells"] if kind == "derived"
-                        else list(REMAT_SETTINGS))
             runs, grads = {}, {}
+            runs["off"], grads["off"] = run("off")
+            digests = [runs["off"]["digest"]]
+            for _ in range(REPEAT_RUNS - 1):
+                digests.append(run("off")[0]["digest"])
+            repeats = len(set(digests)) == 1
+            ops = None                  # looked for where it does not
+            if not repeats:
+                ops = nondeterministic_ops(
+                    lambda: _remat_grads(kind, model, al, b, xi))
+                model.zero_grad(set_to_none=True)
+            settings = {"derived": ["cells"], "pc": []}.get(
+                kind, ["cells", "cells_edges"])
             for name in settings:
                 runs[name], grads[name] = run(name)
-                runs[name]["expected_launches"] = _remat_expected(
+            for name, r in runs.items():
+                r["expected_launches"] = _remat_expected(
                     base, cells, edges, passes, *REMAT_SETTINGS[name])
             rec = {"phase": "remat", "step": kind,
+                   "off_digests": digests, "repeats": repeats,
+                   "nondeterministic_ops": ops,
                    "per_forward_in_cells": cells,
                    "per_forward_in_edges": edges,
                    "backwards_through_regions": passes}
             off = grads["off"]
-            repeats = None              # does remat off repeat its bits?
-            for name, r in runs.items():
-                bit = _same(grads[name][0], off[0]) and _same(
-                    grads[name][1], off[1]) \
+            for name in settings:
+                r = runs[name]
+                r["bit_equal_to_off"] = _same(grads[name][0], off[0]) \
+                    and _same(grads[name][1], off[1]) \
                     and r["losses"] == runs["off"]["losses"]
-                r["bit_equal_to_off"] = bit
-                if bit:
+                if r["bit_equal_to_off"]:
                     continue
                 r["w"] = leaf_stats(names, grads[name][1], off[1])
                 r["alpha"] = (leaf_stats(list(al), grads[name][0], off[0],
                                          a_limits) if al else None)
-                if repeats is None:
-                    r2, g2 = run("off")
-                    repeats = _same(g2[0], off[0]) and _same(g2[1], off[1])
-                    rec["off_rerun_digest"] = r2["digest"]
-                if not repeats:
-                    r["reason"] = "remat off does not repeat bit for bit"
-                    continue
-                # remat off repeated: the setting must give off's bits
-                # again within REMAT_RERUNS runs, else remat changes them
-                r["rerun_digests"] = []
-                for _ in range(REMAT_RERUNS):
-                    r2, g2 = run(name)
-                    r["rerun_digests"].append(r2["digest"])
-                    r["rerun_bit_equal_to_off"] = _same(g2[0], off[0]) \
-                        and _same(g2[1], off[1])
-                    if r["rerun_bit_equal_to_off"]:
-                        break
-                r["reason"] = ("a rerun is bit-equal to off: the step did "
-                               "not repeat once"
-                               if r["rerun_bit_equal_to_off"]
-                               else "remat changes the bits")
+                r["reason"] = ("remat changes the bits of a step that "
+                               "repeats" if repeats else
+                               "remat off does not repeat its bits: "
+                               + "; ".join(ops))
             del grads
             emit(rec | runs)
             out[kind] = rec | runs
+            if not repeats and not ops:
+                raise AssertionError(
+                    f"remat {kind}: remat off gave {len(set(digests))} "
+                    f"digests in {REPEAT_RUNS} runs and no op is named as "
+                    "nondeterministic")
             for name, r in runs.items():
                 if r["launches"] != r["expected_launches"]:
                     raise AssertionError(
@@ -2411,17 +2561,16 @@ def phase_remat(dev, seed):
                 if not all(map(math.isfinite, r["losses"])):
                     raise AssertionError(f"remat {kind} {name}: losses "
                                          f"{r['losses']}")
-                if r.get("reason") == "remat changes the bits":
-                    raise AssertionError(
-                        f"remat {kind} {name}: remat off repeats its bits, "
-                        "remat does not give them")
-                if not r["bit_equal_to_off"] and not (
-                        r["w"]["ok"] and (r["alpha"] is None
+                if name == "off" or r["bit_equal_to_off"]:
+                    continue
+                if repeats:
+                    raise AssertionError(f"remat {kind} {name}: {r['reason']}")
+                if not (r["w"]["ok"] and (r["alpha"] is None
                                           or r["alpha"]["ok"])):
                     raise AssertionError(f"remat {kind} {name}: gradients "
                                          "off remat off's limits")
             del runs
-        del derived, net, alphas, batches
+        del steps, derived, net, alphas, batches, model, al, b
     finally:
         cudnn.deterministic = saved
     torch.cuda.empty_cache()
@@ -3281,6 +3430,8 @@ def phase_cli(dev, seed, slice_s_per_patient, train_rec, tmp):
     from nas_3d_unet_tpu_torch.utils.config import (load_config,
                                                     parse_overrides)
 
+    from nas_3d_unet_tpu_torch.data.native import _native
+
     t_phase = time.perf_counter()
     root = os.path.dirname(os.path.abspath(__file__))
     write_raw_patients(os.path.join(tmp, "raw"), seed)
@@ -3296,8 +3447,28 @@ def phase_cli(dev, seed, slice_s_per_patient, train_rec, tmp):
     for o in overrides:
         base += ["-o", o]
 
-    # preprocess
+    # preprocess, on the native path (as by default), then timed beside it
+    # on the numpy path into a store of its own
+    _native.CALLS.clear()
     _, pre_s = _cli(["preprocess", *base])
+    native_calls = dict(_native.CALLS)
+    with mock.patch.dict(os.environ, {"NAS3D_NO_NATIVE": "1"}):
+        _, pre_numpy_s = _cli(["preprocess", *base, "-o",
+                               f"data.processed_dir={tmp}/store_numpy"])
+    numpy_calls = dict(_native.CALLS)
+    native_vs_numpy = {}
+    for name in sorted(os.listdir(f"{tmp}/store_numpy")):
+        with np.load(os.path.join(cfg.data.processed_dir, name)) as f:
+            a = {k: f[k] for k in ("image", "crop_start", "label")}
+        with np.load(f"{tmp}/store_numpy/{name}") as f:
+            b = {k: f[k] for k in ("image", "crop_start", "label")}
+        native_vs_numpy[name] = {
+            "image_max_abs": float(np.abs(a["image"] - b["image"]).max()),
+            "image_differ": int((a["image"] != b["image"]).sum()),
+            "crop_and_label_equal": bool(
+                np.array_equal(a["crop_start"], b["crop_start"])
+                and np.array_equal(a["label"], b["label"]))}
+    shutil.rmtree(f"{tmp}/store_numpy")
     store = sorted(os.listdir(cfg.data.processed_dir))
     crops = []
     for name in store:
@@ -3422,6 +3593,12 @@ def phase_cli(dev, seed, slice_s_per_patient, train_rec, tmp):
     pps = [e["patches_per_sec"] for e in epochs]
     rec = {"phase": "cli", "seconds": time.perf_counter() - t_phase,
            "write_raw_s": write_s, "preprocess_s": pre_s,
+           "preprocess_s_per_patient": {
+               "native": pre_s / CLI_PATIENTS,
+               "numpy": pre_numpy_s / CLI_PATIENTS},
+           "native_ran": native_calls, "native_library": str(
+               _native.library_path()) if _native.available() else None,
+           "native_vs_numpy": native_vs_numpy,
            "train_s": train_s, "resume_runs_s": [r1_s, r2_s],
            "predict_s": predict_s, "raw_shape": list(RAW_SHAPE),
            "crops": [list(c) for c in crops],
@@ -3451,6 +3628,14 @@ def phase_cli(dev, seed, slice_s_per_patient, train_rec, tmp):
            "predict_launches": predict_launches,
            "expected_predict_launches": expected_predict}
     emit(rec)
+    if native_calls != {"zscore_in_mask": 4 * CLI_PATIENTS,
+                        "union_foreground_bbox": CLI_PATIENTS} \
+            or numpy_calls != native_calls:
+        raise AssertionError(f"preprocess: native calls {native_calls}, "
+                             f"then {numpy_calls} ({_native.build_error()})")
+    if not all(v["crop_and_label_equal"] and v["image_max_abs"] <= 1e-5
+               for v in native_vs_numpy.values()):
+        raise AssertionError(f"native against numpy: {native_vs_numpy}")
     if not ok_train:
         raise AssertionError(f"train: epochs {epochs}, metadata {meta}")
     if resumes != [spe] or not resave_equal:
@@ -3472,6 +3657,286 @@ def phase_cli(dev, seed, slice_s_per_patient, train_rec, tmp):
         raise AssertionError(
             f"launches: train {train_launches} != {expected_train}, "
             f"predict {predict_launches} != {expected_predict}")
+    return rec
+
+
+# Phase "quality": the chip-scale twins of the JAX package's quality runs
+# (experiments/r4_learn_chip.py, r5_genotype_chip.py): 4 patients of
+# QUALITY_SHAPE, 64^3 patches, batch 1, the shipped bf16 body at base 16,
+# depth 3, 3 nodes; train 4 x 50 steps at lr 1e-3; search 3 x 40 steps (1
+# warmup epoch; r5's 5 x 40 took ~410 s a search on the H100, a bilevel
+# step at 64^3 ~2.2 s, most of it host time) at α lr 3e-2 with 2 eval
+# batches; no augmentation on the shift task (a flip reverses the shift
+# the label encodes).  Each task's commands run in a child process
+# beside phases "dp" and "spatial".
+QUALITY_SHAPE = (96, 112, 80)
+QUALITY_PATIENTS = 4
+QUALITY_SHIFT = 6
+QUALITY_OVERRIDES = [
+    "data.patch_size=(64,64,64)", "data.batch_size=1",
+    "data.val_fraction=0.25", "model.base_channels=16", "model.depth=3",
+    "model.n_nodes=3", "model.gn_groups=8", "model.dtype=bfloat16",
+    "model.remat=false", "train.epochs=4", "train.steps_per_epoch=50",
+    "train.lr=0.001", "infer.patch_size=(64,64,64)", "infer.overlap=0.5",
+    "infer.batch_size=1", "parallel.data_parallel=1"]
+QUALITY_SEARCH = [
+    "data.flip_prob=0", "data.intensity_shift=0", "data.intensity_scale=0",
+    "search.epochs=3", "search.steps_per_epoch=40", "search.warmup_epochs=1",
+    "search.alpha_lr=0.03", "search.val_steps=2", "search.batch_size=1"]
+QUALITY_WT = 0.7
+QUALITY_TIMEOUT = 900           # the children's commands, from their start
+QUALITY_CONV_OPS = 3
+QUALITY_KERNELS = ("conv3x3x3_stats_bf16", "conv3x3x3_bf16",
+                   "gemm_stats_bf16", "moments_bf16", "weighted_sums_bf16")
+CONV_FAMILY = {"conv3", "dil_conv3", "sep_conv3", "down_conv3",
+               "down_dil_conv3", "down_sep_conv3", "up_transpose", "up_conv3",
+               "up_sep_conv3"}
+NORMAL_GROUPS = ("down_mid", "up_skip", "up_mid")    # the α groups with none
+
+
+def write_quality_patients(raw_dir, task, seed):
+    """QUALITY_PATIENTS BraTS-layout patients of QUALITY_SHAPE (`.nii`):
+    "learn", r4_learn_chip.py's task (a blob in t1ce with a brighter core
+    and in flair over low noise, labelled 2 with a core of 4); "shift",
+    r5_genotype_chip.py's (the label is the t1ce blob shifted by
+    +QUALITY_SHIFT on every axis); "noise", the shift task's control (the
+    label blob placed independently of the image blob, as
+    tests/helpers.py `write_shifted_h5(noise=True)` places it)."""
+    from nas_3d_unet_tpu_torch.io.nifti import write_nifti
+
+    shape = QUALITY_SHAPE
+    rng = np.random.default_rng(seed)
+    zz, yy, xx = np.mgrid[:shape[0], :shape[1], :shape[2]]
+
+    def sphere(c, r):
+        return (zz - c[0]) ** 2 + (yy - c[1]) ** 2 + (xx - c[2]) ** 2 < r * r
+
+    for i in range(QUALITY_PATIENTS):
+        name = f"BraTS19_{task}_{i}"
+        pdir = os.path.join(raw_dir, "HGG" if i % 2 == 0 else "LGG", name)
+        os.makedirs(pdir)
+        seg = np.zeros(shape, np.uint8)
+        if task == "learn":
+            c = [int(rng.integers(2 * n // 5, 3 * n // 5)) for n in shape]
+            r = min(shape) // 3
+            blob, core = sphere(c, r), sphere(c, r - 8)
+            seg[blob], seg[core] = 2, 4
+        else:
+            r = min(shape) // 4
+            c = [int(rng.integers(r + 2, n - r - QUALITY_SHIFT - 2))
+                 for n in shape]
+            blob = sphere(c, r)
+            cl = ([int(rng.integers(r + 2, n - r - 2)) for n in shape]
+                  if task == "noise" else [v + QUALITY_SHIFT for v in c])
+            seg[sphere(cl, r)], seg[sphere(cl, r - 6)] = 2, 4
+        for mod in ("t1", "t1ce", "t2", "flair"):
+            vol = rng.random(shape).astype(np.float32) * 0.2 + 0.1
+            if mod == "t1ce":
+                vol = vol + 1.0 * blob
+                if task == "learn":
+                    vol = vol + 0.5 * core
+            elif mod == "flair" and task == "learn":
+                vol = vol + 0.8 * blob
+            if task == "learn":
+                vol += rng.random(shape).astype(np.float32) * 0.05
+            write_nifti(os.path.join(pdir, f"{name}_{mod}.nii"), vol)
+        write_nifti(os.path.join(pdir, f"{name}_seg.nii"), seg)
+
+
+def _alpha_masses(alphas):
+    """Mean softmax mass of the conv-family ops and of `none` over the
+    α groups drawn from NORMAL_OPS (tests/test_search_quality.py's)."""
+    from nas_3d_unet_tpu_torch.ops.primitives import NORMAL_OPS
+
+    probs = []
+    for g in NORMAL_GROUPS:
+        a = np.asarray(alphas[g], np.float64)
+        p = np.exp(a - a.max(-1, keepdims=True))
+        probs.append(p / p.sum(-1, keepdims=True))
+    p = np.concatenate(probs)
+    conv = [i for i, o in enumerate(NORMAL_OPS) if o in CONV_FAMILY]
+    return (float(p[:, conv].sum(-1).mean()),
+            float(p[:, NORMAL_OPS.index("none")].mean()))
+
+
+def _quality_args(dev, tmp, task, cmd):
+    """The command line of `cmd` on quality task `task` under `tmp`: the
+    root config.json with QUALITY_OVERRIDES (and QUALITY_SEARCH on the
+    shift and noise tasks) and the task's directories."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    d = os.path.join(tmp, task)
+    args = [cmd, "-c", os.path.join(root, "config.json"), "--device",
+            str(dev)]
+    for o in [*QUALITY_OVERRIDES,
+              *(QUALITY_SEARCH if task != "learn" else []),
+              f"data.raw_dir={d}/raw", f"data.processed_dir={d}/store",
+              f"train.checkpoint_dir={d}/train",
+              f"infer.checkpoint_dir={d}/train", f"infer.output_dir={d}/pred",
+              f"search.checkpoint_dir={d}/search",
+              f"train.genotype_path={d}/search/genotype.json"]:
+        args += ["-o", o]
+    return args
+
+
+# commands (a JSON list of command lines) in a child process, one after
+# the other, with TF32 off and cuDNN's deterministic algorithms; after
+# each, a line with its seconds and the kernels it launched
+_QUALITY_CHILD = """import json
+import sys
+import time
+import torch
+from nas_3d_unet_tpu_torch.cli import main
+from nas_3d_unet_tpu_torch.ops import _cuda
+from nas_3d_unet_tpu_torch.utils.precision import strict_fp32
+torch.backends.cudnn.deterministic = True
+with strict_fp32():
+    for args in json.loads(sys.argv[1]):
+        _cuda.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        if main(args):
+            sys.exit(1)
+        torch.cuda.synchronize()
+        print(json.dumps({"command": args[0],
+                          "seconds": time.perf_counter() - t0,
+                          "launches": dict(_cuda.LAUNCHES)}), flush=True)
+"""
+# each child's commands: (a), (b), (c)
+QUALITY_CHILDREN = {"learn": ("train", "predict"),
+                    "shift": ("search", "train", "predict"),
+                    "noise": ("search",)}
+
+
+def quality_start(dev, seed, tmp):
+    """Phase "quality"'s first half: the three tasks' patients written
+    and preprocessed here (the native path counted), then each task's
+    commands started in a child process (QUALITY_CHILDREN), to run beside
+    the phases that follow; `quality_finish` waits for them."""
+    from nas_3d_unet_tpu_torch.data.native import _native
+
+    t_phase = time.perf_counter()
+    rec = {"phase": "quality", "cudnn_deterministic": True,
+           "shape": list(QUALITY_SHAPE), "patients": QUALITY_PATIENTS,
+           "search": QUALITY_SEARCH, "seconds_by_stage": {}, "launches": {}}
+    secs = rec["seconds_by_stage"]
+    for task in QUALITY_CHILDREN:
+        t0 = time.perf_counter()
+        write_quality_patients(os.path.join(tmp, task, "raw"), task, seed)
+        secs[f"{task}_write"] = time.perf_counter() - t0
+        _native.CALLS.clear()
+        _, secs[f"{task}_preprocess"] = _cli(
+            _quality_args(dev, tmp, task, "preprocess"))
+        rec[f"{task}_native_calls"] = dict(_native.CALLS)
+    root = os.path.dirname(os.path.abspath(__file__))
+    children = {}
+    try:
+        for task, cmds in QUALITY_CHILDREN.items():
+            path = os.path.join(tmp, task, "commands.log")
+            with open(path, "w") as log:
+                children[task] = (subprocess.Popen(
+                    [sys.executable, "-c", _QUALITY_CHILD, json.dumps(
+                        [_quality_args(dev, tmp, task, c) for c in cmds])],
+                    cwd=root, stdout=log, stderr=subprocess.STDOUT), path)
+    except BaseException:
+        quality_stop(children)
+        raise
+    return {"rec": rec, "tmp": tmp, "children": children,
+            "t_phase": t_phase, "t_children": time.perf_counter()}
+
+
+def quality_stop(children):
+    """Kill the children of `quality_start` that still run."""
+    for proc, _ in children.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def quality_finish(q):
+    """Phase "quality"'s second half: wait for the children, read their
+    results and hold them to the bars.  Whether the port learns and
+    whether its search selects signal, at chip scale, through the
+    commands on NIfTI written from the seed: (a) `train` (the default
+    genotype) and `predict` on the learnable task: mean WT Dice >=
+    QUALITY_WT; (b) `search`, `train` of the searched genotype and
+    `predict` on the shift task: WT >= QUALITY_WT and >= QUALITY_CONV_OPS
+    conv-family ops in the genotype; (c) the same search on the noise
+    control: the signal's final conv mass above the control's.  The
+    native preprocessing ran, and every search and train launched K1,
+    K1-dx, K2, K5a and K5b.  The commands run under cuDNN's
+    deterministic algorithms, so the phase's numbers repeat run to run."""
+    from nas_3d_unet_tpu_torch.data.native import _native
+    from nas_3d_unet_tpu_torch.models.genotype import Genotype
+    from nas_3d_unet_tpu_torch.train.checkpoint import (latest_checkpoint,
+                                                        load_checkpoint)
+
+    rec, tmp = q["rec"], q["tmp"]
+    secs = rec["seconds_by_stage"]
+    deadline = q["t_children"] + QUALITY_TIMEOUT
+    outputs = {}
+    try:
+        for task, (proc, path) in q["children"].items():
+            rc = proc.wait(timeout=max(1.0, deadline - time.perf_counter()))
+            with open(path) as f:
+                out = f.read()
+            if rc != 0:
+                raise AssertionError(f"quality {task}: the commands exited "
+                                     f"{rc}:\n{out[-3000:]}")
+            outputs[task] = [json.loads(ln) for ln in out.splitlines()
+                             if ln.startswith("{")]
+    finally:
+        quality_stop(q["children"])
+    secs["children_wall"] = time.perf_counter() - q["t_children"]
+    for task, lines in outputs.items():
+        for ln in lines:
+            if "command" in ln:
+                secs[f"{task}_{ln['command']}"] = ln["seconds"]
+                rec["launches"][f"{task}_{ln['command']}"] = {
+                    k: ln["launches"].get(k, 0) for k in QUALITY_KERNELS}
+        if task != "noise":
+            rec[f"{task}_train_losses"] = [
+                e["train_loss"] for e in lines
+                if e.get("event") == "epoch" and "mean_dice" in e]
+            done = [e for e in lines if e.get("event") == "predict_done"]
+            rec[f"{task}_dice"] = done[-1].get("mean_dice") if done else None
+    for task in ("shift", "noise"):
+        d = os.path.join(tmp, task, "search")
+        genotype = Genotype.load(os.path.join(d, "genotype.json"))
+        ops = [op for node in genotype.down + genotype.up for _, op in node]
+        arrays = load_checkpoint(latest_checkpoint(d)[1])
+        conv, none = _alpha_masses({k[len("alphas/"):]: v
+                                    for k, v in arrays.items()
+                                    if k.startswith("alphas/")})
+        epochs = [e for e in _jsonl(os.path.join(d, "metrics.jsonl"))
+                  if e.get("event") == "epoch"]
+        rec[f"{task}_search"] = {
+            "conv_ops": sum(op in CONV_FAMILY for op in ops),
+            "ops": len(ops), "conv_mass": conv, "none_mass": none,
+            "eval_dice_wt": [e.get("dice_wt") for e in epochs
+                             if not e["warmup"]]}
+    rec["seconds"] = time.perf_counter() - q["t_phase"]
+    emit(rec)
+    for task in QUALITY_CHILDREN:
+        if rec[f"{task}_native_calls"] != {
+                "zscore_in_mask": 4 * QUALITY_PATIENTS,
+                "union_foreground_bbox": QUALITY_PATIENTS}:
+            raise AssertionError(f"quality {task}: the native preprocessing "
+                                 f"did not run ({_native.build_error()})")
+    for stage, launches in rec["launches"].items():
+        if stage.endswith(("_train", "_search")) and not all(
+                launches.values()):
+            raise AssertionError(f"quality {stage}: a kernel never launched "
+                                 f"{launches}")
+    for task in ("learn", "shift"):
+        dice = rec[f"{task}_dice"]
+        if not dice or not dice["WT"] >= QUALITY_WT:
+            raise AssertionError(f"quality {task}: WT Dice {dice} < "
+                                 f"{QUALITY_WT}")
+    if rec["shift_search"]["conv_ops"] < QUALITY_CONV_OPS:
+        raise AssertionError(f"quality: the searched genotype holds "
+                             f"{rec['shift_search']['conv_ops']} conv ops")
+    if not rec["shift_search"]["conv_mass"] > rec["noise_search"]["conv_mass"]:
+        raise AssertionError("quality: the signal's conv mass is not above "
+                             "the control's")
     return rec
 
 
@@ -3899,6 +4364,9 @@ def main() -> int:
     # one rank of phase "spatial"
     for name in ("--sp-rank", "--sp-dir", "--sp-device"):
         ap.add_argument(name, default=None, help=argparse.SUPPRESS)
+    # phase "train"'s traced step, in a process of its own
+    for name in ("--trace-dir", "--trace-device"):
+        ap.add_argument(name, default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     t_script = time.perf_counter()
 
@@ -3909,6 +4377,8 @@ def main() -> int:
         return dp_rank_main(args)
     if args.sp_rank is not None:
         return spatial_rank_main(args)
+    if args.trace_dir is not None:
+        return trace_step_main(args)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -3938,6 +4408,18 @@ def main() -> int:
           "ptxas_gemm_fma": ptxas_report(log, (GFMA,)),
           "ptxas_stats": ptxas_report(log, (K5,))})
 
+    # the C++ host path (data/native/), built from its source here too
+    from nas_3d_unet_tpu_torch.data.native import _native
+
+    _native.library_path().unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    if not _native.available():
+        raise AssertionError(f"the native preprocessing library does not "
+                             f"build: {_native.build_error()}")
+    emit({"phase": "build_native", "seconds": time.perf_counter() - t0,
+          "library": str(_native.library_path()),
+          "flags": " ".join(_native.FLAGS)})
+
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
     summary = Summary()
@@ -3955,8 +4437,16 @@ def main() -> int:
                 dev, gen, args.seed)
             pc, both, pc_s = phase_search_pc(dev, gen, args.seed)
             remat, remat_s = phase_remat(dev, args.seed)
-            dp = phase_dp(dev, args.seed, cli_tmp)
-            sp = phase_spatial(dev, args.seed, cli_tmp)
+            # phase "quality"'s commands run in child processes beside
+            # phases "dp" and "spatial" (their s a step share the card)
+            q = quality_start(dev, args.seed, cli_tmp)
+            try:
+                dp = phase_dp(dev, args.seed, cli_tmp)
+                sp = phase_spatial(dev, args.seed, cli_tmp)
+            except BaseException:
+                quality_stop(q["children"])
+                raise
+            quality = quality_finish(q)
         phase_pallas_kernels(dev, gen, summary)
         p_serve_launches, p_s_per_patient = phase_slice(dev, args.seed, True)
         p_train_launches, p_train = phase_train(dev, args.seed, True)
@@ -3997,6 +4487,12 @@ def main() -> int:
           "dp_backend": dp["backend"], "spatial_s": sp["seconds"],
           "spatial_step_s": sp["steps"]["step_s"],
           "spatial_second_order_s": sp["grads_second"]["first_call_s"],
+          "quality_s": quality["seconds"],
+          "quality_wt": {t: quality[f"{t}_dice"]["WT"]
+                         for t in ("learn", "shift")},
+          "quality_conv_mass": {t: quality[f"{t}_search"]["conv_mass"]
+                                for t in ("shift", "noise")},
+          "remat_repeats": {k: r["repeats"] for k, r in remat.items()},
           "script_s": time.perf_counter() - t_script,
           "card": smi, "build_s": build_s})
     # each kernel's launches in the run of its path: the default path's

@@ -2,7 +2,7 @@
 """Readings behind `chip_smoke.py`'s gradient limits, on one NVIDIA GPU.
 
     python3 grad_parity.py [--seeds 0 1 2 3] [--use-pallas | --search |
-                            --remat-repeats]
+                            --remat-repeats | --repeats]
 
 For each seed: the bf16 flagship at 128^3, batch 2, microbatch 1 (weights
 and batch from the seed, as chip_smoke.py's phase "train" makes them), one
@@ -49,7 +49,12 @@ digests of the α and w gradients and how many w leaves differ from the
 step's first run.
 Prints one JSON line per run: the largest per-leaf relative L2 distance,
 the smallest cosine, the largest relative difference of the norms, and
-whether chip_smoke.py's limits pass it.  Imports nothing of JAX.
+whether chip_smoke.py's limits pass it.
+--repeats: whether the first-order and second-order steps repeat their
+bits (cuDNN deterministic, the shipped supernet, the first seed), with the
+upsample as `F.interpolate` and as the port's stencil: the ops
+`torch.use_deterministic_algorithms` names, and chip_smoke.py's
+REPEAT_RUNS runs' digests and seconds.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -253,6 +258,61 @@ def remat_repeats_main(seed, smi, dev) -> None:
                               differ[:3], "card": smi}), flush=True)
 
 
+def _interpolate_upsample(x):
+    """The port's trilinear 2× upsample before it became a stencil of
+    slices: `F.interpolate` on the NCDHW view in fp32, rounded once (one
+    process only: no slab)."""
+    from nas_3d_unet_tpu_torch.ops.stats import _acc
+
+    y = torch.nn.functional.interpolate(
+        _acc(x).permute(0, 4, 1, 2, 3), scale_factor=2, mode="trilinear",
+        align_corners=False)
+    return y.to(x.dtype).permute(0, 2, 3, 4, 1).contiguous()
+
+
+def repeats_main(seed, smi, dev) -> None:
+    """--repeats: whether the search steps repeat their bits (cuDNN
+    deterministic, the shipped supernet at 128^3, the first seed), with
+    the upsample as `F.interpolate` (whose CUDA backward adds with
+    atomics) and as the port's stencil of slices: per step the ops
+    `torch.use_deterministic_algorithms(True, warn_only=True)` names in
+    one run, then REPEAT_RUNS runs' gradient digests and seconds."""
+    import time
+
+    from chip_smoke import (REPEAT_RUNS, _digest, _remat_grads,
+                            nondeterministic_ops, search_inputs)
+    from nas_3d_unet_tpu_torch.ops import pool
+
+    torch.backends.cudnn.deterministic = True
+    net, alphas, batches, cfg = search_inputs(dev, seed)
+    xi = cfg.search.xi or cfg.search.w_lr
+    for variant, up in (("interpolate", _interpolate_upsample),
+                        ("stencil", pool.upsample2x)):
+        with mock.patch.object(pool, "upsample2x", up):
+            for kind in ("first", "second"):
+                def step():
+                    out = _remat_grads(kind, net, alphas, batches, xi)
+                    net.zero_grad(set_to_none=True)
+                    return out
+
+                ops = nondeterministic_ops(step)
+                digests, secs = [], []
+                for _ in range(REPEAT_RUNS):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    losses, ga, gw = step()
+                    torch.cuda.synchronize()
+                    secs.append(time.perf_counter() - t0)
+                    digests.append(_digest([*ga, *gw,
+                                            torch.tensor(losses)])[:16])
+                    del ga, gw
+                print(json.dumps({"upsample": variant, "step": kind,
+                                  "seed": seed, "nondeterministic_ops": ops,
+                                  "digests": digests,
+                                  "distinct": len(set(digests)), "s": secs,
+                                  "card": smi}), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seeds", type=int, nargs="+", default=[0, 1, 2, 3])
@@ -263,6 +323,9 @@ def main() -> int:
     ap.add_argument("--remat-repeats", action="store_true",
                     help="the search steps' bits, run after run, remat "
                     "off and on")
+    ap.add_argument("--repeats", action="store_true",
+                    help="the search steps' bits and the ops PyTorch "
+                    "names as nondeterministic, with either upsample")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("grad_parity: no CUDA device; nothing measured", file=sys.stderr)
@@ -284,6 +347,10 @@ def main() -> int:
     if args.remat_repeats:
         with strict_fp32():
             remat_repeats_main(args.seeds[0], smi, dev)
+        return 0
+    if args.repeats:
+        with strict_fp32():
+            repeats_main(args.seeds[0], smi, dev)
         return 0
     runs = [(s, "none", None) for s in args.seeds]
     if args.use_pallas:

@@ -16,12 +16,14 @@ names mirror the JAX package's so each counterpart is easy to find:
     train/    train step, eval step, plateau LR, AdamW, the Trainer and
               its .npz checkpoints
     data/     preprocessing to .npz, the patch pipeline and prefetcher,
-              device-side augmentation
+              device-side augmentation; data/native/: the C++ host path
+              (z-score, bounding box, batched crop)
     infer/    sliding-window whole-volume inference and the patient loop
     metrics/  BraTS label/region mapping, region Dice, training losses
     io/       NIfTI reading and writing
     utils/    JSON config, metrics logger, device choice, CUDA-event
-              timing, the fp32 precision policy, the bounds
+              timing, the fp32 precision policy, the bounds, the
+              profiling hooks
     cli.py    preprocess / search / train / predict
               (`python -m nas_3d_unet_tpu_torch`)
     experiments/  the measuring probes E1 (copy bandwidth) and E2 (K1's

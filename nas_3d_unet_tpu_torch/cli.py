@@ -39,7 +39,6 @@ one process.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
 import os
 import sys
@@ -51,6 +50,7 @@ import torch
 from .parallel import mesh as dp
 from .utils.config import load_config, parse_overrides
 from .utils.device import resolve_device
+from .utils.profiling import debug_nans
 
 
 def _load_cfg(args):
@@ -188,8 +188,9 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--device", default="cuda",
                         help="cuda (default; fails without a card) or cpu")
         sp.add_argument("--debug-nans", action="store_true",
-                        help="autograd anomaly detection: raise at the "
-                             "first NaN")
+                        help="raise at the first op that outputs a NaN, "
+                             "forward or backward (slow: every op waits "
+                             "for the device)")
         if name == "preprocess":
             sp.add_argument("-w", "--workers", type=int, default=0)
         sp.set_defaults(fn=fn)
@@ -203,11 +204,12 @@ def main(argv: Optional[List[str]] = None) -> int:
     started = started and dp.is_initialized()
     try:
         device = resolve_device(args.device)
-        ctx = (torch.autograd.detect_anomaly(check_nan=True)
-               if args.debug_nans else contextlib.nullcontext())
-        with ctx:
-            return args.fn(args, device)
+        if args.debug_nans:
+            debug_nans(True)
+        return args.fn(args, device)
     finally:
+        if args.debug_nans:
+            debug_nans(False)
         if started:                 # the group this call set up
             dp.destroy()
 

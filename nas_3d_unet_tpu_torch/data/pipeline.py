@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from ..metrics.dice import labels_to_class_indices_np, labels_to_regions_np
+from .native import crop_batch_native
 from .preprocess import load_patient
 
 
@@ -110,7 +111,10 @@ class PatchGenerator:
     index) and a resumed run, positioned with `set_step`, consumes the
     batches an uninterrupted one would.  Per sample the draws come in the
     reference's order: the patient index, the 3 starts, then the augment
-    draws."""
+    draws.  A batch that is not augmented, has labels and whose volumes
+    all hold a patch is cropped in one call of the C++ library
+    (`crop_batch_native`), as the JAX generator does, where the library
+    is built; the numpy crop gives the same bytes."""
 
     def __init__(self, cache: PatientCache, patch_size, batch_size: int,
                  seed: int = 0, augment: bool = True, flip_prob: float = 0.5,
@@ -149,12 +153,21 @@ class PatchGenerator:
         rng = np.random.default_rng((self.seed, self._step))
         self._step += 1
         recs, starts = [], []
+        fits = True                 # every volume at least a patch
         for _ in range(self.batch_size):
             rec = self.cache.records[rng.integers(0, len(self.cache))]
             shape = rec["image"].shape[:3]
+            fits = fits and all(s >= p for s, p in zip(shape, self.patch))
             starts.append([int(rng.integers(0, max(1, s - p + 1)))
                            for s, p in zip(shape, self.patch)])
             recs.append(rec)
+        if fits and not self.augment and "label_u8" in recs[0]:
+            st = np.asarray(starts, dtype=np.int64)
+            x = crop_batch_native([r["image"] for r in recs], st, self.patch)
+            y = crop_batch_native([r["label_u8"] for r in recs], st,
+                                  self.patch)
+            if x is not None and y is not None:
+                return x, self._decode_labels(y)
         xs, ys = [], []
         for rec, st in zip(recs, starts):
             img, lab = _crop_at(rec["image"], rec.get("label_u8"), st,

@@ -1,16 +1,18 @@
 """Offline BraTS preprocessing: NIfTI → one `.npz` per patient.
 
-Counterpart of `nas_3d_unet_tpu/data/preprocess.py` on its numpy path: walk
-the `HGG/` and `LGG/` patient dirs, read the four modalities and the
-segmentation, z-score each modality within its nonzero mask (mean and std
-in float64), crop everything to the union foreground bounding box, stack
-the modalities channels-last and write one file per patient.  The arrays
-are bitwise those the JAX package writes to HDF5.
+Counterpart of `nas_3d_unet_tpu/data/preprocess.py`: walk the `HGG/` and
+`LGG/` patient dirs, read the four modalities and the segmentation,
+z-score each modality within its nonzero mask (mean and std in float64),
+crop everything to the union foreground bounding box, stack the
+modalities channels-last and write one file per patient.  As there, the
+z-score and the bounding box run in the C++ library (`data/native/`)
+where it builds and `NAS3D_NO_NATIVE` is unset, else in numpy; on either
+path the arrays are bitwise those the JAX package writes to HDF5 on the
+same path (the two paths' z-scores differ in the last bits).
 
 A patient file holds `image` ((D, H, W, C) fp32), `label` ((D, H, W) uint8,
 when a segmentation exists), `crop_start`, `orig_shape` (int64), `affine`
-(4×4), `patient` and `modalities` (strings).  The C++ host path of the JAX
-package (`data/native/`) is not ported.
+(4×4), `patient` and `modalities` (strings).
 """
 
 from __future__ import annotations
@@ -23,9 +25,17 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..io.nifti import read_nifti
+from .native import available as _native_available
+from .native import union_bbox_native, zscore_native
 
 MODALITIES = ("t1", "t1ce", "t2", "flair")
 SEG_SUFFIX = "seg"
+
+
+def _use_native() -> bool:
+    """The JAX package's rule: the library where it builds, unless
+    `NAS3D_NO_NATIVE` is set."""
+    return _native_available() and not os.environ.get("NAS3D_NO_NATIVE")
 
 
 def zscore_in_mask(vol: np.ndarray,
@@ -34,6 +44,8 @@ def zscore_in_mask(vol: np.ndarray,
     the background stays 0."""
     vol = vol.astype(np.float32)
     if mask is None:
+        if _use_native():
+            return zscore_native(vol)
         mask = vol != 0
     vals = vol[mask]
     if vals.size == 0:
@@ -66,10 +78,13 @@ def preprocess_arrays(modality_vols: Sequence[np.ndarray],
     orig_shape = np.array(modality_vols[0].shape, dtype=np.int64)
     vols32 = [np.ascontiguousarray(v, dtype=np.float32)
               for v in modality_vols]
-    union = np.zeros(vols32[0].shape, dtype=bool)
-    for v in vols32:
-        union |= v != 0
-    bbox = foreground_bbox(union)
+    if _use_native():
+        bbox = union_bbox_native(vols32)
+    else:
+        union = np.zeros(vols32[0].shape, dtype=bool)
+        for v in vols32:
+            union |= v != 0
+        bbox = foreground_bbox(union)
     image = np.stack([zscore_in_mask(v)[bbox] for v in vols32],
                      axis=-1).astype(np.float32)          # (D, H, W, C)
     out = {

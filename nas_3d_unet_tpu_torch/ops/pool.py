@@ -32,13 +32,20 @@ the global D's pads (−inf for the max, 0 for the sums), the average's
 divisor counts the taps inside the global volume, and the upsample takes
 a plane of each neighbour: the forwards are the one-process bits.
 
-Upsample: `F.interpolate(..., mode="trilinear", align_corners=False)` on
-the NCDHW view, which is `jax.image.resize`'s half-pixel trilinear with
-clamped edges; it runs in fp32 and is rounded once, as `packed.py:1176
-packed_resize2x` does.
+Upsample: `jax.image.resize`'s half-pixel trilinear 2× with clamped
+edges, written as a separable stencil of shifted slices, D, then H, then
+W: along an axis, output 2i is 0.75·x[i] + 0.25·x[i−1] and output 2i+1 is
+0.75·x[i] + 0.25·x[i+1], and the two edge outputs are x's edge planes
+themselves (the clamp gives them weight 1).  It runs in fp32 and is
+rounded once, as `packed.py:1176 packed_resize2x` does (the W stencil
+there is this one).  Every op is elementwise or a slice, so the forward,
+the backward and its derivative add in a fixed order: `F.interpolate`'s
+CUDA backward accumulates with atomics and does not repeat its bits.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -99,6 +106,18 @@ def _counts(n: int, stride: int, first: int = 0,
             for o in range(o0, o0 + -(-n // stride))]
 
 
+@functools.lru_cache(maxsize=256)
+def _divisor(d: int, h: int, w: int, stride: int, first: int, total: int,
+             dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """The (D', H', W', 1) in-bounds tap counts of a pool over d × h × w
+    planes from D plane `first` of `total`, built once per geometry: a
+    host → device copy waits for the card's queue to drain."""
+    cd, ch, cw = (torch.tensor(c, dtype=dtype, device=device)
+                  for c in (_counts(d, stride, first, total),
+                            _counts(h, stride), _counts(w, stride)))
+    return cd.view(-1, 1, 1, 1) * ch.view(1, -1, 1, 1) * cw.view(1, 1, -1, 1)
+
+
 def avg_pool3(x: torch.Tensor, stride: int = 1) -> torch.Tensor:
     """3³ SAME average pool of NDHWC x, stride 1 or 2, without counting
     the pad: fp32 sums, one division, rounded once to x's dtype.  On a
@@ -109,28 +128,42 @@ def avg_pool3(x: torch.Tensor, stride: int = 1) -> torch.Tensor:
     for axis in (3, 1, 2):
         p0, p1, p2 = _shifted(s, axis, stride, 0.0, slab)
         s = p0 + p1 + p2
-    counts_d = (_counts(d, stride) if slab is None else
-                _counts(d, stride, slab.index * d, d * slab.size))
-    cd, ch, cw = (torch.tensor(c, dtype=s.dtype, device=x.device)
-                  for c in (counts_d, _counts(h, stride), _counts(w, stride)))
-    div = cd.view(-1, 1, 1, 1) * ch.view(1, -1, 1, 1) * cw.view(1, 1, -1, 1)
+    first, total = (0, d) if slab is None else (slab.index * d,
+                                                d * slab.size)
+    div = _divisor(d, h, w, stride, first, total, s.dtype, x.device)
     return (s / div).to(x.dtype)
+
+
+def _up_axis(x: torch.Tensor, axis: int) -> torch.Tensor:
+    """x upsampled 2× along `axis` by the half-pixel stencil, the edge
+    planes copied: n planes in, 2n out, interleaved (even, odd)."""
+    n = x.shape[axis]
+    a = 0.75 * x
+    even = torch.cat([x.narrow(axis, 0, 1),
+                      torch.add(a.narrow(axis, 1, n - 1),
+                                x.narrow(axis, 0, n - 1), alpha=0.25)], axis)
+    odd = torch.cat([torch.add(a.narrow(axis, 0, n - 1),
+                               x.narrow(axis, 1, n - 1), alpha=0.25),
+                     x.narrow(axis, n - 1, 1)], axis)
+    shape = list(x.shape)
+    shape[axis] = 2 * n
+    return torch.stack([even, odd], axis + 1).reshape(shape)
 
 
 def upsample2x(x: torch.Tensor) -> torch.Tensor:
     """Trilinear 2× upsample of NDHWC x (half-pixel, edges clamped), in
-    fp32, rounded once to x's dtype; NDHWC contiguous.  On a slab it runs
-    on x with a plane of each neighbour (none at a global end, where the
-    clamp then acts as in one process) and crops their output planes: each
-    output's weights are the same index arithmetic, so the bits are the
-    one-process ones."""
+    fp32, rounded once to x's dtype; NDHWC contiguous.  On a slab the D
+    stencil runs on x with a plane of each neighbour (none at a global
+    end, where the clamp then acts as in one process) and their output
+    planes are cropped before H and W: each output is the same arithmetic
+    on the same values, so the bits are the one-process ones."""
     slab = spatial.current()
     d = x.shape[1]
     lo = 0 if slab is None or slab.first else 1     # planes before x
+    xs = x if slab is None else spatial.halo_d(x, 1, 1, None, slab)
+    y = _up_axis(_acc(xs), 1)
     if slab is not None:
-        x = spatial.halo_d(x, 1, 1, None, slab)
-    y = F.interpolate(_acc(x).permute(0, 4, 1, 2, 3), scale_factor=2,
-                      mode="trilinear", align_corners=False)
-    if slab is not None:
-        y = y[:, :, 2 * lo:2 * (lo + d)]
-    return y.to(x.dtype).permute(0, 2, 3, 4, 1).contiguous()
+        y = y[:, 2 * lo:2 * (lo + d)]
+    for axis in (2, 3):
+        y = _up_axis(y, axis)
+    return y.to(x.dtype).contiguous()

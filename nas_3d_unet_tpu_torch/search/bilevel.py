@@ -318,20 +318,22 @@ class Searcher:
     w-part and an α-part (`split_patients`).  `search.partial_channels`
     > 1 rebuilds the supernet with that `pc_k` (`SuperNet.clone`);
     `search.unrolled` takes the second-order step, with ξ = `search.xi`,
-    or `search.w_lr` where that is 0.  The train batch is flipped
-    and jittered inside the step, with draws from the Searcher's generator
-    (saved in every checkpoint); the patch streams never augment on the
-    host.  `mesh`: the layout (None: `make_mesh` from `cfg.parallel`); the
-    search batch is the global one, each data index's streams are offset
-    by 100003·(data index) (the ranks of a spatial group read the same
-    patches and cut their slabs in the steps), every rank starts from rank
-    0's state, the α-split eval is averaged over the data axis and rank 0
-    writes `genotype.json`."""
+    or `search.w_lr` where that is 0.  With `device_augment` (the
+    default) the train batch is flipped and jittered inside the step and
+    the warmup step, with draws from the Searcher's generator (saved in
+    every checkpoint); without it neither step augments (a task whose
+    label encodes a direction, which a flip reverses).  The patch streams
+    never augment on the host.  `mesh`: the layout (None: `make_mesh`
+    from `cfg.parallel`); the search batch is the global one, each data
+    index's streams are offset by 100003·(data index) (the ranks of a
+    spatial group read the same patches and cut their slabs in the
+    steps), every rank starts from rank 0's state, the α-split eval is
+    averaged over the data axis and rank 0 writes `genotype.json`."""
 
     def __init__(self, supernet: nn.Module, cfg, data_paths: Sequence[str],
                  log_path: Optional[str] = None,
                  device: torch.device | str | None = None,
-                 mesh: Optional[Mesh] = None):
+                 mesh: Optional[Mesh] = None, device_augment: bool = True):
         sc, dc = cfg.search, cfg.data
         # partial channels: the supernet rebuilt with that pc_k, so that
         # every consumer below (steps, eval, init) sees one architecture
@@ -351,8 +353,9 @@ class Searcher:
         self.a_opt = make_optimizer(self.alphas.values(), sc.alpha_lr,
                                     sc.alpha_weight_decay)
         self.gen = torch.Generator(device=self.device)
-        aug = dict(flip_prob=dc.flip_prob, intensity_shift=dc.intensity_shift,
-                   intensity_scale=dc.intensity_scale)
+        aug = (dict(flip_prob=dc.flip_prob, intensity_shift=dc.intensity_shift,
+                    intensity_scale=dc.intensity_scale)
+               if device_augment else None)
         self.augment_val = bool(sc.augment_val)
         if sc.unrolled:
             xi = sc.xi if sc.xi > 0 else sc.w_lr        # `bilevel.py:221`

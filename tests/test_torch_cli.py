@@ -154,22 +154,25 @@ def test_without_a_card_a_command_fails(run, monkeypatch):
 
 def test_debug_nans_trains_under_anomaly_detection(run, tmp_path,
                                                   monkeypatch):
+    """`--debug-nans` goes through `utils/profiling.py` `debug_nans`: on
+    for the command (the NaN check on every op and autograd's anomaly
+    mode), off after it."""
     d, cfg, _ = run
     seen = []
-    real = torch.autograd.detect_anomaly
+    real = cli.debug_nans
 
-    def noted(check_nan=True):
-        seen.append(check_nan)
-        return real(check_nan=check_nan)
+    def noted(enable=True):
+        seen.append((enable, torch.is_anomaly_enabled()))
+        real(enable)
 
-    monkeypatch.setattr(torch.autograd, "detect_anomaly", noted)
-    with contextlib.redirect_stdout(io.StringIO()), \
-            pytest.warns(UserWarning, match="Anomaly Detection"):
+    monkeypatch.setattr(cli, "debug_nans", noted)
+    with contextlib.redirect_stdout(io.StringIO()):
         assert cli.main(["train", "-c", str(cfg), "--device", "cpu",
                          "--debug-nans", "-o", "train.epochs=1",
                          "-o", "train.steps_per_epoch=1",
                          "-o", f"train.checkpoint_dir={tmp_path}"]) == 0
-    assert seen == [True] and not torch.is_anomaly_enabled()
+    assert seen == [(True, False), (False, True)]
+    assert not torch.is_anomaly_enabled()
     assert (tmp_path / "ckpt_1.npz").exists()
 
 
@@ -218,7 +221,8 @@ def _template_init(self, *args, **kwargs):
 
 def test_predict_matches_the_jax_cli(run, tmp_path, monkeypatch):
     d, _, _ = run
-    monkeypatch.setenv("NAS3D_NO_NATIVE", "1")
+    # both commands preprocess on their default (native) path
+    monkeypatch.delenv("NAS3D_NO_NATIVE", raising=False)
     # the JAX CLI inits its net only for a checkpoint template, whose
     # values the checkpoint replaces: skip running flax's initialisers
     monkeypatch.setattr(JaxDerivedNet, "init", _template_init)

@@ -50,6 +50,8 @@ def test_scan_sees_the_package():
             "nas_3d_unet_tpu_torch/utils/device.py",
             "nas_3d_unet_tpu_torch/data/preprocess.py",
             "nas_3d_unet_tpu_torch/data/pipeline.py",
+            "nas_3d_unet_tpu_torch/data/native/_native.py",
+            "nas_3d_unet_tpu_torch/utils/profiling.py",
             "nas_3d_unet_tpu_torch/train/checkpoint.py",
             "nas_3d_unet_tpu_torch/train/loop.py",
             "nas_3d_unet_tpu_torch/models/unet.py",

@@ -15,6 +15,10 @@ the CPU, at base 4, depth 2, 2 nodes, 8³ patches, fp32:
     against the JAX `Searcher`'s on the same patients (the JAX side's
     steps stubbed to record their batches: its streams do not depend on
     them), bitwise;
+  * `Searcher(device_augment=False)` against the JAX
+    `Searcher(device_augment=False)` at depth 2 from the same weights and
+    α: a warmup and a bilevel epoch's losses and eval within 1e-5, the
+    final weights and α as the steps' test, the genotype;
   * a resumed search equals an uninterrupted one bit for bit: weights,
     both AdamW states, α, step, the augmentation generator, the genotype;
   * `search.unrolled` and `search.partial_channels` > 1 run in the
@@ -250,6 +254,76 @@ def test_searcher_streams_match_jax_batch_for_batch(stores, tmp_path,
     for (_, *a), (_, *b) in zip(seen["port"], seen["jax"]):
         for u, v in zip(a, b):
             assert u.dtype == v.dtype and np.array_equal(u, v)
+
+
+def _epochs(path):
+    with open(path) as f:
+        return [r for r in map(json.loads, f) if r.get("event") == "epoch"]
+
+
+def test_searcher_without_device_augment_matches_jax(stores, weights,
+                                                     tmp_path):
+    """`Searcher(device_augment=False)` against the JAX
+    `Searcher(device_augment=False)` from the same weights and α (both
+    inits replaced): a warmup epoch and a bilevel epoch of 2 steps, every
+    epoch's losses and α-split eval within 1e-5, then the final weights,
+    α and genotype.  With the default `device_augment` the port's warmup
+    losses differ: the flag is what turns the flips and jitter off."""
+    h5s, npzs = stores
+    params, al = weights
+    ov = {**CFG, "model.depth": 2, "search.val_steps": 1}
+    jcfg = jax_load_config(None, {**ov, "search.checkpoint_dir":
+                                  str(tmp_path / "j")})
+    js = jbilevel.Searcher(JaxSuperNet(remat=False, packed=False,
+                                       dtype_name="float32", **SMALL),
+                           jcfg, h5s, log_path=str(tmp_path / "j.jsonl"),
+                           device_augment=False)
+
+    def jax_init(rng):
+        js._resume_meta = {}
+        p = jax.tree_util.tree_map(jnp.asarray, params)
+        a = {k: jnp.asarray(v) for k, v in al.items()}
+        return jbilevel.SearchState(
+            params=p, w_opt=js.w_tx.init(p), alphas=a,
+            a_opt=js.a_tx.init(a), step=jnp.asarray(0, jnp.int32), rng=rng)
+
+    js.resume_or_init = jax_init
+    jstate, jgeno = js.search(epochs=2, steps_per_epoch=2)
+
+    def port(name, **kw):
+        cfg = load_config(None, {**ov, "search.checkpoint_dir":
+                                 str(tmp_path / name)})
+        s = bilevel.Searcher(make_supernet(cfg.model, cfg.data.num_classes),
+                             cfg, npzs,
+                             log_path=str(tmp_path / f"{name}.jsonl"),
+                             device="cpu", **kw)
+        init = s.init_state
+
+        def init_state(seed):
+            init(seed)
+            bridge.load_flax_params(s.net, params)
+            with torch.no_grad():
+                for k, a in s.alphas.items():
+                    a.copy_(torch.from_numpy(al[k]))
+
+        s.init_state = init_state
+        _, geno = s.search(epochs=2, steps_per_epoch=2)
+        return s, geno
+
+    ps, geno = port("p", device_augment=False)
+    got, want = _epochs(tmp_path / "p.jsonl"), _epochs(tmp_path / "j.jsonl")
+    assert [r["warmup"] for r in got] == [r["warmup"] for r in want] \
+        == [True, False]
+    for g, w in zip(got, want):
+        for k in ("train_loss", "val_loss", "eval_loss", "dice_wt",
+                  "dice_tc", "dice_et"):
+            if k in w:
+                assert abs(g[k] - w[k]) <= 1e-5, (g["epoch"], k)
+    _compare(ps.net, ps.alphas, jstate)
+    assert json.loads(geno.to_json()) == json.loads(jgeno.to_json())
+    port("aug")
+    assert _epochs(tmp_path / "aug.jsonl")[0]["train_loss"] \
+        != got[0]["train_loss"]
 
 
 def test_search_resume_is_trajectory_exact(stores, tmp_path):

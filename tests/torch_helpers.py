@@ -1,5 +1,6 @@
 """Shared fixtures of the port's tests: small BraTS-layout raw patients,
-the same preprocessed patients in both packages' stores, and one torch
+the same preprocessed patients in both packages' stores, the quality
+tasks of tests/helpers.py as the port's `.npz` patients, and one torch
 thread per test module."""
 
 import os
@@ -75,6 +76,91 @@ def write_stores(root, shapes=((20, 18, 16), (12, 14, 10), (24, 20, 18)),
         h5s.append(h5)
         npzs.append(npz)
     return h5s, npzs
+
+
+def _write_patient_npz(path, vols, seg, name):
+    """One patient's `.npz` from raw arrays, as `preprocess` writes it
+    (the port's `preprocess_arrays`, an identity affine)."""
+    from nas_3d_unet_tpu_torch.data.preprocess import preprocess_arrays
+
+    rec = preprocess_arrays(vols, seg)
+    np.savez(path, image=rec["image"], label=rec["label"],
+             crop_start=rec["crop_start"], orig_shape=rec["orig_shape"],
+             affine=np.eye(4, dtype=np.float32), patient=np.array(name))
+    return path
+
+
+def write_learnable_npz(out_dir, n_patients=4, shape=(28, 28, 28), seed=0):
+    """The arrays of tests/helpers.py `write_learnable_h5` as the port's
+    `.npz` patients (the same draws in the same order): a blob in t1ce
+    (with a brighter core) and flair over low noise, labelled edema (2)
+    with an enhancing core (4); a net learns it only if the stack
+    learns."""
+    os.makedirs(out_dir, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    zz, yy, xx = np.mgrid[:shape[0], :shape[1], :shape[2]]
+    paths = []
+    for i in range(n_patients):
+        c = [int(rng.integers(2 * s // 5, 3 * s // 5)) for s in shape]
+        r = min(shape) // 3
+        d2 = (zz - c[0]) ** 2 + (yy - c[1]) ** 2 + (xx - c[2]) ** 2
+        blob = (d2 < r * r).astype(np.float32)
+        core = (d2 < (r - 3) ** 2).astype(np.float32)
+        vols = []
+        for m in range(4):
+            v = rng.random(shape).astype(np.float32) * 0.2 + 0.1
+            if m == 1:
+                v = v + 1.0 * blob + 0.5 * core
+            elif m == 3:
+                v = v + 0.8 * blob
+            v += rng.random(shape).astype(np.float32) * 0.05
+            vols.append(v)
+        seg = np.zeros(shape, np.uint8)
+        seg[blob > 0] = 2
+        seg[core > 0] = 4
+        paths.append(_write_patient_npz(
+            os.path.join(out_dir, f"LEARN_{i}.npz"), vols, seg,
+            f"LEARN_{i}"))
+    return paths
+
+
+def write_shifted_npz(out_dir, n_patients=4, shape=(20, 20, 20), shift=3,
+                      seed=0, noise=False):
+    """The arrays of tests/helpers.py `write_shifted_h5` as the port's
+    `.npz` patients: the label blob is the t1ce blob shifted by +`shift`
+    on every axis, which only conv candidates can express; with `noise`
+    it is placed independently of the image (the unlearnable control)."""
+    os.makedirs(out_dir, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    zz, yy, xx = np.mgrid[:shape[0], :shape[1], :shape[2]]
+    paths = []
+    for i in range(n_patients):
+        c = [int(rng.integers(s // 3, s // 2)) for s in shape]
+        r = min(shape) // 4
+        d2 = (zz - c[0]) ** 2 + (yy - c[1]) ** 2 + (xx - c[2]) ** 2
+        blob = d2 < r * r
+        if noise:
+            cn = [int(rng.integers(r + 1, s - r - 1)) for s in shape]
+            d2s = ((zz - cn[0]) ** 2 + (yy - cn[1]) ** 2
+                   + (xx - cn[2]) ** 2)
+        else:
+            d2s = ((zz - c[0] - shift) ** 2 + (yy - c[1] - shift) ** 2
+                   + (xx - c[2] - shift) ** 2)
+        sblob = d2s < r * r
+        score = d2s < max(1, (r - 2)) ** 2
+        vols = []
+        for m in range(4):
+            v = rng.random(shape).astype(np.float32) * 0.2 + 0.1
+            if m == 1:
+                v = v + 1.0 * blob.astype(np.float32)
+            vols.append(v)
+        seg = np.zeros(shape, np.uint8)
+        seg[sblob] = 2
+        seg[score] = 4
+        paths.append(_write_patient_npz(
+            os.path.join(out_dir, f"SHIFT_{i}.npz"), vols, seg,
+            f"SHIFT_{i}"))
+    return paths
 
 
 @pytest.fixture(scope="module", autouse=True)
