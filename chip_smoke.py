@@ -55,6 +55,17 @@ Phases, each printed as JSON lines:
      hold the annotation and device events of the hand kernels
      (`conv_mma_kernel`, `gemm_mma_kernel`, `stats_sums_kernel`), and
      `device_memory_stats` a peak above 0.
+ 6a. train_n: `train.steps_per_call` on phase 6's flagship, step and data
+     (bf16, 128^3, batch 2, microbatch 1, flips and jitter): under cuDNN's
+     deterministic algorithms and from one saved state, two calls of a
+     4-step CUDA graph (`make_train_step_n`: one eager warm-up step, the
+     capture, one replay a call), the LR changed between them, against 8
+     eager steps: the losses, every parameter, AdamW's moments and count
+     and the augmentation generator's state bit-equal, and the launches
+     recorded at capture equal to (per microbatch, counted from the
+     modules) x 2 x 4 (a replay enters no Python and counts none).  Then,
+     with cuDNN's default settings, ungated: s a step and peak memory of
+     eager steps and of 5-step replays, and the first call's seconds.
  6b. cli: the package's commands, in-process through `cli.main`, from the
      root config.json at full width (train: bf16, 128^3, batch 2,
      microbatch 1; predict: the fp32 body) with 2 epochs of 3 steps and a
@@ -74,7 +85,9 @@ Phases, each printed as JSON lines:
      path runs and with cuDNN held to deterministic algorithms, the ops
      PyTorch reports as nondeterministic, and whether the depthwise conv's
      backward and K1's cuDNN weight gradient repeat at 128^3 and 64^3),
-     and `predict` from the
+     `train -o train.steps_per_call=3` likewise (1 epoch, then resumed to
+     2: finite losses, the resume at step 3, the checkpoint), and
+     `predict` from the
      first run's checkpoints (a .nii.gz of
      240x240x155 with labels in {0,1,2,4} and finite Dice per patient;
      launches = per forward x forwards), then `search` for one warmup epoch
@@ -1838,6 +1851,169 @@ def phase_train(dev, seed, use_pallas=False):
     return launches, rec
 
 
+# Phase "train_n" (train.steps_per_call): TRAIN_N steps a call, two calls
+# with an LR change between them, against 2 x TRAIN_N eager steps; then the
+# timings of one TRAIN_N_TIMED-step replay against eager steps
+TRAIN_N, TRAIN_N_TIMED = 4, 5
+TRAIN_N_LR = (3e-4, 1.5e-4)
+
+
+def _snapshot(net, opt, gen):
+    """The training state: every parameter and moment (clones), count, lr
+    and the generator's state."""
+    return ([t.detach().clone() for t in (*net.parameters(), *opt.mu,
+                                          *opt.nu)],
+            opt.count, opt.lr, gen.get_state())
+
+
+def _restore(net, opt, gen, snap):
+    tensors, opt.count, opt.lr, rng = snap
+    with torch.no_grad():
+        for t, s in zip((*net.parameters(), *opt.mu, *opt.nu), tensors):
+            t.copy_(s)
+    gen.set_state(rng)
+
+
+def _two_calls(step, batches, opt, n):
+    """Two calls of n batches each (`step(xs, ys)`, losses (n,)), the LR
+    at TRAIN_N_LR's values; the losses."""
+    from nas_3d_unet_tpu_torch.train.optim import set_learning_rate
+
+    out = []
+    for call, lr in enumerate(TRAIN_N_LR):
+        set_learning_rate(opt, lr)
+        xs, ys = zip(*batches[call * n:(call + 1) * n])
+        out.append(step(xs, ys))
+    return torch.cat(out)
+
+
+def phase_train_n(dev, seed):
+    """`train.steps_per_call` (phase 6a): the bf16 flagship at 128^3,
+    batch 2, microbatch 1, device augmentation.  Under cuDNN's
+    deterministic algorithms, from one saved state: 2 x TRAIN_N eager
+    steps against two replays of a TRAIN_N-step CUDA graph, the LR changed
+    between the calls; the losses, every parameter, AdamW's moments, count
+    and the generator's state must be bit-equal, and the launches recorded
+    at capture must be the modules' count x microbatches x TRAIN_N (a
+    replay counts none).  Then, with cuDNN's default settings, s a step
+    and peak memory of eager steps and of TRAIN_N_TIMED-step replays
+    (ungated)."""
+    from nas_3d_unet_tpu_torch.ops import _cuda
+    from nas_3d_unet_tpu_torch.train.loop import (make_train_step,
+                                                  make_train_step_n)
+    from nas_3d_unet_tpu_torch.train.optim import make_optimizer
+
+    t_phase = time.perf_counter()
+    net = flagship_net(seed, "bfloat16").to(dev)
+    opt = make_optimizer(net.parameters(), TRAIN_N_LR[0], 1e-4)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    data = torch.Generator(device=dev)
+    data.manual_seed(seed + 1)
+    batches = []
+    for _ in range(2 * TRAIN_N_TIMED):
+        x = torch.randn((TRAIN_BATCH, *(TRAIN_PATCH,) * 3, 4),
+                        generator=data, device=dev)
+        wt = (x[..., 1] > 0.5).float()
+        batches.append((x, torch.stack([wt, wt, wt], dim=-1)))
+    kw = dict(augment=AUGMENT, microbatch=MICRO, gen=gen)
+    slices = TRAIN_BATCH // MICRO
+    per = _modules_per_forward(net)
+
+    cudnn = torch.backends.cudnn
+    deterministic = cudnn.deterministic
+    cudnn.deterministic = True
+    try:
+        start = _snapshot(net, opt, gen)
+        step = make_train_step(net, opt, **kw)
+        eager = _two_calls(lambda xs, ys: torch.stack(
+            [step(x, y) for x, y in zip(xs, ys)]), batches, opt, TRAIN_N)
+        want = _snapshot(net, opt, gen)
+        _restore(net, opt, gen, start)
+        step_n = make_train_step_n(net, opt, n=TRAIN_N, **kw)
+        _cuda.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        graphed = _two_calls(step_n, batches, opt, TRAIN_N)
+        torch.cuda.synchronize()
+        graphed_s = time.perf_counter() - t0
+        launches = dict(_cuda.LAUNCHES)
+        captured = dict(step_n.launches_at_capture)
+        got = _snapshot(net, opt, gen)
+    finally:
+        cudnn.deterministic = deterministic
+    differ = [i for i, (a, b) in enumerate(zip(want[0], got[0]))
+              if not torch.equal(a, b)]
+    n_params = len(list(net.parameters()))
+    bits = {"losses_equal": torch.equal(eager, graphed),
+            "tensors": len(want[0]), "tensors_differ": len(differ),
+            "params_differ": sum(i < n_params for i in differ),
+            "count": [want[1], got[1]],
+            "generator_equal": torch.equal(want[3], got[3])}
+    expected = {f"{k}_bf16": v * slices * TRAIN_N for k, v in per.items()}
+    # the first call also ran one eager warm-up step before the capture
+    expected_total = {f"{k}_bf16": v * slices * (TRAIN_N + 1)
+                      for k, v in per.items()}
+    del step_n, step
+    net.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+
+    # the timings, with cuDNN's default settings
+    step = make_train_step(net, opt, **kw)
+    step(*batches[0]).item()
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for x, y in batches[:TRAIN_N_TIMED]:
+        step(x, y)
+    torch.cuda.synchronize()
+    eager_s = (time.perf_counter() - t0) / TRAIN_N_TIMED
+    eager_peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    del step
+    net.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+    step_n = make_train_step_n(net, opt, n=TRAIN_N_TIMED, **kw)
+    xs, ys = zip(*batches[:TRAIN_N_TIMED])
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    step_n(xs, ys).cpu()                      # warm-up, capture, replay
+    first_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for call in range(2):
+        xs, ys = zip(*batches[call * TRAIN_N_TIMED:
+                              (call + 1) * TRAIN_N_TIMED])
+        losses = step_n(xs, ys)
+    torch.cuda.synchronize()
+    graph_s = (time.perf_counter() - t0) / (2 * TRAIN_N_TIMED)
+    rec = {"phase": "train_n", "batch": TRAIN_BATCH, "patch": TRAIN_PATCH,
+           "microbatch": MICRO, "dtype": "bfloat16", "n": TRAIN_N,
+           "bits": bits, "eager_losses": eager.tolist(),
+           "graph_losses": graphed.tolist(), "graph_calls_s": graphed_s,
+           "launches_at_capture": captured, "expected_at_capture": expected,
+           "launches": launches, "expected_launches": expected_total,
+           "timed_n": TRAIN_N_TIMED, "eager_step_s": eager_s,
+           "eager_peak_gb": eager_peak, "graph_step_s": graph_s,
+           "graph_first_call_s": first_s,
+           "graph_peak_gb": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+           "graph_reserved_gb": torch.cuda.memory_reserved(dev) / 2 ** 30,
+           "timed_losses_finite": bool(torch.isfinite(losses).all()),
+           "seconds": time.perf_counter() - t_phase}
+    emit(rec)
+    del step_n
+    net.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+    if not (bits["losses_equal"] and not differ and want[1] == got[1]
+            == 2 * TRAIN_N and bits["generator_equal"]):
+        raise AssertionError(f"{TRAIN_N}-step replays differ from eager "
+                             f"steps: {bits}")
+    if captured != expected or launches != expected_total:
+        raise AssertionError(f"launches at capture {captured} != {expected}"
+                             f", in all {launches} != {expected_total}")
+    if not rec["timed_losses_finite"]:
+        raise AssertionError(f"non-finite loss {losses}")
+    return rec
+
+
 def check_step_kernels(phase, dev, gen, summary, groups):
     """Each kernel of a search step at every geometry of its table
     (`groups`: (kernel, rows) as `_table` takes them), bf16, batch 1,
@@ -3517,6 +3693,19 @@ def phase_cli(dev, seed, slice_s_per_patient, train_rec, tmp):
         full[k].astype(np.float64) - resumed[k]).max()) for k in params}
     bit_equal = sum(full[k].tobytes() == resumed[k].tobytes()
                     for k in params)
+    # train.steps_per_call 3 (one CUDA graph replay a call): one epoch in a
+    # fresh dir, then resumed to the second
+    n_runs_s = [_cli(["train", *base, "-o", "train.steps_per_call=3",
+                      "-o", f"train.epochs={e}",
+                      "-o", f"train.checkpoint_dir={tmp}/n"])[1]
+                for e in (cfg.train.epochs - 1, cfg.train.epochs)]
+    n_events = _jsonl(f"{tmp}/n/metrics.jsonl")
+    n_epochs = [e for e in n_events if e["event"] == "epoch"]
+    n_resumes = [e["step"] for e in n_events if e["event"] == "resume"]
+    ok_n = (n_resumes == [spe] and len(n_epochs) == cfg.train.epochs
+            and all(math.isfinite(e[k]) for e in n_epochs
+                    for k in ("train_loss", "val_loss", "mean_dice"))
+            and os.path.exists(f"{tmp}/n/ckpt_{last}.npz"))
     # a checkpoint loaded onto the card and saved again is byte-equal
     first = ck.load_checkpoint(f"{tmp}/b/ckpt_{spe}.npz")
     net = make_derived(cfg.model, cfg.data.num_classes,
@@ -3616,6 +3805,11 @@ def phase_cli(dev, seed, slice_s_per_patient, train_rec, tmp):
            "resume_worst_params": sorted(deltas.items(),
                                          key=lambda kv: -kv[1])[:5],
            "grad_repeat": repeat,
+           "steps_per_call_3": {
+               "runs_s": n_runs_s, "resume_events": n_resumes,
+               "train_losses": [e["train_loss"] for e in n_epochs],
+               "val_losses": [e["val_loss"] for e in n_epochs],
+               "patches_per_sec": [e["patches_per_sec"] for e in n_epochs]},
            "train_launches": train_launches,
            "expected_train_launches": expected_train,
            "search_s": [search1_s, search2_s],
@@ -3641,6 +3835,9 @@ def phase_cli(dev, seed, slice_s_per_patient, train_rec, tmp):
     if resumes != [spe] or not resave_equal:
         raise AssertionError(f"resume events {resumes}, re-saved "
                              f"checkpoint byte-equal: {resave_equal}")
+    if not ok_n:
+        raise AssertionError(f"train with steps_per_call 3: epochs "
+                             f"{n_epochs}, resumes {n_resumes}")
     if not ok_search:
         raise AssertionError(f"search: epochs {search_epochs}, resumes "
                              f"{search_resumes}, last line {search_lines[-1]}")
@@ -4428,6 +4625,7 @@ def main() -> int:
         serve_launches, s_per_patient = phase_slice(dev, args.seed)
         phase_train_kernels(dev, gen, summary)
         train_launches, train = phase_train(dev, args.seed)
+        train_n = phase_train_n(dev, args.seed)
         with tempfile.TemporaryDirectory() as cli_tmp:
             cli = phase_cli(dev, args.seed, s_per_patient, train, cli_tmp)
             search_kernels_s = phase_search_kernels(dev, gen, Summary())
@@ -4457,6 +4655,9 @@ def main() -> int:
     emit({"phase": "done", "s_per_patient": s_per_patient,
           "train_patches_per_s": train["patches_per_s"],
           "train_peak_mem_gb": train["peak_mem_gb"],
+          **{f"train_n_{k}": train_n[k] for k in (
+              "eager_step_s", "graph_step_s", "eager_peak_gb",
+              "graph_peak_gb", "seconds")},
           "pallas_s_per_patient": p_s_per_patient,
           "pallas_train_patches_per_s": p_train["patches_per_s"],
           "pallas_train_peak_mem_gb": p_train["peak_mem_gb"],

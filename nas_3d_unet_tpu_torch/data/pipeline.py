@@ -5,8 +5,9 @@ Counterpart of `nas_3d_unet_tpu/data/pipeline.py`: a deterministic
 train/val split of the patient files, every patient resident in host RAM
 (`PatientCache`, raw uint8 labels), a counter-based `PatchGenerator` whose
 batch k of seed s is a pure function of (s, k) — bitwise the JAX
-package's — and a `Prefetcher` thread that assembles the next batches and
-stages them on the card while the current step runs.
+package's — and a `Prefetcher` whose thread (one per worker, `workers` >
+1) assembles the next batches and stages them on the card while the
+current step runs.
 
 Host → device copies (`DeviceStager`): the batch is copied into pinned
 memory and sent with a `non_blocking` copy on a side CUDA stream that does
@@ -227,24 +228,35 @@ _SENTINEL = object()
 
 
 class Prefetcher:
-    """A background thread assembling batches from `generator` in order
-    and staging them on `device` (`DeviceStager`), `depth` batches ahead.
-    An error in the thread is raised by the next `next()`."""
+    """Background threads assembling batches and staging them on `device`,
+    `depth` batches ahead.  An error in a thread is raised by the next
+    `next()`.
+
+    `workers` 1 (default): one thread, batches in `generator`'s order.
+    `workers` w > 1 (`pipeline.py:249-270`): one thread per
+    `generator.clone(1000 * k)`, k < w (independent streams, the first
+    `generator`'s own), a queue of max(depth, w), batches in whatever
+    order the threads deliver them.  Each thread has a `DeviceStager` of
+    its own: its own side stream and its own copies' events."""
 
     def __init__(self, generator: PatchGenerator, device: torch.device,
-                 depth: int = 2):
+                 depth: int = 2, workers: int = 1):
         self._error: Optional[Exception] = None
-        self._q: "queue.Queue" = queue.Queue(maxsize=max(1, depth))
+        self._q: "queue.Queue" = queue.Queue(maxsize=max(1, depth, workers))
         self._stop = threading.Event()
-        self._stager = DeviceStager(device)
-        self._thread = threading.Thread(target=self._worker,
-                                        args=(generator,), daemon=True)
-        self._thread.start()
+        gens = [generator] if workers <= 1 else [
+            generator.clone(1000 * k) for k in range(workers)]
+        self._stagers = [DeviceStager(device) for _ in gens]
+        self._threads = [
+            threading.Thread(target=self._worker, args=(g, st), daemon=True)
+            for g, st in zip(gens, self._stagers)]
+        for t in self._threads:
+            t.start()
 
-    def _worker(self, gen: PatchGenerator):
+    def _worker(self, gen: PatchGenerator, stager: DeviceStager):
         try:
             while not self._stop.is_set():
-                item = self._stager.put(*gen.next())
+                item = stager.put(*gen.next())
                 while not self._stop.is_set():
                     try:
                         self._q.put(item, timeout=0.25)
@@ -262,7 +274,7 @@ class Prefetcher:
         item = self._q.get()
         if item is _SENTINEL:
             raise RuntimeError("Prefetcher worker failed") from self._error
-        x, y = self._stager.take(*item)
+        x, y = self._stagers[0].take(*item)
         return x, y
 
     def close(self):
@@ -272,7 +284,8 @@ class Prefetcher:
                 self._q.get_nowait()
         except queue.Empty:
             pass
-        self._thread.join(timeout=2.0)
+        for t in self._threads:
+            t.join(timeout=2.0)
 
 
 def dataset_paths(processed_dir: str, rank: int = 0,

@@ -8,9 +8,35 @@ gradient over the full batch or as the mean over strided microbatch slices
 (sample j goes to slice j % k), then one AdamW update, in place.
 
 The model runs eagerly, so the step is a Python function over the model's
-own parameters; there is no jit, donation or scan.  Entry points run where
-the model's parameters are: on the card unless the caller put the model on
-the CPU.  There is no `steps_per_call` scan.
+own parameters; there is no jit or donation.  Entry points run where the
+model's parameters are: on the card unless the caller put the model on
+the CPU.
+
+`train.steps_per_call` n > 1 (`make_train_step_n`, the reference's
+`lax.scan` at `loop.py:184-210`): n steps in one call, bit for bit the n
+sequential steps.  On the card the n steps are one CUDA graph, captured at
+the first call and replayed once per call; on the CPU the body that the
+card records runs eagerly.  What a call changes reaches the body only
+through tensors that a replay re-reads: the staged batches, −lr and the n
+steps' bias corrections (in the form the device divides by a host float
+with, `optim.host_divisor`).  The capture:
+  * comes after one eager warm-up step on a side stream (cuDNN's plans,
+    the kernels' library and shared-memory limits), and the parameters,
+    AdamW's moments and count and the augmentation generator are restored
+    after warm-up and capture, so the first replay starts where the call
+    found them;
+  * registers the augmentation generator with the graph, so a replay
+    draws what n eager steps would and advances it as far;
+  * records one stream: the graph is a chain, so no two K5 launches
+    overlap and K5's shared completion tickets (`csrc/stats.cu`) stay
+    safe;
+  * is "thread_local": the Prefetcher's thread goes on pinning and copying
+    on its own stream meanwhile;
+  * counts each kernel's launches once in `_cuda.LAUNCHES` (a replay
+    never enters Python); `launches_at_capture` keeps that count.
+A capture or a replay that fails raises: the card never runs n > 1 as the
+eager loop.  Like the reference (`loop.py:365-369`), n > 1 runs on one
+process only.
 
 Data parallelism (`parallel/mesh.py`, the reference's `loop.py:316-365`):
 each data index of a `Mesh` runs its own rows of the global batch, and the
@@ -35,6 +61,7 @@ summed over the group before the data axis's mean.
 
 from __future__ import annotations
 
+import collections
 import json
 import os
 import time
@@ -52,6 +79,7 @@ from ..metrics.dice import (class_indices_to_labels, class_logits_to_regions,
                             labels_to_regions, region_dice)
 from ..metrics.losses import get_loss_fn
 from ..models.unet import unet_depth
+from ..ops import _cuda
 from ..parallel import spatial
 from ..parallel.mesh import Mesh, local_batch_size, make_mesh
 from ..parallel.spatial import Slab
@@ -60,8 +88,8 @@ from ..utils.logging import MetricsLogger
 from ..utils.params import count_params
 from .checkpoint import (latest_checkpoint, load_checkpoint,
                          restore_train_state, save_checkpoint, train_state)
-from .optim import (AdamW, get_learning_rate, make_optimizer,
-                    set_learning_rate)
+from .optim import (AdamW, bias_corrections, get_learning_rate,
+                    host_divisor, make_optimizer, set_learning_rate)
 
 
 def loss_and_grads(model: torch.nn.Module, x: torch.Tensor, y: torch.Tensor,
@@ -159,6 +187,14 @@ def make_train_step(model: torch.nn.Module, opt: AdamW,
     the step cuts this rank's slab), `microbatch` is the global one, and
     the gradients and the loss are averaged over the data axis (see the
     module docstring)."""
+    return _step_body(model, opt, augment, label_mode, microbatch, seed, gen,
+                      mesh)[0]
+
+
+def _step_body(model, opt, augment, label_mode, microbatch, seed, gen, mesh):
+    """(one, gen): `one(x, y)` is one train step (AdamW's `step`: the
+    count advances, the scalars come from the host); `one(x, y, scalars)`
+    takes (−lr, 1 − b1^t, 1 − b2^t) as 0-d tensors (AdamW's `update`)."""
     loss_fn = get_loss_fn(label_mode)
     if gen is None:
         gen = torch.Generator(device=next(model.parameters()).device)
@@ -169,16 +205,127 @@ def make_train_step(model: torch.nn.Module, opt: AdamW,
         microbatch = local_microbatch(microbatch, mesh.data_world)
     model.train()
 
-    def step(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    def one(x: torch.Tensor, y: torch.Tensor, scalars=None) -> torch.Tensor:
         x, y = cut_slab(slab, model, *aug(x, y))
         with spatial.sharded_d(slab):
             loss, grads = loss_and_grads(model, x, y, loss_fn, microbatch)
         if mesh is not None:
             mesh.all_reduce_mean_([*grads, loss], slab_parts=len(grads))
-        opt.step(grads)
+        if scalars is None:
+            opt.step(grads)
+        else:
+            opt.update(grads, *scalars)
         return loss
 
-    return step
+    return one, gen
+
+
+def make_train_step_n(model: torch.nn.Module, opt: AdamW,
+                      augment: Optional[dict] = None,
+                      label_mode: str = "regions", microbatch: int = 0,
+                      seed: int = 0, gen: Optional[torch.Generator] = None,
+                      mesh: Optional[Mesh] = None, n: int = 2):
+    """(xs, ys) → fp32 losses (n,): n train steps in one call, bit for bit
+    n sequential `make_train_step` calls (the losses, every parameter,
+    AdamW's moments and count, the generator's state).
+
+    xs and ys hold n batches each: a tensor with a leading step axis or a
+    sequence of n tensors, every call of one shape.  The arguments are
+    `make_train_step`'s; `mesh` may only be a one-process one.  On the
+    card the n steps are one CUDA graph (see the module docstring);
+    `step_n.launches_at_capture` holds the kernel launches it recorded.
+    The graph bakes in `opt.weight_decay` and reads `opt.lr` at every
+    call."""
+    if n < 1:
+        raise ValueError(f"steps_per_call={n} must be at least 1")
+    if mesh is not None and mesh.world > 1:
+        raise ValueError(
+            f"train.steps_per_call={n} runs on one process only, and every "
+            f"rank of the port is a process (this mesh has {mesh.world}): "
+            "the JAX package refuses n-step calls across processes too "
+            "(its train/loop.py:365-369)")
+    dev = next(model.parameters()).device
+    one, gen = _step_body(model, opt, augment, label_mode, microbatch, seed,
+                          gen, mesh)
+    # −lr, then 1 − b1^t and 1 − b2^t (as `host_divisor` gives them) for
+    # the call's n steps
+    scalars = torch.zeros(1 + 2 * n, dtype=torch.float32, device=dev)
+    staged: List[torch.Tensor] = []          # xs, ys: (n, *batch shape)
+
+    def body(steps: int) -> torch.Tensor:
+        return torch.stack([
+            one(staged[0][i], staged[1][i],
+                (scalars[0], scalars[1 + i], scalars[1 + n + i]))
+            for i in range(steps)])
+
+    def stage(xs, ys) -> None:
+        if len(xs) != n or len(ys) != n:
+            raise ValueError(f"steps_per_call={n} takes {n} batches, got "
+                             f"{len(xs)} and {len(ys)}")
+        if not staged:
+            staged.extend(torch.empty((n, *b[0].shape), dtype=b[0].dtype,
+                                      device=dev) for b in (xs, ys))
+        for buf, batches in zip(staged, (xs, ys)):
+            for i, b in enumerate(batches):
+                if b.shape != buf.shape[1:] or b.dtype != buf.dtype:
+                    raise ValueError(f"batch {tuple(b.shape)} {b.dtype}: "
+                                     "the graph was staged for "
+                                     f"{tuple(buf.shape[1:])} {buf.dtype}")
+                buf[i].copy_(b)
+        bc = [[host_divisor(c, dev) for c in bias_corrections(opt.count + i)]
+              for i in range(1, n + 1)]
+        host = np.array([-opt.lr, *(c[0] for c in bc), *(c[1] for c in bc)],
+                        dtype=np.float32)
+        scalars.copy_(torch.from_numpy(host))
+
+    graphed: list = []                       # (graph, its output losses)
+
+    def step_n(xs, ys) -> torch.Tensor:
+        stage(xs, ys)
+        if dev.type == "cuda":
+            if not graphed:
+                graphed.append(_capture(body, n, opt, gen,
+                                        step_n.launches_at_capture))
+            graph, out = graphed[0]
+            graph.replay()
+            losses = out.clone()
+        else:
+            losses = body(n)
+        opt.count += n
+        return losses
+
+    step_n.launches_at_capture = collections.Counter()
+    return step_n
+
+
+def _capture(body: Callable[[int], torch.Tensor], n: int, opt: AdamW,
+             gen: torch.Generator, launches: collections.Counter):
+    """(graph, its output) of `body(n)` recorded on the card, after one
+    warm-up step on a side stream; the parameters, moments, count and
+    generator are then put back as they were.  `launches` receives the
+    recorded kernel launches."""
+    state = [*opt.params, *opt.mu, *opt.nu]
+    saved = [t.detach().clone() for t in state]
+    count, rng = opt.count, gen.get_state()
+    dev = saved[0].device
+    cur = torch.cuda.current_stream(dev)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(cur)
+    with torch.cuda.stream(side):
+        body(1)
+    cur.wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(gen)
+    before = collections.Counter(_cuda.LAUNCHES)
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        out = body(n)
+    launches.update(collections.Counter(_cuda.LAUNCHES) - before)
+    with torch.no_grad():
+        for t, s in zip(state, saved):
+            t.copy_(s)
+    opt.count = count
+    gen.set_state(rng)
+    return graph, out
 
 
 def make_eval_step(model: torch.nn.Module, threshold: float = 0.5,
@@ -272,7 +419,10 @@ class Trainer:
     drawn from the Trainer's generator (saved in every checkpoint); False:
     the host augmentation of `PatchGenerator`.  `mesh`: the data axis
     (None: `make_mesh` from `cfg.parallel`); `data.batch_size` is the
-    global batch, and `data_paths` the data index's share."""
+    global batch, and `data_paths` the data index's share.
+    `train.steps_per_call` n > 1: the epoch's steps go n at a time through
+    `make_train_step_n` (one CUDA graph replay on the card); n must divide
+    the epoch's steps, and the mesh must be one process."""
 
     def __init__(self, net: torch.nn.Module, cfg, data_paths: Sequence[str],
                  log_path: Optional[str] = None, device_augment: bool = True,
@@ -293,10 +443,16 @@ class Trainer:
                     intensity_shift=dc.intensity_shift,
                     intensity_scale=dc.intensity_scale)
                if device_augment else None)
-        self.train_step = make_train_step(self.net, self.opt, augment=aug,
-                                          label_mode=dc.label_mode,
-                                          microbatch=tc.microbatch,
-                                          gen=self.gen, mesh=self.mesh)
+        step_args = dict(augment=aug, label_mode=dc.label_mode,
+                         microbatch=tc.microbatch, gen=self.gen,
+                         mesh=self.mesh)
+        self.steps_per_call = max(1, int(tc.steps_per_call))
+        if self.steps_per_call > 1:
+            self.train_step_n = make_train_step_n(
+                self.net, self.opt, n=self.steps_per_call, **step_args)
+        else:
+            self.train_step = make_train_step(self.net, self.opt,
+                                              **step_args)
         self.eval_step = make_eval_step(self.net, label_mode=dc.label_mode,
                                         mesh=self.mesh)
         self.plateau = PlateauController(tc.lr_patience, tc.lr_factor,
@@ -385,6 +541,12 @@ class Trainer:
         epochs = tc.epochs if epochs is None else epochs
         steps_per_epoch = tc.steps_per_epoch if steps_per_epoch is None \
             else steps_per_epoch
+        n_call = self.steps_per_call
+        if steps_per_epoch % n_call:
+            raise ValueError(
+                f"train.steps_per_call={n_call} must divide steps_per_epoch="
+                f"{steps_per_epoch}: an epoch is a whole number of n-step "
+                "calls (a remainder would need a second graph)")
         self.resume_or_init(tc.seed)
         self.sync_state()
         warn_stream_geometry_mismatch(self._resume_meta, self.logger,
@@ -402,10 +564,17 @@ class Trainer:
             for epoch in range(start_epoch, epochs):
                 t0 = time.perf_counter()
                 losses = []
-                for _ in range(steps_per_epoch):
-                    x, y = prefetch.next()
-                    losses.append(self.train_step(x, y))
-                    self.step += 1
+                for _ in range(steps_per_epoch // n_call):
+                    if n_call == 1:
+                        x, y = prefetch.next()
+                        losses.append(self.train_step(x, y))
+                    else:
+                        # n prefetched batches, staged into the graph's
+                        # static buffers by the call
+                        xs, ys = zip(*(prefetch.next()
+                                       for _ in range(n_call)))
+                        losses.extend(self.train_step_n(xs, ys).unbind())
+                    self.step += n_call
                 losses[-1].item()           # waits for the epoch's steps
                 pps = steps_per_epoch * dc.batch_size \
                     / (time.perf_counter() - t0)

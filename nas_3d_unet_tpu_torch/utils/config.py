@@ -6,9 +6,11 @@ dataclasses with the same fields, defaults and checks, `config_from_dict`,
 `config.json` holds the values of the JAX package's `config.yml`); every key
 the JAX package accepts is accepted here, so one configuration loads in both.
 
-Values that ask for something the port does not do are refused when the
-dataclass is built, with the reason: `train.steps_per_call` > 1, which
-is not ported by decision.  Spatial sharding needs a
+The port refuses no value that the JAX package accepts when the
+dataclass is built.  `train.steps_per_call` > 1 loads as given; the
+Trainer refuses it where it does not divide the epoch's steps or where the
+mesh is more than one process, as the JAX package's Trainer does
+(`train/loop.py`).  Spatial sharding needs a
 `data.patch_size` D that slabs split evenly (`parallel/spatial.py`
 `check_slab`: a multiple of spatial_parallel · 2^depth, at least 2 planes
 in the deepest slab).  `parallel.data_parallel` loads whatever it is, as in
@@ -27,12 +29,6 @@ from dataclasses import dataclass, field
 from typing import Any, List, Optional, Tuple
 
 from ..parallel.spatial import check_slab
-
-
-def _refuse(bad: bool, what: str, where: str) -> None:
-    if bad:
-        raise ValueError(f"{what} is not supported by the PyTorch port "
-                         f"({where})")
 
 
 @dataclass(frozen=True)
@@ -132,11 +128,6 @@ class TrainConfig:
     genotype_path: str = "ckpt/search/genotype.json"
     tensorboard: bool = False                 # mirror metrics to <ckpt>/tb
     seed: int = 0
-
-    def __post_init__(self):
-        _refuse(self.steps_per_call > 1,
-                f"train.steps_per_call={self.steps_per_call}",
-                "ROADMAP.md queue 1, not ported by decision")
 
 
 @dataclass(frozen=True)

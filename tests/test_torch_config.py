@@ -63,8 +63,7 @@ def test_unknown_keys_raise(bad):
         jcfg.load_config(None, bad)
 
 
-REFUSED = [({"train.steps_per_call": 2}, "not ported by decision"),
-           ({"parallel.data_parallel": 2}, r"world size 1\b.*item 9a"),
+REFUSED = [({"parallel.data_parallel": 2}, r"world size 1\b.*item 9a"),
            # spatial sharding: a patch D slabs do not split evenly at the
            # model's depth, and one whose deepest slab is under 2 planes
            ({"parallel.spatial_parallel": 2, "data.patch_size": (24,) * 3},
@@ -102,15 +101,19 @@ PORTED = [{"model.remat": True}, {"model.remat_edges": True},
           {"parallel.spatial_parallel": 2, "search.unrolled": True},
           {"search.unrolled": True, "model.use_pallas": True},
           {"parallel.spatial_parallel": 2, "search.unrolled": True,
-           "model.use_pallas": True}]
+           "model.use_pallas": True},
+          # n train steps a call (the Trainer checks n against the epoch)
+          {"train.steps_per_call": 3},
+          {"train.steps_per_call": 2, "train.steps_per_epoch": 4}]
 
 
 @pytest.mark.parametrize("ov", PORTED, ids=[str(o) for o in PORTED])
 def test_ported_layout_settings_load(ov):
     """Activation checkpointing, the data axis over every rank (one rank
     here, without a process group), spatial sharding with a patch that
-    its slabs split evenly, and the second-order search with it and on the
-    `use_pallas` supernet load in both packages alike."""
+    its slabs split evenly, the second-order search with it and on the
+    `use_pallas` supernet, and `train.steps_per_call` > 1 load in both
+    packages alike."""
     port = tcfg.load_config(None, ov).to_dict()
     assert _norm(port) == _norm(jcfg.load_config(None, ov).to_dict())
 

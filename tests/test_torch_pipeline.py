@@ -2,7 +2,8 @@
 against the JAX package's: the patient split, and every PatchGenerator
 batch bitwise (values and dtype) for several (seed, step), both label
 modes, host augmentation on and off, after `set_step` and `clone`; then
-the Prefetcher's order, error propagation and close, on the CPU."""
+the Prefetcher's order, its worker threads' streams, error propagation
+and close, on the CPU."""
 
 import os
 import threading
@@ -102,7 +103,40 @@ def test_prefetcher_hands_over_the_generator_order(stores):
             _same(y.numpy(), wy)
     finally:
         pf.close()
-    assert not pf._thread.is_alive()
+    assert not any(t.is_alive() for t in pf._threads)
+
+
+def test_prefetcher_workers_interleave_the_clone_streams(stores):
+    """`workers=3` (tests/test_pipeline.py:80): every batch is the next
+    one of one of the three streams `generator.clone(1000 k)`, k < 3, the
+    first the generator's own, and those streams are bitwise the JAX
+    package's clones on the same stores."""
+    gen, ref = _generators(stores, "regions", True, 4)
+    gen.set_step(2)
+    ref.set_step(2)
+    want = []
+    for k in range(3):
+        port, jax_ = gen.clone(1000 * k), ref.clone(1000 * k)
+        want.append([port.next() for _ in range(6)])
+        for batch in want[-1]:
+            for a, b in zip(batch, jax_.next()):
+                _same(a, b)
+    pf = tpipe.Prefetcher(gen, torch.device("cpu"), depth=2, workers=3)
+    assert pf._q.maxsize == 3 and len(pf._threads) == 3
+    taken = [0, 0, 0]
+    try:
+        for _ in range(6):
+            x, y = pf.next()
+            assert x.shape == (2, *PATCH, 4) and y.shape == (2, *PATCH, 3)
+            hits = [k for k in range(3) if taken[k] < 6
+                    and np.array_equal(x.numpy(), want[k][taken[k]][0])
+                    and np.array_equal(y.numpy(), want[k][taken[k]][1])]
+            assert len(hits) == 1
+            taken[hits[0]] += 1
+    finally:
+        pf.close()
+    assert sum(taken) == 6
+    assert not any(t.is_alive() for t in pf._threads)
 
 
 def test_prefetcher_raises_the_worker_error():
@@ -124,7 +158,7 @@ def test_prefetcher_raises_the_worker_error():
         assert isinstance(info.value.__cause__, ValueError)
     finally:
         pf.close()
-    assert not pf._thread.is_alive()
+    assert not any(t.is_alive() for t in pf._threads)
 
 
 def test_prefetcher_close_unblocks_a_full_queue(stores):
@@ -135,7 +169,7 @@ def test_prefetcher_close_unblocks_a_full_queue(stores):
     t = threading.Thread(target=lambda: (pf.close(), done.set()))
     t.start()
     t.join(timeout=10)
-    assert done.is_set() and not pf._thread.is_alive()
+    assert done.is_set() and not any(t.is_alive() for t in pf._threads)
 
 
 def test_dataset_paths(tmp_path):
