@@ -1,0 +1,7 @@
+"""device_idle.train: the device's idle share of the traced part, %."""
+
+from benchmark.harness import readers
+
+
+def read(run):
+    return readers.device_idle(run, "train")
