@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from ..metrics.dice import labels_to_class_indices_np, labels_to_regions_np
+from ..utils.profiling import annotate
 from .native import crop_batch_native
 from .preprocess import load_patient
 
@@ -237,7 +238,11 @@ class Prefetcher:
     `generator.clone(1000 * k)`, k < w (independent streams, the first
     `generator`'s own), a queue of max(depth, w), batches in whatever
     order the threads deliver them.  Each thread has a `DeviceStager` of
-    its own: its own side stream and its own copies' events."""
+    its own: its own side stream and its own copies' events.
+
+    Spans: `data.assemble` (`generator.next()`) and `data.stage` (the
+    stager's `put`) on a worker thread, `data.fetch` (`next()`) on the
+    consumer's."""
 
     def __init__(self, generator: PatchGenerator, device: torch.device,
                  depth: int = 2, workers: int = 1):
@@ -256,7 +261,10 @@ class Prefetcher:
     def _worker(self, gen: PatchGenerator, stager: DeviceStager):
         try:
             while not self._stop.is_set():
-                item = stager.put(*gen.next())
+                with annotate("data.assemble"):
+                    arrays = gen.next()
+                with annotate("data.stage"):
+                    item = stager.put(*arrays)
                 while not self._stop.is_set():
                     try:
                         self._q.put(item, timeout=0.25)
@@ -271,11 +279,13 @@ class Prefetcher:
                 pass
 
     def next(self) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        item = self._q.get()
-        if item is _SENTINEL:
-            raise RuntimeError("Prefetcher worker failed") from self._error
-        x, y = self._stagers[0].take(*item)
-        return x, y
+        with annotate("data.fetch"):
+            item = self._q.get()
+            if item is _SENTINEL:
+                raise RuntimeError("Prefetcher worker failed") \
+                    from self._error
+            x, y = self._stagers[0].take(*item)
+            return x, y
 
     def close(self):
         self._stop.set()

@@ -19,6 +19,11 @@ probabilities, are bit for bit the one-process ones.  Under spatial
 sharding the ranks of a spatial group serve the same patients, each
 stitching its D-slab (`infer/sliding.py`); the first rank of the group
 writes the NIfTI files.
+
+Spans: `serve.dispatch` (a patient's device work queued, with
+`infer/sliding.py`'s `serve.upload`, `serve.forward`, `serve.stitch` and
+`serve.decode` inside) and `serve.finalize` (its host side, on
+`predict_records`' writer thread) ⊃ `serve.readback`.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ from ..data.preprocess import load_patient
 from ..io.nifti import write_nifti
 from ..metrics.dice import labels_to_regions, region_dice
 from ..parallel.mesh import Mesh
+from ..utils.profiling import annotate
 from .sliding import SlidingWindowPredictor
 
 
@@ -56,35 +62,39 @@ def _dispatch_patient(predictor: SlidingWindowPredictor, rec: Dict,
     """Queue one patient's device work: labels and (with a label) Dice, both
     left on the device; `mesh`: the stitch sharded over its spatial
     groups."""
-    labels_dev = predictor.predict_labels(rec.get("image_dev", rec["image"]),
-                                          threshold=threshold, mesh=mesh)
-    dice_dev = None
-    if "label" in rec:
-        true = rec.get("label_dev")
-        if true is None:
-            true = torch.as_tensor(rec["label"], device=labels_dev.device)
-        dice_dev = region_dice(labels_to_regions(labels_dev),
-                               labels_to_regions(true))
-    return labels_dev, dice_dev
+    with annotate("serve.dispatch"):
+        labels_dev = predictor.predict_labels(
+            rec.get("image_dev", rec["image"]), threshold=threshold,
+            mesh=mesh)
+        dice_dev = None
+        if "label" in rec:
+            true = rec.get("label_dev")
+            if true is None:
+                true = torch.as_tensor(rec["label"], device=labels_dev.device)
+            dice_dev = region_dice(labels_to_regions(labels_dev),
+                                   labels_to_regions(true))
+        return labels_dev, dice_dev
 
 
 def _finalize_patient(labels_dev: torch.Tensor, dice_dev, rec: Dict,
                       out_dir: Optional[str]) -> Dict:
     """Host side of one patient: label readback (waits for the device) →
     uncrop → NIfTI write → Dice scalars."""
-    labels = labels_dev.cpu().numpy()
-    full = uncrop_labels(labels, rec["crop_start"], rec["orig_shape"])
-    result: Dict = {"patient": rec["patient"]}
-    if out_dir is not None:
-        os.makedirs(out_dir, exist_ok=True)
-        out_path = os.path.join(out_dir, rec["patient"] + ".nii.gz")
-        write_nifti(out_path, full, rec.get("affine"))
-        result["output"] = out_path
-    if dice_dev is not None:
-        dice = dice_dev.cpu().numpy()
-        result["dice"] = {"WT": float(dice[0]), "TC": float(dice[1]),
-                          "ET": float(dice[2])}
-    return result
+    with annotate("serve.finalize"):
+        with annotate("serve.readback"):
+            labels = labels_dev.cpu().numpy()
+        full = uncrop_labels(labels, rec["crop_start"], rec["orig_shape"])
+        result: Dict = {"patient": rec["patient"]}
+        if out_dir is not None:
+            os.makedirs(out_dir, exist_ok=True)
+            out_path = os.path.join(out_dir, rec["patient"] + ".nii.gz")
+            write_nifti(out_path, full, rec.get("affine"))
+            result["output"] = out_path
+        if dice_dev is not None:
+            dice = dice_dev.cpu().numpy()
+            result["dice"] = {"WT": float(dice[0]), "TC": float(dice[1]),
+                              "ET": float(dice[2])}
+        return result
 
 
 def predict_patient(predictor: SlidingWindowPredictor, rec: Dict,

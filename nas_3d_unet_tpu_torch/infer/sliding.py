@@ -19,6 +19,10 @@ the sum and count buffers, decodes that slab, and the label slabs are
 gathered in D order: the per-voxel arithmetic is the one-process one, so
 the labels are bit-identical.  At BraTS sizes both windows along D overlap
 every slab, so this shards the buffers' memory, not the work.
+
+Spans: `serve.upload` (the volume to the device and padded), per batch
+`serve.forward` (the model) and `serve.stitch` (its accumulation loop),
+and `serve.decode`.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ from ..parallel.mesh import Mesh
 from ..parallel.spatial import Slab
 from ..utils.device import resolve_device
 from ..utils.precision import strict_fp32
+from ..utils.profiling import annotate
 
 
 def grid_starts(dim: int, patch: int, stride: int) -> List[int]:
@@ -67,15 +72,15 @@ def _stitch_sums(forward_fn: Callable[[torch.Tensor], torch.Tensor], volume,
     unpadded volume shape and the first plane the buffers hold: 0, or with
     a `slab` the start of its share (⌈D/size⌉ planes a slab, of the padded
     D) of every patch's planes."""
-    vol = torch.as_tensor(volume, dtype=torch.float32, device=device)
-    orig_shape = tuple(vol.shape[:3])
     patch = tuple(int(p) for p in patch_size)
     stride = tuple(max(1, int(round(p * (1.0 - overlap)))) for p in patch)
-
-    # pad (end-only) so every dim fits at least one patch
-    pad = [max(0, p - s) for p, s in zip(patch, orig_shape)]
-    if any(pad):
-        vol = F.pad(vol, (0, 0, 0, pad[2], 0, pad[1], 0, pad[0]))
+    with annotate("serve.upload"):
+        vol = torch.as_tensor(volume, dtype=torch.float32, device=device)
+        orig_shape = tuple(vol.shape[:3])
+        # pad (end-only) so every dim fits at least one patch
+        pad = [max(0, p - s) for p, s in zip(patch, orig_shape)]
+        if any(pad):
+            vol = F.pad(vol, (0, 0, 0, pad[2], 0, pad[1], 0, pad[0]))
     shape = tuple(vol.shape[:3])
 
     coords = grid_coords(shape, patch, stride).tolist()
@@ -98,15 +103,18 @@ def _stitch_sums(forward_fn: Callable[[torch.Tensor], torch.Tensor], volume,
         cs = coords[j:j + batch_size]
         patches = torch.stack([vol[d:d + pd, h:h + ph, w:w + pw]
                                for d, h, w in cs])
-        probs = forward_fn(patches).float()
-        for i, (d, h, w) in enumerate(cs):
-            a, b = max(d, d0), min(d + pd, d1)     # the patch's planes here
-            if a >= b:
-                continue
-            wgt = weights[j + i]
-            sl = (slice(a - d0, b - d0), slice(h, h + ph), slice(w, w + pw))
-            sums[sl] += wgt * probs[i, a - d:b - d]
-            cnts[sl] += wgt
+        with annotate("serve.forward"):
+            probs = forward_fn(patches).float()
+        with annotate("serve.stitch"):
+            for i, (d, h, w) in enumerate(cs):
+                a, b = max(d, d0), min(d + pd, d1)   # the patch's planes here
+                if a >= b:
+                    continue
+                wgt = weights[j + i]
+                sl = (slice(a - d0, b - d0), slice(h, h + ph),
+                      slice(w, w + pw))
+                sums[sl] += wgt * probs[i, a - d:b - d]
+                cnts[sl] += wgt
     return sums, cnts, orig_shape, d0
 
 
@@ -135,14 +143,16 @@ def decode_labels(sums: torch.Tensor, cnts: torch.Tensor, threshold: float,
     regions: a region fires where `sums > threshold·cnts` — for 0.5 the
     product is exact in fp32, so this is the exact predicate mean > t.
     classes: argmax of the sums (the count is class-independent), then
-    index 3 → label 4."""
+    index 3 → label 4.  The span `serve.decode`."""
     d, h, w = crop
-    sums = sums[:d, :h, :w]
-    cnts = cnts[:d, :h, :w]
-    if label_mode == "classes":
-        return class_indices_to_labels(sums.argmax(dim=-1))
-    fire = sums > threshold * cnts
-    return region_masks_to_labels(fire[..., 0], fire[..., 1], fire[..., 2])
+    with annotate("serve.decode"):
+        sums = sums[:d, :h, :w]
+        cnts = cnts[:d, :h, :w]
+        if label_mode == "classes":
+            return class_indices_to_labels(sums.argmax(dim=-1))
+        fire = sums > threshold * cnts
+        return region_masks_to_labels(fire[..., 0], fire[..., 1],
+                                      fire[..., 2])
 
 
 def sliding_window_labels(forward_fn, volume, patch_size: Sequence[int],

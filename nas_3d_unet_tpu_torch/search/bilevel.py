@@ -84,6 +84,7 @@ from ..train.optim import AdamW, make_optimizer
 from ..utils.device import resolve_device
 from ..utils.logging import MetricsLogger
 from ..utils.params import count_params
+from ..utils.profiling import annotate
 
 
 class ArchBound(nn.Module):
@@ -160,30 +161,51 @@ def make_search_step(net: nn.Module, w_opt: AdamW, a_opt: AdamW,
     intensity_scale=…) for the train batch; `augment_val` also augments
     the val batch (the reference runs none there, so α's gradients come
     from clean batches by default).  Draws come from `gen`, a generator on
-    the net's device that the caller keeps, train batch first."""
+    the net's device that the caller keeps, train batch first.
+
+    Spans: `search.step` ⊃ `search.augment`, `search.alpha` (the val
+    forward, α's gradients and AdamW on α), `search.weights` (the w-step,
+    with its `step.forward` and `step.backward`)."""
     loss_fn = get_loss_fn(label_mode)
     aug = augmenter(augment, gen, mesh)
     bound = ArchBound(net)
     slab = None if mesh is None else mesh.slab
 
-    def step(x_tr, y_tr, x_val, y_val) -> Dict[str, torch.Tensor]:
-        x_tr, y_tr = aug(x_tr, y_tr)
-        if augment_val:
-            x_val, y_val = aug(x_val, y_val)
-        x_tr, y_tr, x_val, y_val = cut_slab(slab, net, x_tr, y_tr, x_val,
-                                            y_val)
-        # (1) architecture step on the val batch, the weights frozen
+    def alpha_step(x_tr, y_tr, x_val, y_val):
         with _frozen(w_opt.params), spatial.sharded_d(slab):
             val_loss = loss_fn(net(x_val, arch_weights_from_alphas(alphas)),
                                y_val)
             a_grads = torch.autograd.grad(val_loss, a_opt.params,
                                           allow_unused=True,
                                           materialize_grads=True)
-        val_loss = _alpha_update(a_opt, a_grads, val_loss, mesh)
-        # (2) weight step on the train batch, under the updated α
-        train_loss = _w_update(bound, w_opt, x_tr, y_tr, loss_fn, alphas,
-                               mesh)
-        return {"train_loss": train_loss, "val_loss": val_loss}
+        return _alpha_update(a_opt, a_grads, val_loss, mesh)
+
+    return _bilevel(alpha_step, aug, augment_val, slab, net, bound, w_opt,
+                    loss_fn, alphas, mesh)
+
+
+def _bilevel(alpha_step: Callable, aug: Callable, augment_val: bool,
+             slab: Optional[spatial.Slab], net: nn.Module, bound: ArchBound,
+             w_opt: AdamW, loss_fn: Callable,
+             alphas: Mapping[str, torch.Tensor], mesh: Optional[Mesh]):
+    """The search step around `alpha_step(x_tr, y_tr, x_val, y_val)` → the
+    val loss: augment and cut the batches, (1) the architecture step, (2)
+    the weight step on the train batch under the updated α."""
+
+    def step(x_tr, y_tr, x_val, y_val) -> Dict[str, torch.Tensor]:
+        with annotate("search.step"):
+            with annotate("search.augment"):
+                x_tr, y_tr = aug(x_tr, y_tr)
+                if augment_val:
+                    x_val, y_val = aug(x_val, y_val)
+                x_tr, y_tr, x_val, y_val = cut_slab(slab, net, x_tr, y_tr,
+                                                    x_val, y_val)
+            with annotate("search.alpha"):
+                val_loss = alpha_step(x_tr, y_tr, x_val, y_val)
+            with annotate("search.weights"):
+                train_loss = _w_update(bound, w_opt, x_tr, y_tr, loss_fn,
+                                       alphas, mesh)
+            return {"train_loss": train_loss, "val_loss": val_loss}
 
     return step
 
@@ -248,29 +270,22 @@ def make_search_step_unrolled(net: nn.Module, w_opt: AdamW, a_opt: AdamW,
     """The second-order DARTS step (`search.unrolled`): as
     `make_search_step`, but the α-step's gradient is that of the val loss
     after a virtual w-step of size `xi` (`unrolled_alpha_grads`); the
-    w-step then runs under the updated α."""
+    w-step then runs under the updated α.  Its spans are
+    `make_search_step`'s; `search.alpha` holds the whole unrolled
+    gradient."""
     loss_fn = get_loss_fn(label_mode)
     aug = augmenter(augment, gen, mesh)
     bound = ArchBound(net)
     slab = None if mesh is None else mesh.slab
 
-    def step(x_tr, y_tr, x_val, y_val) -> Dict[str, torch.Tensor]:
-        x_tr, y_tr = aug(x_tr, y_tr)
-        if augment_val:
-            x_val, y_val = aug(x_val, y_val)
-        x_tr, y_tr, x_val, y_val = cut_slab(slab, net, x_tr, y_tr, x_val,
-                                            y_val)
-        # (1) architecture step on the unrolled objective
+    def alpha_step(x_tr, y_tr, x_val, y_val):
         val_loss, a_grads = unrolled_alpha_grads(
             net, alphas, a_opt.params, xi, x_tr, y_tr, x_val, y_val, loss_fn,
             mesh)
-        val_loss = _alpha_update(a_opt, a_grads, val_loss, mesh)
-        # (2) weight step on the train batch, under the updated α
-        train_loss = _w_update(bound, w_opt, x_tr, y_tr, loss_fn, alphas,
-                               mesh)
-        return {"train_loss": train_loss, "val_loss": val_loss}
+        return _alpha_update(a_opt, a_grads, val_loss, mesh)
 
-    return step
+    return _bilevel(alpha_step, aug, augment_val, slab, net, bound, w_opt,
+                    loss_fn, alphas, mesh)
 
 
 def make_warmup_step(net: nn.Module, w_opt: AdamW,

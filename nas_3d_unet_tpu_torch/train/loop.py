@@ -86,6 +86,7 @@ from ..parallel.spatial import Slab
 from ..utils.device import resolve_device
 from ..utils.logging import MetricsLogger
 from ..utils.params import count_params
+from ..utils.profiling import annotate
 from .checkpoint import (latest_checkpoint, load_checkpoint,
                          restore_train_state, save_checkpoint, train_state)
 from .optim import (AdamW, bias_corrections, get_learning_rate,
@@ -100,7 +101,9 @@ def loss_and_grads(model: torch.nn.Module, x: torch.Tensor, y: torch.Tensor,
     `microbatch` > 0 and < B: the mean over k = B / microbatch slices, slice
     i holding samples i, i + k, … (the reference's strided grouping,
     `loop.py:111-144`); each slice runs its own forward and backward, so
-    only one slice's activations are live at a time."""
+    only one slice's activations are live at a time.  Each slice's
+    forward (with the loss) and backward are the spans `step.forward` and
+    `step.backward`."""
     params = list(model.parameters())
     for p in params:
         p.grad = None
@@ -112,14 +115,18 @@ def loss_and_grads(model: torch.nn.Module, x: torch.Tensor, y: torch.Tensor,
         k = b // microbatch
         loss = torch.zeros((), dtype=torch.float32, device=x.device)
         for i in range(k):
-            loss_i = loss_fn(model(x[i::k]), y[i::k])
-            loss_i.backward()          # .grad sums the slices' gradients
+            with annotate("step.forward"):
+                loss_i = loss_fn(model(x[i::k]), y[i::k])
+            with annotate("step.backward"):
+                loss_i.backward()      # .grad sums the slices' gradients
             loss = loss + loss_i.detach()
         inv = float(np.float32(1.0 / k))
         grads = [p.grad.mul_(inv) for p in params]
         return loss * inv, grads
-    loss = loss_fn(model(x), y)
-    loss.backward()
+    with annotate("step.forward"):
+        loss = loss_fn(model(x), y)
+    with annotate("step.backward"):
+        loss.backward()
     return loss.detach(), [p.grad for p in params]
 
 
@@ -194,7 +201,9 @@ def make_train_step(model: torch.nn.Module, opt: AdamW,
 def _step_body(model, opt, augment, label_mode, microbatch, seed, gen, mesh):
     """(one, gen): `one(x, y)` is one train step (AdamW's `step`: the
     count advances, the scalars come from the host); `one(x, y, scalars)`
-    takes (−lr, 1 − b1^t, 1 − b2^t) as 0-d tensors (AdamW's `update`)."""
+    takes (−lr, 1 − b1^t, 1 − b2^t) as 0-d tensors (AdamW's `update`).
+    Spans: `train.step` ⊃ `train.augment`, the slices' `step.forward` and
+    `step.backward`, `train.optim` (the all-reduce and AdamW)."""
     loss_fn = get_loss_fn(label_mode)
     if gen is None:
         gen = torch.Generator(device=next(model.parameters()).device)
@@ -206,16 +215,21 @@ def _step_body(model, opt, augment, label_mode, microbatch, seed, gen, mesh):
     model.train()
 
     def one(x: torch.Tensor, y: torch.Tensor, scalars=None) -> torch.Tensor:
-        x, y = cut_slab(slab, model, *aug(x, y))
-        with spatial.sharded_d(slab):
-            loss, grads = loss_and_grads(model, x, y, loss_fn, microbatch)
-        if mesh is not None:
-            mesh.all_reduce_mean_([*grads, loss], slab_parts=len(grads))
-        if scalars is None:
-            opt.step(grads)
-        else:
-            opt.update(grads, *scalars)
-        return loss
+        with annotate("train.step"):
+            with annotate("train.augment"):
+                x, y = cut_slab(slab, model, *aug(x, y))
+            with spatial.sharded_d(slab):
+                loss, grads = loss_and_grads(model, x, y, loss_fn,
+                                             microbatch)
+            with annotate("train.optim"):
+                if mesh is not None:
+                    mesh.all_reduce_mean_([*grads, loss],
+                                          slab_parts=len(grads))
+                if scalars is None:
+                    opt.step(grads)
+                else:
+                    opt.update(grads, *scalars)
+            return loss
 
     return one, gen
 
@@ -235,7 +249,9 @@ def make_train_step_n(model: torch.nn.Module, opt: AdamW,
     card the n steps are one CUDA graph (see the module docstring);
     `step_n.launches_at_capture` holds the kernel launches it recorded.
     The graph bakes in `opt.weight_decay` and reads `opt.lr` at every
-    call."""
+    call.  Spans: `train.step_n` ⊃ `train.stage` (the batches and scalars
+    copied in) and, on the card, `train.replay` (the capture at the first
+    call, then the graph's launch); on the CPU the n `train.step`s."""
     if n < 1:
         raise ValueError(f"steps_per_call={n} must be at least 1")
     if mesh is not None and mesh.world > 1:
@@ -281,18 +297,21 @@ def make_train_step_n(model: torch.nn.Module, opt: AdamW,
     graphed: list = []                       # (graph, its output losses)
 
     def step_n(xs, ys) -> torch.Tensor:
-        stage(xs, ys)
-        if dev.type == "cuda":
-            if not graphed:
-                graphed.append(_capture(body, n, opt, gen,
-                                        step_n.launches_at_capture))
-            graph, out = graphed[0]
-            graph.replay()
-            losses = out.clone()
-        else:
-            losses = body(n)
-        opt.count += n
-        return losses
+        with annotate("train.step_n"):
+            with annotate("train.stage"):
+                stage(xs, ys)
+            if dev.type == "cuda":
+                with annotate("train.replay"):
+                    if not graphed:
+                        graphed.append(_capture(body, n, opt, gen,
+                                                step_n.launches_at_capture))
+                    graph, out = graphed[0]
+                    graph.replay()
+                losses = out.clone()
+            else:
+                losses = body(n)
+            opt.count += n
+            return losses
 
     step_n.launches_at_capture = collections.Counter()
     return step_n
