@@ -40,6 +40,20 @@ Phases, each printed as JSON lines:
      copies), K5a moments and K5b weighted_sums in bf16 and fp32.  bf16
      K1/K2 moments are also held against float64 sums of the y the kernel
      stored.
+ 5a. depthwise: the depthwise 3^3 conv of SepConv (`ops/depthwise.py`,
+     csrc/depthwise.cu) against its twins at every geometry of the
+     flagship's SepConvs (DW_GEOMS): the forward, dx and dw (its partials
+     and their sum) in bf16 at batch 1 (launches per train step) and in
+     fp32 at batch 2 (the forward per served forward; dx and dw off the
+     path), and off the path DW_EXTRA (the scalar path, odd volumes):
+     bf16 within DW_ULPS of the fp32 twin of the same inputs (the bf16
+     cuDNN twin's distance beside it), fp32 within DW_RTOL of the twin's
+     largest value, the same bits twice; device ms and host ms, the
+     twin's (today's route: cuDNN on the padded, permuted view) and
+     cuDNN's on contiguous NCDHW and channels_last_3d tensors (the
+     yardstick only).  Phases 4 and 6 hold the depthwise launches
+     (`_cuda.DEPTHWISE_LAUNCHES`) to one of each kernel a SepConv a
+     forward (and backward).
   6. train: the flagship in bf16 trained as bench.py's bench_train does
      (batch 2 of 128^3, microbatch 1, AdamW 3e-4 / 1e-4, flips and
      intensity jitter), synthetic x and y from --seed.  One step's
@@ -84,7 +98,8 @@ Phases, each printed as JSON lines:
      gated, with whether one step's gradients repeat bit for bit, as the
      path runs and with cuDNN held to deterministic algorithms, the ops
      PyTorch reports as nondeterministic, and whether the depthwise conv's
-     backward and K1's cuDNN weight gradient repeat at 128^3 and 64^3),
+     dx and dw (the port's kernels) and K1's cuDNN weight gradient repeat
+     at 128^3 and 64^3),
      `train -o train.steps_per_call=3` likewise (1 epoch, then resumed to
      2: finite losses, the resume at step 3, the checkpoint), and
      `predict` from the
@@ -336,6 +351,7 @@ SRC_STATS = "nas_3d_unet_tpu_torch/csrc/stats.cu"
 SRC_CONV = "nas_3d_unet_tpu_torch/csrc/conv3d.cu"
 SRC_GN = "nas_3d_unet_tpu_torch/csrc/groupnorm.cu"
 SRC_PROBES = "nas_3d_unet_tpu_torch/csrc/probes.cu"
+SRC_DW = "nas_3d_unet_tpu_torch/csrc/depthwise.cu"
 SRC_MMA = "nas_3d_unet_tpu_torch/csrc/conv_mma.cuh"   # in pgemm.cu, conv3d.cu
 SRC_GMMA = "nas_3d_unet_tpu_torch/csrc/gemm_mma.cuh"  # in pgemm.cu, conv3d.cu
 SRC_FMA = "nas_3d_unet_tpu_torch/csrc/conv_fma.cuh"   # in pgemm.cu, conv3d.cu
@@ -345,7 +361,8 @@ SOURCES = {"moments": SRC_STATS, "weighted_sums": SRC_STATS,
            "weighted_sums_masked": SRC_STATS, "group_norm_apply": SRC_GN,
            "group_norm_dx": SRC_GN, "conv3d": SRC_CONV,
            "pointwise_conv": SRC_CONV, "conv_transpose2x": SRC_CONV,
-           "copy_rows": SRC_PROBES,
+           "copy_rows": SRC_PROBES, "dw3_fwd": SRC_DW, "dw3_dgrad": SRC_DW,
+           "dw3_wgrad": SRC_DW,
            **{f"pg_{v}": SRC_PROBES for v in PG_VARIANTS},
            "conv3x3x3_bf16": SRC_MMA, "conv3d_bf16": SRC_MMA,
            "conv3x3x3_stats_bf16": SRC_MMA, "gemm_stats_bf16": SRC_GMMA,
@@ -368,6 +385,9 @@ REPLACES = {
     "pointwise_conv": "nas_3d_unet_tpu/ops/pallas/conv3d.py:279",     # K7
     "conv_transpose2x": "nas_3d_unet_tpu/ops/pallas/conv3d.py:356",   # K4
     "copy_rows": "experiments/r3_dma_probe.py:28",                    # E1
+    # no TPU kernel: XLA's grouped conv of SepConv's depthwise conv
+    **{k: "none (nas_3d_unet_tpu/ops/primitives.py SepConv, XLA)"
+       for k in ("dw3_fwd", "dw3_dgrad", "dw3_wgrad")},
     **{f"pg_{v}": "experiments/r3_pg_variants.py:129"                 # E2
        for v in PG_VARIANTS},
 }
@@ -422,6 +442,22 @@ K5B_TRAIN = [(16, 64, 2), (16, 128, 14), (32, 32, 2), (32, 64, 22),
              (32, 128, 4), (48, 128, 2), (64, 16, 2), (64, 32, 22),
              (64, 64, 6), (128, 16, 8), (128, 32, 6), (256, 16, 2)]
 MICRO = 1
+
+# The depthwise 3^3 conv of SepConv (`ops/depthwise.py`, csrc/depthwise.cu),
+# every path: (C, input edge or volume, stride, launches per forward); a
+# train step runs each forward, dx and dw twice at batch 1, serving each
+# forward once at batch 2
+DW_GEOMS = [(16, 128, 1, 2), (32, 64, 1, 2), (64, 32, 1, 2),
+            (32, 128, 2, 1), (64, 64, 2, 1), (128, 32, 2, 1)]
+# off the path: the scalar path (C 3 and 1; C 48 at an odd volume whose
+# stride-2 pads are lax's (1, 1)), an odd edge at stride 2
+DW_EXTRA = [(3, RAGGED, 1, 0), (48, RAGGED, 2, 0), (1, 17, 2, 0),
+            (16, 33, 2, 0)]
+DW_RTOL = 1e-5       # fp32: |kernel - twin| <= DW_RTOL * max |twin|
+DW_ULPS = 1          # bf16: against the fp32 twin of the same inputs
+# the kernels a flagship forward and its backward launch, per SepConv
+DW_FORWARD = ("dw3_fwd",)
+DW_BACKWARD = ("dw3_dgrad", "dw3_wgrad", "dw3_wsum")
 
 # The use_pallas configuration (phases 7-9), launches per forward at batch
 # 2; a train step runs each twice at batch 1.  K1 runs for the stem alone
@@ -901,6 +937,89 @@ def check_gemm(dev, gen, k, n, v, batch, dtype):
     return rec
 
 
+def _dw_library(part, layout, g, x, w, dy):
+    """One cuDNN call doing a depthwise part's work (the yardstick only:
+    the port never calls it): F.conv3d(groups=C) with a symmetric pad, or
+    its input or weight gradient, on NCDHW tensors contiguous in `layout`
+    (torch.contiguous_format or torch.channels_last_3d)."""
+    c = x.shape[-1]
+    xt = x.permute(0, 4, 1, 2, 3).contiguous(memory_format=layout)
+    wt = w.permute(4, 3, 0, 1, 2).contiguous()
+    if part == "fwd":
+        return lambda: torch.nn.functional.conv3d(
+            xt, wt, stride=g.stride, padding=1, groups=c)
+    gt = dy.permute(0, 4, 1, 2, 3).contiguous(memory_format=layout)
+    mask = [part == "dgrad", part == "wgrad", False]
+    return lambda: torch.ops.aten.convolution_backward(
+        gt, xt, wt, None, [g.stride] * 3, [1] * 3, [1] * 3, False, [0] * 3,
+        c, mask)
+
+
+def _ulps(k, ref):
+    """|k - ref| in ulps of bf16 at |ref| (floored at Y_ULP_FLOOR), ref
+    fp32."""
+    e = torch.frexp(ref.abs().clamp_min(Y_ULP_FLOOR))[1]
+    return ((k.float() - ref).abs() / torch.ldexp(torch.ones_like(ref),
+                                                  e - 8)).max().item()
+
+
+def check_depthwise(dev, gen, part, c, v, stride, batch, dtype):
+    """One part of the depthwise conv (`fwd` y = DW(x, w), `dgrad` dx =
+    DWT(dy, w), `wgrad` dw = DWW(x, dy): its two launches) against its
+    twin at one geometry: fp32 within DW_RTOL of the twin's largest
+    value; bf16 within DW_ULPS of the fp32 twin of the same inputs (the
+    bf16 cuDNN twin's own distance beside it); the same bits twice; the
+    kernel's device ms against the twin's (today's route: cuDNN on the
+    padded, permuted view) and cuDNN's on contiguous NCDHW and
+    channels_last_3d tensors."""
+    from nas_3d_unet_tpu_torch.ops import depthwise as dwo
+    from nas_3d_unet_tpu_torch.ops.conv3d import same_pad
+
+    vol = _volume(v)
+    pads = [same_pad(n, 3, stride, 1) for n in vol]
+    g = dwo.geometry(vol, stride, [a for a, _ in pads], [b for _, b in pads])
+    x = torch.randn((batch, *vol, c), generator=gen, device=dev)
+    w = torch.randn((3, 3, 3, 1, c), generator=gen, device=dev) / 27 ** 0.5
+    dy = torch.randn((batch, *g.y, c), generator=gen, device=dev)
+    x, w, dy = x.to(dtype), w.to(dtype), dy.to(dtype)
+    kernel, twin, args = {
+        "fwd": (dwo.dw, dwo.dw_twin, (x, w, g)),
+        "dgrad": (dwo.dwt, dwo.dwt_twin, (dy, w, g)),
+        "wgrad": (dwo.dww, dwo.dww_twin, (x, dy, g))}[part]
+    with torch.no_grad():
+        out_k = kernel(*args)
+        rep = _repeatable(kernel, args, out_k)
+        ref = twin(*[a.float() for a in args[:2]], g)
+        out_t = twin(*args)
+    torch.cuda.synchronize()
+    rec = {"part": part, "c": c, "volume": v, "stride": stride,
+           "batch": batch, "bitwise_repeatable": rep,
+           "y_max_abs": (out_k.float() - ref).abs().max().item()}
+    if dtype == torch.bfloat16:
+        rec["max_ulps"] = _ulps(out_k, ref)
+        rec["twin_max_ulps"] = _ulps(out_t, ref)
+        ok = rec["max_ulps"] <= DW_ULPS
+    else:
+        rec["max_rel"] = rec["y_max_abs"] / ref.abs().max().item()
+        ok = rec["max_rel"] <= DW_RTOL
+    with torch.no_grad():
+        rec["ms"], rec["host_ms"] = device_ms(kernel, args)
+        rec["plain_ms"] = device_ms(twin, args, iters=5)[0]
+        for name, layout in (("library_ms", torch.contiguous_format),
+                             ("library_cl_ms", torch.channels_last_3d)):
+            rec[name] = device_ms(_dw_library(part, layout, g, x, w, dy),
+                                  (), iters=5)[0]
+    e = x.element_size()
+    small, big = math.prod(g.y), math.prod(vol)
+    elems = {"fwd": big + small, "dgrad": small + big,
+             "wgrad": big + small}[part] * batch * c
+    # FMAs on the fp32 pipes (27 a tap-sum element), whatever the dtype
+    rec["bound_ms"], rec["bound_by"] = bound_ms(
+        elems * e + 27 * c * e, 54.0 * batch * c * small, torch.float32)
+    rec["ok"] = ok and rep
+    return rec
+
+
 def _ncdhw(t):
     """An NDHWC tensor as a contiguous NCDHW copy: PyTorch's GroupNorm
     layout (its CPU backward crashes on the channels-last view)."""
@@ -1278,6 +1397,23 @@ def phase_train_kernels(dev, gen, summary):
                        c, v, MICRO, dtype)
 
 
+def phase_depthwise(dev, gen, summary):
+    """The depthwise conv's kernels (phase 5a): forward, dx and dw at every
+    geometry of the flagship's SepConvs, in bf16 at batch 1 (per_unit =
+    launches per train step) and in fp32 at batch 2 (the forward per
+    served forward; dx and dw off the path); DW_EXTRA off the path."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    for dtype, batch, per_fwd, per_bwd in ((bf16, MICRO, 2, 2),
+                                           (f32, BATCH, 1, 0)):
+        t = SUFFIX[dtype]
+        for part, per in (("fwd", per_fwd), ("dgrad", per_bwd),
+                          ("wgrad", per_bwd)):
+            for c, v, stride, n in DW_GEOMS + DW_EXTRA:
+                _run_check("depthwise", f"dw3_{part}_{t}", check_depthwise,
+                           summary, per * n, dev, gen, part, c, v, stride,
+                           batch, dtype)
+
+
 def phase_pallas_kernels(dev, gen, summary):
     """The use_pallas kernels: fp32 at batch 2 (per_unit = launches per
     forward), bf16 at batch 1 (per_unit = launches per train step)."""
@@ -1371,6 +1507,16 @@ def _modules_per_forward(net):
     else:
         out["weighted_sums"] = len(norms)
     return {k: n for k, n in out.items() if n}
+
+
+def _depthwise_launches(net, kernels, t, units):
+    """The depthwise conv's launches (`_cuda.DEPTHWISE_LAUNCHES`) of
+    `units` forwards (and their backwards) of `net`: one of each of
+    `kernels` a SepConv."""
+    from nas_3d_unet_tpu_torch.ops.primitives import SepConv
+
+    n = sum(isinstance(m, SepConv) for m in net.modules())
+    return {f"{k}_{t}": n * units for k in kernels if n}
 
 
 def flagship_net(seed, dtype="float32", use_pallas=False):
@@ -1476,11 +1622,17 @@ def noting_kernels(seen):
 
 def twin_path():
     """Context that routes every kernel of the net to its plain twin (K1,
-    K2, K6, K7 and K4 with plain autograd, so dx goes through cuDNN's own
-    backward; K3 as plain PyTorch with autograd through its statistics)."""
-    from nas_3d_unet_tpu_torch.ops import conv3d, groupnorm, pgemm, stats
+    K2, K6, K7, K4 and the depthwise conv with plain autograd, so dx goes
+    through cuDNN's own backward; K3 as plain PyTorch with autograd
+    through its statistics)."""
+    from nas_3d_unet_tpu_torch.ops import (conv3d, depthwise, groupnorm,
+                                           pgemm, stats)
+
+    def depthwise_twin(x, w, stride=1):
+        return conv3d.conv3d_same(x, w, stride, groups=x.shape[-1])
 
     return _patched({(pgemm, "conv3x3x3_stats"): pgemm.conv3x3x3_stats_twin,
+                     (depthwise, "depthwise3"): depthwise_twin,
                      (pgemm, "gemm_stats"): pgemm.gemm_stats_twin,
                      (stats, "moments"): stats.moments_twin,
                      (stats, "weighted_sums"): stats.weighted_sums_twin,
@@ -1613,6 +1765,7 @@ def phase_slice(dev, seed, use_pallas=False):
     labels_seen.clear()
 
     _cuda.LAUNCHES.clear()
+    _cuda.DEPTHWISE_LAUNCHES.clear()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = predict_records(predictor, [(r["patient"], r) for r in recs],
@@ -1620,6 +1773,7 @@ def phase_slice(dev, seed, use_pallas=False):
     torch.cuda.synchronize()
     s_per_patient = (time.perf_counter() - t0) / len(recs)
     launches = dict(_cuda.LAUNCHES)
+    dw_launches = dict(_cuda.DEPTHWISE_LAUNCHES)
 
     stride = tuple(max(1, int(round(p * (1 - OVERLAP)))) for p in PATCH)
     forwards = len(recs) * math.ceil(len(grid_coords(SHAPE, PATCH, stride))
@@ -1627,6 +1781,7 @@ def phase_slice(dev, seed, use_pallas=False):
     per_fwd = _modules_per_forward(net)
     expected = {f"{k}_f32": n * forwards for k, n in per_fwd.items()
                 if k in FORWARD_KERNELS}
+    dw_expected = _depthwise_launches(net, DW_FORWARD, "f32", forwards)
     dice = [r["dice"] for r in out]
     label_sets = [sorted(torch.unique(t).tolist()) for t in labels_seen]
     emit({"phase": phase, "patients": len(out), "volume": list(SHAPE),
@@ -1634,6 +1789,8 @@ def phase_slice(dev, seed, use_pallas=False):
           "setup_s": setup_s, "forwards": forwards,
           "launches_per_forward": per_fwd,
           "launches": launches, "expected_launches": expected,
+          "depthwise_launches": dw_launches,
+          "expected_depthwise_launches": dw_expected,
           "dice": dice, "label_values": label_sets,
           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 2 ** 30})
     if [r["patient"] for r in out] != [r["patient"] for r in recs]:
@@ -1641,6 +1798,9 @@ def phase_slice(dev, seed, use_pallas=False):
     if per_fwd != PER_FORWARD[use_pallas] or launches != expected:
         raise AssertionError(f"launch counts {launches} != {expected} "
                              f"(per forward {per_fwd})")
+    if dw_launches != dw_expected:
+        raise AssertionError(f"depthwise launches {dw_launches} != "
+                             f"{dw_expected}")
     if len(labels_seen) != len(recs):
         raise AssertionError("a patient's labels were not seen")
     for t in labels_seen:
@@ -1649,7 +1809,7 @@ def phase_slice(dev, seed, use_pallas=False):
             raise AssertionError(f"bad label volume {t.dtype} {t.shape}")
     if not all(math.isfinite(v) for d in dice for v in d.values()):
         raise AssertionError(f"non-finite Dice {dice}")
-    return launches, s_per_patient
+    return {**launches, **dw_launches}, s_per_patient
 
 
 def synthetic_batch(dev, seed):
@@ -1823,6 +1983,7 @@ def phase_train(dev, seed, use_pallas=False):
     warm = [step(x, y).item() for _ in range(WARMUP_STEPS)]
     warm_s = time.perf_counter() - t0
     _cuda.LAUNCHES.clear()
+    _cuda.DEPTHWISE_LAUNCHES.clear()
     torch.cuda.reset_peak_memory_stats(dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1831,9 +1992,12 @@ def phase_train(dev, seed, use_pallas=False):
     step_s = (time.perf_counter() - t0) / TIMED_STEPS
     losses = [v.item() for v in losses]
     launches = dict(_cuda.LAUNCHES)
+    dw_launches = dict(_cuda.DEPTHWISE_LAUNCHES)
     per = _modules_per_forward(net)
     slices = TRAIN_BATCH // MICRO
     expected = {f"{k}_bf16": n * slices * TIMED_STEPS for k, n in per.items()}
+    dw_expected = _depthwise_launches(net, DW_FORWARD + DW_BACKWARD, "bf16",
+                                      slices * TIMED_STEPS)
     traced = None if use_pallas else traced_in_child(dev, seed)
     rec = {"phase": phase, "batch": TRAIN_BATCH, "patch": TRAIN_PATCH,
            "microbatch": MICRO, "dtype": "bfloat16",
@@ -1841,14 +2005,20 @@ def phase_train(dev, seed, use_pallas=False):
            "warmup_losses": warm, "warmup_s": warm_s, "losses": losses,
            "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
            "launches_per_microbatch": per, "launches": launches,
-           "expected_launches": expected, "traced_step": traced}
+           "expected_launches": expected,
+           "depthwise_launches": dw_launches,
+           "expected_depthwise_launches": dw_expected,
+           "traced_step": traced}
     emit(rec)
     if not all(map(math.isfinite, warm + losses)):
         raise AssertionError(f"non-finite loss {warm + losses}")
     if per != PER_FORWARD[use_pallas] or launches != expected:
         raise AssertionError(f"launch counts {launches} != {expected} "
                              f"(per microbatch {per})")
-    return launches, rec
+    if dw_launches != dw_expected:
+        raise AssertionError(f"depthwise launches {dw_launches} != "
+                             f"{dw_expected}")
+    return {**launches, **dw_launches}, rec
 
 
 # Phase "train_n" (train.steps_per_call): TRAIN_N steps a call, two calls
@@ -2202,6 +2372,7 @@ def phase_search(dev, seed):
     alpha_fixed = all(torch.equal(alphas[k], a0[k]) for k in alphas)
 
     _cuda.LAUNCHES.clear()
+    _cuda.DEPTHWISE_LAUNCHES.clear()
     torch.cuda.synchronize()
     steps_s, losses = [], []
     for _ in range(SEARCH_STEPS):
@@ -2211,6 +2382,8 @@ def phase_search(dev, seed):
         steps_s.append(time.perf_counter() - t0)
         losses.append({k: v.item() for k, v in m.items()})
     launches = dict(_cuda.LAUNCHES)
+    dw_per_step = {k: v / SEARCH_STEPS
+                   for k, v in _cuda.DEPTHWISE_LAUNCHES.items()}
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     alpha_moved = any(not torch.equal(alphas[k], a0[k]) for k in alphas)
 
@@ -2242,6 +2415,7 @@ def phase_search(dev, seed):
            "warmup_launches": warm_launches,
            "expected_warmup_launches": expected_warm,
            "launches": launches, "expected_launches": expected,
+           "depthwise_launches_per_bilevel_step": dw_per_step,
            "genotype": json.loads(genotype.to_json()),
            "derived_forward_ok": derived_ok,
            "seconds": time.perf_counter() - t_phase}
@@ -3555,11 +3729,13 @@ def grad_repeatability(dev, seed):
 
 
 def cudnn_backward_repeats(dev, seed):
-    """Whether the cuDNN backwards of the path repeat bit for bit at the
+    """Whether the backwards of the path repeat bit for bit at the
     flagship's two largest levels (bf16, batch 1, as a microbatch runs
-    them): the depthwise 3³ conv's dx and dw (SepConv) and K1's plain
-    weight gradient (`conv3d_weight`), each twice on the same inputs."""
-    from nas_3d_unet_tpu_torch.ops.conv3d import conv3d_same
+    them), each twice on the same inputs with cuDNN's default settings:
+    the depthwise 3³ conv's dx and dw (SepConv, the port's kernels
+    `dw3_dgrad`, `dw3_wgrad` and `dw3_wsum`) and K1's plain weight
+    gradient (cuDNN's `conv3d_weight`)."""
+    from nas_3d_unet_tpu_torch.ops import depthwise
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -3568,17 +3744,17 @@ def cudnn_backward_repeats(dev, seed):
         x = torch.randn((1, edge, edge, edge, c), generator=gen,
                         device=dev).bfloat16()
         g = torch.randn(x.shape, generator=gen, device=dev).bfloat16()
-        w = torch.randn((3, 3, 3, 1, c), generator=gen, device=dev) * 0.2
+        w = (torch.randn((3, 3, 3, 1, c), generator=gen, device=dev)
+             * 0.2).bfloat16()
         wk = torch.randn((3, 3, 3, c, c), generator=gen, device=dev) * 0.05
+        geo = depthwise.geometry(x.shape[1:4], 1, (1, 1, 1), (1, 1, 1))
         runs = []
         for _ in range(2):
-            xr = x.clone().requires_grad_()
-            wr = w.bfloat16().requires_grad_()
-            conv3d_same(xr, wr, 1, groups=c).backward(g)
             dwk = torch.nn.grad.conv3d_weight(
                 x.permute(0, 4, 1, 2, 3), wk.permute(4, 3, 0, 1, 2).shape,
                 g.permute(0, 4, 1, 2, 3), padding=1)
-            runs.append((xr.grad, wr.grad, dwk))
+            runs.append((depthwise.dwt(g, w, geo), depthwise.dww(x, g, geo),
+                         dwk))
         (a, b) = runs
         out[f"{edge}^3x{c}"] = {
             "depthwise_dx": torch.equal(a[0], b[0]),
@@ -4598,7 +4774,8 @@ def main() -> int:
     ptxas = [ln.strip() for ln in log.splitlines()
              if "registers" in ln or "spill" in ln]
     emit({"phase": "build", "seconds": build_s,
-          "sources": [SRC_PGEMM, SRC_CONV, SRC_STATS, SRC_GN, SRC_PROBES],
+          "sources": [SRC_PGEMM, SRC_CONV, SRC_STATS, SRC_GN, SRC_PROBES,
+                      SRC_DW],
           "flags": " ".join(_build.NVCC_FLAGS), "ptxas": ptxas,
           "ptxas_tensor_core_kernels": ptxas_report(log, (MMA, GMMA)),
           "ptxas_conv_fma": ptxas_report(log, (CFMA,)),
@@ -4624,6 +4801,7 @@ def main() -> int:
         phase_kernels(dev, gen, summary)
         serve_launches, s_per_patient = phase_slice(dev, args.seed)
         phase_train_kernels(dev, gen, summary)
+        phase_depthwise(dev, gen, summary)
         train_launches, train = phase_train(dev, args.seed)
         train_n = phase_train_n(dev, args.seed)
         with tempfile.TemporaryDirectory() as cli_tmp:
@@ -4709,6 +4887,9 @@ def main() -> int:
     kernels += [(f"{n}_bf16", p_train_launches) for n in
                 ("conv3d", "pointwise_conv", "conv_transpose2x",
                  "group_norm_apply", "group_norm_dx", "weighted_sums_masked")]
+    kernels += [("dw3_fwd_f32", serve_launches)]
+    kernels += [(f"dw3_{n}_bf16", train_launches)
+                for n in ("fwd", "dgrad", "wgrad")]
     kernels += [(n, probe_launches) for n in
                 ["copy_rows_bf16"] + [f"pg_{v}_bf16" for v in PG_VARIANTS]]
     line = []

@@ -4,7 +4,9 @@ tensors it hands a kernel, and the launch itself.
 A wrapper takes its kernel's plain twin for a CPU tensor and launches the
 kernel for a CUDA tensor, or raises: there is no fallback from one to the
 other.  `LAUNCHES` counts kernel launches by name (`<kernel>_<f32|bf16>`),
-only on the kernel path, never the twin's.
+only on the kernel path, never the twin's; `DEPTHWISE_LAUNCHES` counts
+the depthwise conv's (`ops/depthwise.py`) apart, so that `LAUNCHES` holds
+the K1-K7 kernels alone.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ from .. import _build
 
 # launches per kernel since the last `LAUNCHES.clear()`
 LAUNCHES: collections.Counter = collections.Counter()
+# the depthwise conv's launches, by the same keys
+DEPTHWISE_LAUNCHES: collections.Counter = collections.Counter()
 
 SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
@@ -34,7 +38,9 @@ for _t in SUFFIX.values():
         f"weighted_sums_masked_{_t}": (4, 10),
         f"conv3d_{_t}": (4, 12), f"pointwise_conv_{_t}": (4, 4),
         f"conv_transpose2x_{_t}": (3, 7),
-        f"group_norm_apply_{_t}": (4, 5), f"group_norm_dx_{_t}": (7, 5)})
+        f"group_norm_apply_{_t}": (4, 5), f"group_norm_dx_{_t}": (7, 5),
+        f"dw3_fwd_{_t}": (3, 14), f"dw3_dgrad_{_t}": (3, 14),
+        f"dw3_wgrad_{_t}": (3, 15), f"dw3_wsum_{_t}": (2, 2)})
 # the probes (csrc/probes.cu), bf16 only
 _SIGNATURES["copy_rows_bf16"] = (2, 3)
 for _v in ("full", "c6", "nodot", "mt4", "fold1536"):
@@ -101,10 +107,11 @@ def check(name: str, *ts: torch.Tensor) -> str:
     return suffix
 
 
-def run(fn: str, dev: torch.device, *args) -> None:
-    """Launch `fn(*args, stream)` on `dev`'s current stream; count it.  The
-    ctypes function is looked up once per name; the device is made current
-    only where it is not already."""
+def run(fn: str, dev: torch.device, *args,
+        counter: collections.Counter = LAUNCHES) -> None:
+    """Launch `fn(*args, stream)` on `dev`'s current stream; count it in
+    `counter`.  The ctypes function is looked up once per name; the device
+    is made current only where it is not already."""
     f = _fns.get(fn)
     if f is None:
         f = _fns[fn] = getattr(lib(), fn)
@@ -117,4 +124,4 @@ def run(fn: str, dev: torch.device, *args) -> None:
             err = f(*args, stream)
     if err != 0:
         raise RuntimeError(f"{fn}: CUDA launch failed with cudaError {err}")
-    LAUNCHES[fn] += 1
+    counter[fn] += 1

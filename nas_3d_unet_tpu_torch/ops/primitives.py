@@ -12,16 +12,19 @@ By default (`use_pallas=False`, the reference's shipped `packed=True`
 path, `ConvNormAct` → `conv_stats_fused_viable`, `ops/packed.py:356`):
   * stride-1 3³ `ConvNormAct` → K1 `pgemm.conv3x3x3_stats` (conv + moments);
   * stride-1 1³ `ConvNormAct` → K2 `pgemm.gemm_stats`;
-  * everything else (stride-2 convs, the depthwise conv, the pointwise conv
-    of `SepConv`, the k2s2 transpose conv) is plain PyTorch with autograd
-    (cuDNN / cuBLAS), as the JAX package leaves it to XLA, followed by
-    GroupNorm from K5a's moments (`ops/stats.py`).
+  * `SepConv`'s depthwise 3³ conv → `depthwise.depthwise3`, the port's
+    own kernels (`csrc/depthwise.cu`) on every path, where the JAX package
+    leaves it to XLA;
+  * everything else (stride-2 convs, the pointwise conv of `SepConv`, the
+    k2s2 transpose conv) is plain PyTorch with autograd (cuDNN / cuBLAS),
+    as the JAX package leaves it to XLA, followed by GroupNorm from K5a's
+    moments (`ops/stats.py`).
 With `use_pallas=True` (the reference's `packed=False, use_pallas=True`,
 `primitives.py:277,331,452`), the edge ops take the `ops/conv3d.py`
 kernels and every GroupNorm is K3 (`groupnorm.pallas_group_norm`: one
 rounding, ReLU fused):
   * 3³ `ConvNormAct` (stride 1 or 2) → K6 `conv3d` → K3;
-  * `SepConv` → cuDNN depthwise → K7 `pointwise_conv` → K3;
+  * `SepConv` → `depthwise3` → K7 `pointwise_conv` → K3;
   * `UpTranspose` → K4 `conv_transpose2x` → K3;
   * the stem and the cells' 1³ projections, which the reference builds
     without `use_pallas` (`unet.py:73-75`, `cell.py:271-274`), keep K1 / K2
@@ -45,7 +48,7 @@ from torch import nn
 
 from ..parallel import spatial
 from . import conv3d as pconv
-from . import groupnorm, pgemm, pool
+from . import depthwise, groupnorm, pgemm, pool
 from .conv3d import conv3d_same
 from .groupnorm import group_norm, group_norm_from_moments
 
@@ -181,8 +184,9 @@ class ConvNormAct(nn.Module):
 
 
 class SepConv(nn.Module):
-    """Depthwise 3³ conv (stride 1 or 2) → pointwise 1³ conv → norm →
-    ReLU.  `use_pallas`: K7 pointwise conv and K3 GroupNorm."""
+    """Depthwise 3³ conv (stride 1 or 2; `depthwise.depthwise3`) →
+    pointwise 1³ conv → norm → ReLU.  `use_pallas`: K7 pointwise conv and
+    K3 GroupNorm."""
 
     def __init__(self, in_channels: int, features: int, stride: int = 1,
                  gn_groups: int = 8, use_pallas: bool = False,
@@ -196,7 +200,7 @@ class SepConv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         c = x.shape[-1]
-        y = conv3d_same(x, self.dw.kernel.to(x.dtype), self.stride, groups=c)
+        y = depthwise.depthwise3(x, self.dw.kernel.to(x.dtype), self.stride)
         pw = self.pw.kernel.to(x.dtype).view(c, -1)
         if self.use_pallas:
             return _norm_relu(self.norm, pconv.pointwise_conv(y, pw))
